@@ -1,12 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (zig_lz4_tpu_torch) on one GPU.
 
-Builds the CUDA kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card, drives the main path --
-``ShardedFrameCodec(compression_level=9).compress_frame`` and
-``.decompress_frame`` over the bench's 48 MB corpus in 64 KB blocks --
-checks the round trips and the level-9 ratio, shows that the main path
-launched every kernel, and times it with CUDA events.
+Builds the CUDA kernels and the C++ host runtime from the sources in
+this checkout, holds each kernel against its plain PyTorch version on
+the card, and drives three paths through ``ShardedFrameCodec`` over the
+bench's 48 MB corpus in 64 KB blocks:
+
+* level 9: ``compress_frame`` and ``decompress_frame`` of independent
+  blocks (kernels ``enc_match``, ``enc_parse_emit``, ``tmap_gather``);
+* level 0: the same with the fast finder (``enc_match_fast``), and the
+  acceleration ratios and a level-4 round trip;
+* linked frames: ``decompress_frame`` of a linked-block frame written
+  by the host frame layer (``linked_tmap_step``,
+  ``linked_hist_shift``), and dictionary frames of both kinds.
+
+It checks the round trips and the ratios, shows by launch counts that
+each path went through its kernels, times paths and kernels with CUDA
+events, and computes each kernel's bound from this run's inputs.
 
 Run from the repository root, with one CUDA device:
 
@@ -15,7 +25,7 @@ Run from the repository root, with one CUDA device:
 Exits non-zero on any failed check.  Imports no JAX.  The last two
 lines of stdout are the card's name and power limit as nvidia-smi
 reports them, then ``{"ok": true, "device": {...}}``; before them one
-JSON line lists every kernel with its launches, error and times.
+JSON line lists every kernel with its launches, error, times and bound.
 """
 
 import json
@@ -26,16 +36,28 @@ import sys
 import time
 
 BLK = 65536
-#: bench.py:437-438 trims the corpus to whole batches of 64 blocks
+#: the bench trims the corpus to whole batches of 64 blocks
 BENCH_BATCH = 64
-#: BENCH_r05.json ``ratio`` (level 9, same corpus): bytes are the same,
-#: so the ratio is too
+#: ratios n / sum(out_len) of the reference on the same corpus; they
+#: depend on the bytes alone: level 9, level 0, and level 0's finder at
+#: acceleration 2, 4, 8
 EXPECT_RATIO = 3.1493
-#: make_corpus(2) blocks of tests/fixtures/l9_corpus64k.npz (one per
-#: content type), with their JAX level-9 payloads
+EXPECT_RATIO_FAST = 2.4175
+EXPECT_RATIO_ACCEL = {2: 2.3525, 4: 2.2022, 8: 2.0919}
+#: make_corpus(2) blocks (one per content type) with their JAX payloads
+#: at level 9, and at levels 0 and 4
 GOLDENS = os.path.join("tests", "fixtures", "l9_corpus64k.npz")
-#: timed runs of each main-path call
+LEVEL_GOLDENS = os.path.join("tests", "fixtures", "levels_corpus64k.npz")
+#: configurations held against plain on the edge-case windows: (hc, accel)
+EDGE_CONFIGS = [(9, 1), (0, 1), (0, 2), (0, 4), (0, 8), (2, 1), (5, 1),
+                (8, 1)]
+#: timed runs of each path's calls
 REPS = 5
+#: published peaks of one H100 SXM: device memory bytes/s, and 32-bit
+#: scalar operations/s outside the tensor cores (the float32 rate; the
+#: kernels' compares and shifts are counted against it)
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
 
 
 class Failed(Exception):
@@ -74,7 +96,29 @@ def max_abs_err(a, b):
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
-def k2_inputs(make_corpus, np):
+def bound(nbytes, nops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate
+    and operations over the scalar rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, nops / PEAK_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def match_ops(B, blk, hc, W, probes):
+    """Operations of the match finders on B windows of blk bytes: a
+    comparison sort needs blk * log2(blk) key comparisons (3 words a key
+    for the 12-byte order, 1 for the 4-byte order), and every probe
+    compares the 4-byte string, W windows and 2 back bytes."""
+    lg = max(blk - 1, 1).bit_length()
+    per_probe = W + 3
+    if hc:
+        ops = blk * lg * 3 + blk * 2 * hc * per_probe       # 12-byte order
+        ops += blk * lg + blk * 2 * per_probe               # fallback
+    else:
+        ops = blk * lg + blk * probes * per_probe
+    return B * ops
+
+
+def edge_inputs(make_corpus, np):
     """8 corpus blocks (one per content type), a 1-byte, an empty and
     an incompressible block, as 64 KB windows."""
     gold = np.load(GOLDENS)
@@ -91,6 +135,32 @@ def k2_inputs(make_corpus, np):
     return windows, lens, gold
 
 
+def equals_goldens(out_h, olen_h, out_len, payloads):
+    """The first len(out_len) rows equal the payloads packed back to
+    back in ``payloads``."""
+    pos, ok = 0, True
+    for k, n in enumerate(out_len):
+        n = int(n)
+        ok &= (int(olen_h[k]) == n
+               and out_h[k, :n].tobytes() == payloads[pos:pos + n].tobytes())
+        pos += n
+    return ok
+
+
+def frame_payloads(frame, lz4f):
+    """The compressed (not stored) block payloads of a frame."""
+    recs, pos = [], lz4f.parse_frame_header(frame)[1]
+    while True:
+        word = int.from_bytes(frame[pos:pos + 4], "little")
+        pos += 4
+        if word == 0:
+            return recs
+        blen = word & 0x7FFFFFFF
+        if not word & 0x80000000:
+            recs.append(frame[pos:pos + blen])
+        pos += blen
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -99,14 +169,15 @@ def main():
         return 2
     import numpy as np
 
-    from zig_lz4_tpu.native import native_resolve_tmap
-    from zig_lz4_tpu_torch import ShardedFrameCodec
+    from zig_lz4_tpu_torch import ShardedFrameCodec, native
     from zig_lz4_tpu_torch import frame as lz4f
     from zig_lz4_tpu_torch.corpus import make_corpus
-    from zig_lz4_tpu_torch.kernels import (KERNELS, LAUNCHES, build,
+    from zig_lz4_tpu_torch.kernels import (KERNELS, LAUNCHES, build, launch,
+                                           reference_path,
                                            reset_launch_counts)
     from zig_lz4_tpu_torch.ops import torch_block as tb
     from zig_lz4_tpu_torch.ops import torch_decode as td
+    from zig_lz4_tpu_torch.parallel.sharded import _scan_blocks
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -115,7 +186,14 @@ def main():
     print(f"[device] {name} x{torch.cuda.device_count()} | nvidia-smi: "
           f"{smi} | torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # --- phase 2: build
+    # --- phase 1: build the host runtime and the kernels
+    t0 = time.perf_counter()
+    check(native.is_available(),
+          "the port's native host runtime did not build or load (g++): "
+          "without it xxh32 runs in Python and T-map decode cannot run")
+    t_native = time.perf_counter() - t0
+    check(os.path.dirname(native._SO).endswith("_build"),
+          f"native runtime loaded from {native._SO}")
     t_build = build()
     log = os.path.join(os.path.dirname(tb.__file__), "..", "_build",
                        "build.log")
@@ -123,56 +201,89 @@ def main():
     if os.path.exists(log):
         regs = [ln.split("info    : ")[-1].strip() for ln in open(log)
                 if "registers" in ln]
-    print(f"[build] {t_build:.2f} s (0 = up to date); ptxas: "
-          + " | ".join(regs))
+    print(f"[build] host runtime {t_native:.2f} s, kernels {t_build:.2f} s "
+          f"(0 = up to date); ptxas: " + " | ".join(regs))
 
     results = {k: {} for k in KERNELS}
+    counts = {k: 0 for k in KERNELS}
+    paths = {}
 
-    # --- phase 3a: K2 kernels against their plain versions
-    windows, lens, gold = k2_inputs(make_corpus, np)
+    def counted(path, fn):
+        """Run ``fn`` as one of the main paths: counts set to 0 just
+        before, read just after."""
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        paths[path] = dict(LAUNCHES)
+        for k, v in paths[path].items():
+            counts[k] += v
+        print(f"[launches] {path}: {paths[path]}")
+        return res
+
+    # --- phase 2a: encoder kernels against their plain versions, every
+    # configuration, on the edge-case windows
+    windows, lens, gold = edge_inputs(make_corpus, np)
     w_d = torch.from_numpy(windows).to(dev)
     l_d = torch.from_numpy(lens).to(dev)
     s_d = torch.zeros_like(l_d)
     tb.parse_emit(w_d, l_d, s_d, tb.match_candidates(w_d, l_d))  # warm-up
-    ms_m, pk = cuda_ms(lambda: tb.match_candidates(w_d, l_d), reps=3)
-    pms_m, pk_plain = cuda_ms(lambda: tb.match_candidates_plain(w_d, l_d))
-    err_m = max_abs_err(pk, pk_plain)
-    ms_p, (out, olen) = cuda_ms(lambda: tb.parse_emit(w_d, l_d, s_d, pk),
-                                reps=3)
-    pms_p, (out_p, olen_p) = cuda_ms(
-        lambda: tb.parse_emit_plain(w_d, l_d, s_d, pk))
-    err_p = max(max_abs_err(out, out_p), max_abs_err(olen, olen_p))
+    tb.match_candidates(w_d, l_d, 0, 1)
+    edge_err = {"enc_match": 0, "enc_match_fast": 0, "enc_parse_emit": 0}
+    edge_out = {}
+    for hc, accel in EDGE_CONFIGS:
+        ms_m, pk = cuda_ms(lambda: tb.match_candidates(w_d, l_d, hc, accel),
+                           reps=3)
+        pms_m, pk_plain = cuda_ms(
+            lambda: tb.match_candidates_plain(w_d, l_d, hc, accel))
+        err_m = max_abs_err(pk, pk_plain)
+        ms_p, (out, olen) = cuda_ms(
+            lambda: tb.parse_emit(w_d, l_d, s_d, pk, hc, accel), reps=3)
+        pms_p, (out_p, olen_p) = cuda_ms(
+            lambda: tb.parse_emit_plain(w_d, l_d, s_d, pk, hc, accel))
+        err_p = max(max_abs_err(out, out_p), max_abs_err(olen, olen_p))
+        kern = "enc_match" if hc else "enc_match_fast"
+        edge_err[kern] = max(edge_err[kern], err_m)
+        edge_err["enc_parse_emit"] = max(edge_err["enc_parse_emit"], err_p)
+        edge_out[hc, accel] = (out.cpu().numpy(), olen.cpu().numpy())
+        print(f"[K2/K3] hc={hc} accel={accel} at {len(lens)} x 64 KB: "
+              f"{kern} {ms_m:.2f} ms (plain {pms_m:.1f} ms) max_abs_err "
+              f"{err_m}; enc_parse_emit {ms_p:.2f} ms (plain {pms_p:.1f} "
+              f"ms) max_abs_err {err_p}; out_len "
+              f"{edge_out[hc, accel][1].tolist()}")
+        check(err_m == 0 and err_p == 0,
+              f"encoder kernels differ from plain at hc={hc} accel={accel}")
     # the 8 corpus blocks against the JAX reference's payloads
-    out_h, olen_h = out.cpu().numpy(), olen.cpu().numpy()
-    pos, gold_ok = 0, True
-    for k, n in enumerate(gold["out_len"]):
-        n = int(n)
-        gold_ok &= (int(olen_h[k]) == n and out_h[k, :n].tobytes()
-                    == gold["payloads"][pos:pos + n].tobytes())
-        pos += n
-    print(f"[K2] enc_match vs plain max_abs_err {err_m}; enc_parse_emit "
-          f"vs plain max_abs_err {err_p}; {len(gold['out_len'])} corpus "
-          f"blocks == JAX goldens: {gold_ok}; out_len "
-          f"{olen_h.tolist()}")
-    check(err_m == 0 and err_p == 0, "K2 kernels differ from plain")
-    check(gold_ok, "K2 output differs from the JAX goldens")
+    level_gold = np.load(LEVEL_GOLDENS)
+    gold_ok = {9: equals_goldens(*edge_out[9, 1], gold["out_len"],
+                                 gold["payloads"]),
+               0: equals_goldens(*edge_out[0, 1], level_gold["out_len_l0"],
+                                 level_gold["payloads_l0"])}
+    out4, olen4 = tb.encode_blocks(w_d[:8], l_d[:8], hc=4)
+    gold_ok[4] = equals_goldens(out4.cpu().numpy(), olen4.cpu().numpy(),
+                                level_gold["out_len_l4"],
+                                level_gold["payloads_l4"])
+    print(f"[K2/K3] {len(gold['out_len'])} corpus blocks == JAX goldens by "
+          f"level: {gold_ok}")
+    check(all(gold_ok.values()), "encoder output differs from JAX goldens")
 
-    # --- phase 3b: K1 against its plain version, on T-maps of 16
+    # --- phase 2b: K1 against its plain version, on T-maps of 16
     # level-9 corpus blocks
     print("[corpus] generating make_corpus(48) ...", flush=True)
     t0 = time.perf_counter()
     data = make_corpus(48)
     n = len(data) - len(data) % (BLK * BENCH_BATCH)
     data = data[:n]
-    print(f"[corpus] {n} bytes, {n // BLK} blocks of 64 KB "
+    nb = n // BLK
+    print(f"[corpus] {n} bytes, {nb} blocks of 64 KB "
           f"({time.perf_counter() - t0:.1f} s)")
     codec = ShardedFrameCodec(compression_level=9, device="cuda")
     pays = [c for _r, c in codec._encode_span(data[:16 * BLK])]
     plen = np.array([len(p) for p in pays], np.int64)
     offs = np.zeros_like(plen)
     offs[1:] = np.cumsum(plen)[:-1]
-    T, ol = native_resolve_tmap(b"".join(pays), offs, plen, BLK,
-                                reuse_buffers=False)
+    T, ol = native.native_resolve_tmap(b"".join(pays), offs, plen, BLK,
+                                       reuse_buffers=False)
     check((ol == BLK).all(), "T-map resolve of the 16 blocks")
     fetch = np.zeros((len(pays), int(plen.max())), np.uint8)
     for k, p in enumerate(pays):
@@ -187,17 +298,35 @@ def main():
           f"== input: {same}")
     check(err_k1 == 0 and same, "K1 differs from plain or input")
 
-    # --- phase 4: the main path, counted
-    host_frame = lz4f.compress_frame(data, lz4f.Preferences(
-        frame_info=lz4f.FrameInfo(block_mode=lz4f.BlockMode.independent,
-                                  content_checksum=True)))
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    frame = codec.compress_frame(data)
-    back = codec.decompress_frame(frame)
-    back_host = codec.decompress_frame(host_frame)
-    torch.cuda.synchronize()
-    counts = dict(LAUNCHES)
+    def timed(fn):
+        """(median, min, max) milliseconds of REPS runs of ``fn``."""
+        ts = [cuda_ms(fn)[0] for _ in range(REPS)]
+        return statistics.median(ts), min(ts), max(ts)
+
+    def fmt(t):
+        return f"{t[0]:.2f} ms ({t[1]:.2f}-{t[2]:.2f})"
+
+    def time_round_trip(what, cdc, fr):
+        """Times of ``cdc.compress_frame(data)`` and of
+        ``cdc.decompress_frame(fr)`` on a ``[time]`` line."""
+        t_e = timed(lambda: cdc.compress_frame(data))
+        t_d = timed(lambda: cdc.decompress_frame(fr))
+        gbs = 2 * n / ((t_e[0] + t_d[0]) / 1e3) / 1e9
+        print(f"[time] {smi}: {what}, median of {REPS}: compress_frame "
+              f"{fmt(t_e)}, decompress_frame {fmt(t_d)} -> "
+              f"2n/(t_enc+t_dec) = {gbs:.4f} GB/s over {n} bytes")
+
+    # --- phase 3: the level-9 path, counted, then timed
+    independent = lz4f.Preferences(frame_info=lz4f.FrameInfo(
+        block_mode=lz4f.BlockMode.independent, content_checksum=True))
+    host_frame = lz4f.compress_frame(data, independent)
+
+    def level9_path():
+        frame = codec.compress_frame(data)
+        return (frame, codec.decompress_frame(frame),
+                codec.decompress_frame(host_frame))
+
+    frame, back, back_host = counted("level 9", level9_path)
     check(lz4f.decompress_frame(frame) == data,
           "host decoder differs on the port's frame")
     check(back == data, "port decode of the port's frame")
@@ -209,63 +338,169 @@ def main():
           f"({len(host_frame)} bytes) ok; level-9 ratio n/sum(out_len) "
           f"= {ratio:.6f} (expect {EXPECT_RATIO})")
     check(round(ratio, 4) == EXPECT_RATIO, f"ratio {ratio:.6f}")
+    time_round_trip("level 9", codec, frame)
 
-    # --- phase 5: launch counts
-    print(f"[launches] {counts}")
-    check(all(counts[k] > 0 for k in KERNELS), "a kernel was not launched")
+    # --- phase 4: level 0 at full width, counted, then timed;
+    # acceleration; level 4
+    codec0 = ShardedFrameCodec(compression_level=0, device="cuda")
 
-    # --- phase 6: times
-    encs, decs = [], []
-    for _ in range(REPS):
-        encs.append(cuda_ms(lambda: codec.compress_frame(data))[0])
-        decs.append(cuda_ms(lambda: codec.decompress_frame(frame))[0])
-    t_enc, t_dec = statistics.median(encs), statistics.median(decs)
-    gbs = 2 * n / ((t_enc + t_dec) / 1e3) / 1e9
-    # kernels alone at the main path's shapes, each against its plain
-    # version on the same inputs
-    nb = n // BLK
+    def level0_path():
+        frame0 = codec0.compress_frame(data)
+        return frame0, codec0.decompress_frame(frame0)
+
+    frame0, back0 = counted("level 0", level0_path)
+    check(lz4f.decompress_frame(frame0) == data,
+          "host decoder differs on the port's level-0 frame")
+    check(back0 == data, "port decode of the port's level-0 frame")
+    time_round_trip("level 0", codec0, frame0)
     w_all = torch.from_numpy(np.frombuffer(data, np.uint8).copy()
                              .reshape(nb, BLK)).to(dev)
     l_all = torch.full((nb,), BLK, dtype=torch.int32, device=dev)
     s_all = torch.zeros_like(l_all)
+    ratios = {}
+    for accel in (1, 2, 4, 8):
+        _o, olen_a = tb.encode_blocks(w_all, l_all, hc=0, accel=accel)
+        ratios[accel] = n / int(olen_a.sum())
+    print(f"[fast] {n} bytes -> level-0 frame {len(frame0)} bytes; host "
+          f"decode ok; port decode ok; ratios n/sum(out_len) by accel: "
+          + ", ".join(f"{a}: {r:.6f}" for a, r in ratios.items())
+          + f" (expect 1: {EXPECT_RATIO_FAST}, {EXPECT_RATIO_ACCEL})")
+    check(round(ratios[1], 4) == EXPECT_RATIO_FAST,
+          f"level-0 ratio {ratios[1]:.6f}")
+    for accel, want in EXPECT_RATIO_ACCEL.items():
+        check(round(ratios[accel], 4) == want,
+              f"accel {accel} ratio {ratios[accel]:.6f}")
+    codec4 = ShardedFrameCodec(compression_level=4, device="cuda")
+    frame4 = codec4.compress_frame(data)
+    check(lz4f.decompress_frame(frame4) == data
+          and codec4.decompress_frame(frame4) == data,
+          "level-4 round trip")
+    ratio4 = n / sum(len(c) for _r, c in codec4._encode_span(data))
+    print(f"[level 4] frame {len(frame4)} bytes; host decode ok; port "
+          f"decode ok; ratio n/sum(out_len) = {ratio4:.6f}")
+
+    # --- phase 5: linked frames at full width, counted, then timed;
+    # dictionaries
+    linked = lz4f.Preferences(frame_info=lz4f.FrameInfo(
+        block_size_id=lz4f.BlockSizeID.max64KB,
+        block_mode=lz4f.BlockMode.linked, content_checksum=True))
+    linked_frame = lz4f.compress_frame(data, linked)
+    check(lz4f.parse_frame_header(linked_frame)[0].block_mode
+          == lz4f.BlockMode.linked, "the host frame is not linked")
+    back_l = counted("linked", lambda: codec.decompress_frame(linked_frame))
+    check(back_l == data, "port decode of the linked frame")
+    t_decl = timed(lambda: codec.decompress_frame(linked_frame))
+    print(f"[time] {smi}: linked frame ({len(linked_frame)} bytes), median "
+          f"of {REPS}: decompress_frame {fmt(t_decl)} = "
+          f"{n / (t_decl[0] / 1e3) / 1e9:.4f} GB/s of output")
+    # one window's step against its plain version, and its library call
+    info_l, pos_l = lz4f.parse_frame_header(linked_frame)
+    records, _end = _scan_blocks(linked_frame, pos_l, info_l.block_checksum)
+    windows_l = list(codec._resolve_linked_windows(records, BLK))
+    pay_w, T_w, total_w = windows_l[1]          # entered with history
+    at_w = windows_l[0][2]                      # where window 1 starts
+    check(at_w >= BLK and total_w >= BLK,
+          f"linked windows of {at_w} and {total_w} bytes")
+    hist_w = np.frombuffer(data[at_w - BLK:at_w], np.uint8)
+    h_d = torch.from_numpy(hist_w.copy()).to(dev)
+    p_d = torch.from_numpy(np.frombuffer(pay_w, np.uint8).copy()).to(dev)
+    t_stage_w, Tw_d = cuda_ms(lambda: torch.from_numpy(T_w[:total_w]).to(dev))
+    td.linked_tmap_step(h_d, p_d, Tw_d, total_w)
+    out_w, hist_n = td.linked_tmap_step(h_d, p_d, Tw_d, total_w)
+    out_wp, hist_np = td.linked_tmap_step_plain(h_d, p_d, Tw_d, total_w)
+    err_lg, err_lh = max_abs_err(out_w, out_wp), max_abs_err(hist_n, hist_np)
+    same_w = out_w.cpu().numpy().tobytes() == data[at_w:at_w + total_w]
+    print(f"[K5] window 1 of {len(windows_l)} (payloads {len(pay_w)} bytes, "
+          f"output {total_w}): linked_tmap_step vs plain max_abs_err "
+          f"{err_lg}; linked_hist_shift vs plain max_abs_err {err_lh}; "
+          f"window == input: {same_w}")
+    check(err_lg == 0 and err_lh == 0 and same_w,
+          "K5 differs from plain or input")
+    # dictionary frames of both kinds, a few MB each
+    part = data[5 << 20:9 << 20]
+    d = data[(5 << 20) - 70_000:5 << 20]
+    codec_d = ShardedFrameCodec(device="cuda", dictionary=d)
+    for mode, prefs in (("linked", linked), ("independent", independent)):
+        fr_d = lz4f.compress_frame(part, prefs, dictionary=d)
+        check(codec_d.decompress_frame(fr_d) == part,
+              f"port decode of the {mode} dictionary frame")
+        check(lz4f.decompress_frame(fr_d, dictionary=d) == part,
+              f"host decode of the {mode} dictionary frame")
+    print(f"[dict] linked and independent frames of {len(part)} bytes with "
+          f"a {len(d)}-byte dictionary: port decode ok")
+
+    # --- phase 6: launch counts over the three paths
+    print(f"[launches] all paths: {counts}")
+    check(all(counts[k] > 0 for k in KERNELS),
+          "a kernel was not launched on any path: "
+          + ", ".join(k for k in KERNELS if not counts[k]))
+
+    # --- phase 7: kernels alone at the paths' shapes, each against its
+    # plain version on the same inputs, with its bound
+    cap = out4.shape[1]
     tb.match_candidates(w_all, l_all)
     k_match, pk_all = cuda_ms(lambda: tb.match_candidates(w_all, l_all), 2)
     k_emit, (out_all, olen_all) = cuda_ms(
         lambda: tb.parse_emit(w_all, l_all, s_all, pk_all), 2)
-    print(f"[K2] plain versions at {nb} x 64 KB (minutes) ...", flush=True)
+    k_match4, _pk4 = cuda_ms(lambda: tb.match_candidates(w_all, l_all, 4), 2)
+    tb.match_candidates(w_all, l_all, 0)
+    k_fast, pk_fast = cuda_ms(lambda: tb.match_candidates(w_all, l_all, 0), 2)
+    k_emit0, (out_f, olen_f) = cuda_ms(
+        lambda: tb.parse_emit(w_all, l_all, s_all, pk_fast, 0), 2)
+    print(f"[K2/K3] plain versions at {nb} x 64 KB (minutes) ...",
+          flush=True)
     p_match, pk_all_p = cuda_ms(lambda: tb.match_candidates_plain(w_all,
                                                                   l_all))
     p_emit, (out_all_p, olen_all_p) = cuda_ms(
         lambda: tb.parse_emit_plain(w_all, l_all, s_all, pk_all))
+    p_fast, pk_fast_p = cuda_ms(
+        lambda: tb.match_candidates_plain(w_all, l_all, 0))
+    p_emit0, (out_f_p, olen_f_p) = cuda_ms(
+        lambda: tb.parse_emit_plain(w_all, l_all, s_all, pk_fast, 0))
     err_m_all = max_abs_err(pk_all, pk_all_p)
     err_p_all = max(max_abs_err(out_all, out_all_p),
                     max_abs_err(olen_all, olen_all_p))
-    print(f"[K2] at {nb} x 64 KB: enc_match vs plain max_abs_err "
-          f"{err_m_all}; enc_parse_emit vs plain max_abs_err {err_p_all}")
-    check(err_m_all == 0 and err_p_all == 0,
-          "K2 kernels differ from plain at the main path's shapes")
-    del pk_all_p, out_all_p
-    results["enc_match"].update(max_abs_err=max(err_m, err_m_all),
-                                ms=k_match, plain_ms=p_match)
-    results["enc_parse_emit"].update(max_abs_err=max(err_p, err_p_all),
-                                     ms=k_emit, plain_ms=p_emit)
-    # decode: every compressed block of the frame in one launch
-    recs, pos = [], lz4f.parse_frame_header(frame)[1]
-    while True:
-        word = int.from_bytes(frame[pos:pos + 4], "little")
-        pos += 4
-        if word == 0:
-            break
-        blen = word & 0x7FFFFFFF
-        if not word & 0x80000000:
-            recs.append(frame[pos:pos + blen])
-        pos += blen
+    err_f_all = max_abs_err(pk_fast, pk_fast_p)
+    err_p0_all = max(max_abs_err(out_f, out_f_p),
+                     max_abs_err(olen_f, olen_f_p))
+    print(f"[K2/K3] at {nb} x 64 KB: enc_match vs plain max_abs_err "
+          f"{err_m_all}; enc_parse_emit vs plain max_abs_err {err_p_all} "
+          f"(level 9), {err_p0_all} (level 0); enc_match_fast vs plain "
+          f"max_abs_err {err_f_all}")
+    check(err_m_all == 0 and err_p_all == 0 and err_f_all == 0
+          and err_p0_all == 0,
+          "encoder kernels differ from plain at the paths' shapes")
+    del pk_all_p, out_all_p, pk_fast_p, out_f_p
+    in_bytes = nb * BLK + 4 * nb                # windows and lengths
+    b_match = bound(in_bytes + 4 * nb * BLK, match_ops(nb, BLK, 9, 8, 2))
+    b_fast = bound(in_bytes + 4 * nb * BLK, match_ops(nb, BLK, 0, 8, 2))
+    # parse and emission: windows, candidates, lengths and starts in;
+    # the zero-padded payload rows and their lengths out; about 12
+    # operations a position (unpack, chain, clamp, lazy, mask)
+    b_emit = bound(in_bytes + 4 * nb + 4 * nb * BLK + nb * cap + 4 * nb,
+                   12 * nb * BLK)
+    results["enc_match"].update(
+        max_abs_err=max(edge_err["enc_match"], err_m_all), ms=k_match,
+        plain_ms=p_match, bound_ms=b_match[0], bound_by=b_match[1],
+        library_ms=None)
+    results["enc_match_fast"].update(
+        max_abs_err=max(edge_err["enc_match_fast"], err_f_all), ms=k_fast,
+        plain_ms=p_fast, bound_ms=b_fast[0], bound_by=b_fast[1],
+        library_ms=None)
+    results["enc_parse_emit"].update(
+        max_abs_err=max(edge_err["enc_parse_emit"], err_p_all, err_p0_all),
+        ms=k_emit, plain_ms=p_emit, bound_ms=b_emit[0], bound_by=b_emit[1],
+        library_ms=None)
+
+    # decode: every compressed block of the level-9 frame in one launch
+    recs = frame_payloads(frame, lz4f)
     plen = np.array([len(p) for p in recs], np.int64)
     offs = np.zeros_like(plen)
     offs[1:] = np.cumsum(plen)[:-1]
     concat = b"".join(recs)
     t_res = time.perf_counter()
-    T, ol = native_resolve_tmap(concat, offs, plen, BLK, reuse_buffers=False)
+    T, ol = native.native_resolve_tmap(concat, offs, plen, BLK,
+                                       reuse_buffers=False)
     t_res = time.perf_counter() - t_res
     fetch = np.zeros((len(recs), int(plen.max())), np.uint8)
     for k, p in enumerate(recs):
@@ -278,33 +513,125 @@ def main():
                              5)
     p_dec, dec_all_p = cuda_ms(
         lambda: td.decode_blocks_tmap_plain(f_d, T_d, ol_d), 5)
-    err_k1_all = max_abs_err(dec_all, dec_all_p)
-    print(f"[K1] at {len(recs)} x 64 KB: tmap_gather vs plain max_abs_err "
-          f"{err_k1_all}")
+    # the library call: one torch.gather over an int64 index made ahead
+    idx64 = T_d.long().clamp_(0, fetch.shape[1] - 1)
+    torch.gather(f_d, 1, idx64)
+    lib_dec, dec_lib = cuda_ms(lambda: torch.gather(f_d, 1, idx64), 5)
+    err_k1_all = max(max_abs_err(dec_all, dec_all_p),
+                     max_abs_err(dec_all, dec_lib))
+    print(f"[K1] at {len(recs)} x 64 KB: tmap_gather vs plain and vs "
+          f"torch.gather max_abs_err {err_k1_all}")
     check(err_k1_all == 0, "K1 differs from plain at the main path's shapes")
-    results["tmap_gather"].update(max_abs_err=max(err_k1, err_k1_all),
-                                  ms=k_dec, plain_ms=p_dec)
-    print(f"[time] {smi}: median of {REPS}: compress_frame {t_enc:.2f} ms "
-          f"({min(encs):.2f}-{max(encs):.2f}), decompress_frame "
-          f"{t_dec:.2f} ms ({min(decs):.2f}-{max(decs):.2f}) -> "
-          f"2n/(t_enc+t_dec) = {gbs:.4f} GB/s over {n} bytes")
-    print(f"[time] {smi}: kernels at {nb} x 64 KB: enc_match "
-          f"{k_match:.2f} ms (plain {p_match:.1f} ms), enc_parse_emit "
-          f"{k_emit:.2f} ms (plain {p_emit:.1f} ms); decode of "
-          f"{len(recs)} compressed blocks: host resolve "
-          f"{t_res * 1e3:.2f} ms, staging {t_stage:.2f} ms "
-          f"({T.nbytes + fetch.nbytes} bytes), tmap_gather {k_dec:.3f} ms "
-          f"(plain {p_dec:.3f} ms)")
-    print(f"[time] {smi}: K2 at 11 x 64 KB: enc_match {ms_m:.2f} ms "
-          f"(plain {pms_m:.1f} ms), enc_parse_emit {ms_p:.2f} ms (plain "
-          f"{pms_p:.1f} ms)")
+    del idx64, dec_lib, dec_all_p
+    live = int(ol.sum())
+    b_dec = bound(fetch.nbytes + 4 * live + 4 * len(recs) + T.shape[0] * BLK,
+                  live)
+    results["tmap_gather"].update(
+        max_abs_err=max(err_k1, err_k1_all), ms=k_dec, plain_ms=p_dec,
+        bound_ms=b_dec[0], bound_by=b_dec[1], library_ms=lib_dec)
+
+    # linked step: window 1 of the linked frame (tensors from phase 5)
+    k_both, _ = cuda_ms(
+        lambda: td.linked_tmap_step(h_d, p_d, Tw_d, total_w), 20)
+    # the two kernels apart: the gather alone, then the shift alone
+    out_s, new_s = torch.empty_like(out_w), torch.empty_like(h_d)
+    H, PCQ = h_d.shape[0], p_d.shape[0]
+    k_gather, _ = cuda_ms(lambda: launch(
+        "linked_tmap_step", h_d, p_d, Tw_d, out_s, H, PCQ, total_w,
+        total_w), 20)
+    k_shift, _ = cuda_ms(lambda: launch(
+        "linked_hist_shift", h_d, out_s, new_s, H, total_w, total_w), 20)
+    check(torch.equal(out_s, out_w) and torch.equal(new_s, hist_n),
+          "K5 launched apart differs")
+    p_link, _ = cuda_ms(
+        lambda: td.linked_tmap_step_plain(h_d, p_d, Tw_d, total_w), 5)
+    fetch_cat = torch.cat([h_d, p_d])
+    idx_w = Tw_d.long().clamp_(0, fetch_cat.shape[0] - 1)
+    torch.gather(fetch_cat, 0, idx_w)
+    lib_gather, out_lib = cuda_ms(lambda: torch.gather(fetch_cat, 0, idx_w),
+                                  20)
+    lib_shift, hist_lib = cuda_ms(
+        lambda: out_w[total_w - H:total_w].clone(), 20)
+    check(torch.equal(out_lib, out_w) and torch.equal(hist_lib, hist_n),
+          "K5 differs from the library calls")
+    b_lg = bound(H + PCQ + 4 * total_w + total_w, total_w)
+    b_ls = bound(2 * H, H)
+    results["linked_tmap_step"].update(
+        max_abs_err=err_lg, ms=k_gather, plain_ms=p_link, bound_ms=b_lg[0],
+        bound_by=b_lg[1], library_ms=lib_gather)
+    # the plain version computes both results in one function; its
+    # history part is the cat and slice, timed here
+    p_shift, _ = cuda_ms(
+        lambda: torch.cat([h_d, out_w])[total_w:total_w + H], 20)
+    results["linked_hist_shift"].update(
+        max_abs_err=err_lh, ms=k_shift, plain_ms=p_shift, bound_ms=b_ls[0],
+        bound_by=b_ls[1], library_ms=lib_shift)
+
+    # linked decode by stage: resolve on the host, staging, the kernels
+    t_r0 = time.perf_counter()
+    wins = list(codec._resolve_linked_windows(records, BLK))
+    t_resolve_l = time.perf_counter() - t_r0
+    t_stage_l, staged = cuda_ms(lambda: [
+        (torch.from_numpy(np.frombuffer(p, np.uint8).copy()).to(dev),
+         torch.from_numpy(T_[:t]).to(dev), t) for p, T_, t in wins])
+    hist0 = torch.zeros(H, dtype=torch.uint8, device=dev)
+
+    def chain():
+        h, outs = hist0, []
+        for p_, T_, t in staged:
+            o, h = td.linked_tmap_step(h, p_, T_, t)
+            outs.append(o)
+        return outs
+    k_chain, outs = cuda_ms(chain)
+    t_back, content = cuda_ms(lambda: torch.cat(outs).cpu().numpy().tobytes())
+    check(content == data, "staged linked decode differs from the input")
+    staged_bytes = sum(4 * t + len(p) for p, _T, t in wins)
+    del staged, outs
+
+    print(f"[time] {smi}: kernels at {nb} x 64 KB: enc_match (hc=9) "
+          f"{k_match:.2f} ms (plain {p_match:.1f} ms, bound "
+          f"{b_match[0]:.4f} ms by {b_match[1]}), enc_match (hc=4) "
+          f"{k_match4:.2f} ms, enc_match_fast {k_fast:.2f} ms (plain "
+          f"{p_fast:.1f} ms, bound {b_fast[0]:.4f} ms by {b_fast[1]}), "
+          f"enc_parse_emit {k_emit:.2f} ms at level 9 (plain {p_emit:.1f} "
+          f"ms), {k_emit0:.2f} ms at level 0 (plain {p_emit0:.1f} ms; bound "
+          f"{b_emit[0]:.4f} ms by {b_emit[1]})")
+    print(f"[time] {smi}: decode of {len(recs)} compressed blocks: host "
+          f"resolve {t_res * 1e3:.2f} ms, staging {t_stage:.2f} ms "
+          f"({T.nbytes + fetch.nbytes} bytes), tmap_gather {k_dec:.4f} ms "
+          f"(plain {p_dec:.4f} ms, torch.gather {lib_dec:.4f} ms, bound "
+          f"{b_dec[0]:.4f} ms by {b_dec[1]})")
+    print(f"[time] {smi}: linked window (H {H}, payloads {PCQ}, output "
+          f"{total_w}): both kernels {k_both:.4f} ms, linked_tmap_step "
+          f"{k_gather:.4f} ms (plain of both {p_link:.4f} ms, torch.gather "
+          f"{lib_gather:.4f} ms, bound {b_lg[0]:.5f} ms by {b_lg[1]}), "
+          f"linked_hist_shift {k_shift:.4f} ms (plain {p_shift:.4f} ms, "
+          f"slice copy {lib_shift:.4f} ms, bound {b_ls[0]:.6f} ms by "
+          f"{b_ls[1]}); staging of its T {t_stage_w:.2f} ms "
+          f"({4 * total_w} bytes)")
+    print(f"[time] {smi}: linked decode by stage, {len(wins)} windows: host "
+          f"resolve {t_resolve_l * 1e3:.2f} ms, staging {t_stage_l:.2f} ms "
+          f"({staged_bytes} bytes, pageable), kernels {k_chain:.3f} ms, "
+          f"copy back and join {t_back:.2f} ms")
+
+    # the first path again: what the process's state at the end of the
+    # run (device and host memory in use) does to the same calls
+    del w_all, pk_all, pk_fast, out_all, out_f, T_d, f_d
+    time_round_trip("level 9 again, at the end of the run", codec, frame)
 
     kernels = []
-    for k, (_fn, src, _args, ref) in KERNELS.items():
+    for k, (_fn, src, _args, _ref) in KERNELS.items():
         kernels.append(dict(
             name=k, route="cuda",
             source=f"zig_lz4_tpu_torch/kernels/csrc/{src}",
-            replaces=ref, launches=counts[k], **results[k]))
+            replaces=reference_path(k), launches=counts[k],
+            launches_by_path={p: c[k] for p, c in paths.items()},
+            **results[k]))
+    for entry in kernels:
+        missing = [key for key in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")
+                   if key not in entry]
+        check(not missing, f"{entry['name']} lacks {missing}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,18 @@
 """The port's frame codec (zig_lz4_tpu_torch.ShardedFrameCodec) against
 the JAX one (zig_lz4_tpu.parallel.ShardedFrameCodec), end to end.
 
-Both codecs are level 9 with ``block_size``/``window`` shrunk to 4 KB
-(as tests/test_parallel.py:48-49 shrinks them).  The JAX codec's frames
-come from ``tests/fixtures/l9_frames4k.npz``, written by
+Encode: both codecs at levels 9, 5 and 0 with ``block_size``/``window``
+shrunk to 4 KB (as tests/test_parallel.py:48-49 shrinks them).  The JAX
+codec's frames come from ``tests/fixtures/l9_frames4k.npz`` and
+``levels_frames4k.npz``, written by
 ``tests/fixtures/make_torch_goldens.py``: a live JAX encode would cost
-this file a second encoder compile beside test_torch_encode.py's.  The
-JAX codec decodes the port's frames live.  The port runs on
-``device="cpu"``: the plain versions of its kernels.  Tolerance: none;
-frames are compared byte for byte, and errors by exception class.
+this file encoder compiles beside test_torch_encode.py's.  The JAX
+codec decodes the port's frames live.  Decode: independent, linked and
+dictionary frames written by the host frame layer, decoded by both
+codecs.  The port runs on ``device="cpu"``: the plain versions of its
+kernels.  Tolerance: none; frames and contents are compared byte for
+byte, and errors by the name of the exception class (the two packages
+share no class).
 """
 
 import os
@@ -18,11 +22,15 @@ import numpy as np
 import pytest
 import torch
 
-import zig_lz4_tpu.frame as lz4f
-from zig_lz4_tpu import errors as E
-from zig_lz4_tpu.ops.block import compress_fast
-from zig_lz4_tpu_torch import ShardedFrameCodec
+import zig_lz4_tpu.errors as ref_errors
+import zig_lz4_tpu.frame as ref_frame
+from zig_lz4_tpu_torch import ShardedFrameCodec, get_codec
+from zig_lz4_tpu_torch import errors as E
+from zig_lz4_tpu_torch import frame as lz4f
 from zig_lz4_tpu_torch.corpus import make_corpus
+from zig_lz4_tpu_torch.models import CUDACodec
+from zig_lz4_tpu_torch.ops import torch_block as tb
+from zig_lz4_tpu_torch.ops.block import compress_fast, decompress_safe
 
 SMALL = 4096
 
@@ -33,9 +41,9 @@ import make_torch_goldens  # noqa: E402  (the JAX codec's frames)
 
 _GOLDENS = make_goldens.build()
 _NEGATIVES = make_goldens.build_negatives()
-#: frames the slice does not decode: linked blocks (ROADMAP Queue 1
-#: item 7) and a dictionary frame (item 5)
-_NOT_IN_SLICE = ("linked_blocks.lz4", "dict_frame.lz4")
+#: golden frames that decode against a dictionary: name -> dictionary
+#: (tests/fixtures/make_goldens.py:266)
+_GOLDEN_DICTS = {"dict_frame.lz4": b"0123456789abcdefghijklmnopqrstuvwxyz" * 4}
 CORPUS = ("hello", "repeated", "lorem", "random256", "empty", "ramp",
           "tiny", "rle", "mixed")
 
@@ -72,6 +80,20 @@ def jax_frames():
 
 
 @pytest.fixture(scope="module")
+def jax_level_frames():
+    """``l<level>_<name>`` -> the JAX codec's frame at levels 0 and 5."""
+    with np.load(make_torch_goldens.LEVEL_FRAMES_OUT) as z:
+        return {k: z[k].tobytes() for k in z.files}
+
+
+@pytest.fixture(scope="module")
+def jax_codec():
+    pytest.importorskip("jax")
+    from zig_lz4_tpu.parallel import ShardedFrameCodec as JaxCodec
+    return JaxCodec
+
+
+@pytest.fixture(scope="module")
 def port():
     return ShardedFrameCodec(compression_level=9, device="cpu")
 
@@ -89,16 +111,36 @@ def test_frames_identical_and_cross_decode(name, corpus, codecs,
     assert ref.decompress_frame(frame) == data
 
 
-def test_frame_goldens_cover_every_input(jax_frames):
+@pytest.mark.parametrize("level", make_torch_goldens.FRAME_LEVELS)
+@pytest.mark.parametrize("name", CORPUS + ("multi",))
+def test_level_frames_identical_and_cross_decode(name, level, corpus,
+                                                 codecs, jax_level_frames):
+    ref, _port9 = codecs
+    data = _multi() if name == "multi" else corpus[name]
+    frame_ref = jax_level_frames[f"l{level}_{name}"]
+    assert ref_frame.decompress_frame(frame_ref) == data
+    port4k = ShardedFrameCodec(compression_level=level, device="cpu")
+    port4k.block_size = port4k.window = SMALL
+    frame = port4k.compress_frame(data)
+    assert frame == frame_ref
+    assert port4k.decompress_frame(frame_ref) == data
+    assert ref.decompress_frame(frame) == data
+
+
+def test_frame_goldens_cover_every_input(jax_frames, jax_level_frames):
     assert set(jax_frames) == set(CORPUS) | {"multi"}
+    assert set(jax_level_frames) == {
+        f"l{level}_{name}" for level in make_torch_goldens.FRAME_LEVELS
+        for name in CORPUS + ("multi",)}
 
 
-@pytest.mark.parametrize("name", [n for n in sorted(_GOLDENS)
-                                  if n not in _NOT_IN_SLICE])
-def test_port_decodes_golden_fixtures(name, port):
+@pytest.mark.parametrize("name", sorted(_GOLDENS))
+def test_port_decodes_golden_fixtures(name):
     blob, content = _GOLDENS[name]
     with open(os.path.join(_FIXDIR, name), "rb") as f:
         assert f.read() == blob
+    port = ShardedFrameCodec(compression_level=9, device="cpu",
+                             dictionary=_GOLDEN_DICTS.get(name))
     assert port.decompress_frame(blob) == content
 
 
@@ -114,12 +156,14 @@ def test_port_roundtrip_64k_blocks(port):
 
 
 def _raises_like(ref, port_codec, blob):
-    """Both codecs reject ``blob`` with the same error class; returns
-    the port's exception."""
-    with pytest.raises(E.LZ4Error) as want:
+    """Both codecs reject ``blob`` with the error class of the same
+    name, each of its own package; returns the port's exception."""
+    with pytest.raises(ref_errors.LZ4Error) as want:
         ref.decompress_frame(blob)
-    with pytest.raises(want.type) as got:
+    with pytest.raises(E.LZ4Error) as got:
         port_codec.decompress_frame(blob)
+    assert type(got.value).__name__ == want.type.__name__
+    assert type(got.value) is getattr(E, want.type.__name__)
     return got.value
 
 
@@ -148,19 +192,184 @@ def test_block_past_frame_block_size_raises(codecs):
 
 def test_outside_the_slice_raises_not_implemented(port):
     with pytest.raises(NotImplementedError, match="item 5"):
-        ShardedFrameCodec(dictionary=b"0123456789" * 10, device="cpu")
+        ShardedFrameCodec(dictionary=b"0123456789" * 10, device="cpu"
+                          ).compress_frame(b"dictionary encode")
     with pytest.raises(NotImplementedError, match="item 9"):
         ShardedFrameCodec(decode_engine="win", device="cpu")
     with pytest.raises(ValueError):
         ShardedFrameCodec(decode_engine="bogus", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port.decompress_frame(_GOLDENS["linked_blocks.lz4"][0])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ShardedFrameCodec(device="cpu").compress_frame(b"level 0")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ShardedFrameCodec(compression_level=12,
-                          device="cpu").compress_frame(b"level 12")
+    for level in (10, 12):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            ShardedFrameCodec(compression_level=level,
+                              device="cpu").compress_frame(b"deep level")
     with pytest.raises(NotImplementedError, match="item 6"):
         ShardedFrameCodec(compression_level=9, device="cpu",
                           block_size_id=lz4f.BlockSizeID.max256KB
                           ).compress_frame(b"256 KB blocks")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        CUDACodec(device="cpu").decompress(b"\x00", 16)
+    # what this slice brought in no longer raises
+    assert port.decompress_frame(_GOLDENS["linked_blocks.lz4"][0]) == \
+        _GOLDENS["linked_blocks.lz4"][1]
+    frame = ShardedFrameCodec(device="cpu").compress_frame(b"level 0")
+    assert lz4f.decompress_frame(frame) == b"level 0"
+
+
+# -- linked frames and dictionaries -----------------------------------
+
+def _linked_data(n: int, seed: int = 17) -> bytes:
+    """Repeats that reach back across block bounds, with incompressible
+    stretches (stored blocks) between them (tests/test_tmap.py:157)."""
+    rng = np.random.default_rng(seed)
+    unit = b"linked history reaches back across block bounds " * 400
+    parts = []
+    for i in range(n // len(unit) + 2):
+        parts.append(unit)
+        if i % 11 == 0:      # incompressible: store-uncompressed
+            parts.append(rng.integers(0, 256, 66_000,
+                                      dtype=np.uint8).tobytes())
+    return b"".join(parts)[:n]
+
+
+def _host_frame(mod, data, bsid, mode, dictionary=None, level=0,
+                block_checksum=True):
+    prefs = mod.Preferences(frame_info=mod.FrameInfo(
+        block_size_id=getattr(mod.BlockSizeID, bsid),
+        block_mode=getattr(mod.BlockMode, mode),
+        content_checksum=True, block_checksum=block_checksum),
+        compression_level=level)
+    return mod.compress_frame(data, prefs, dictionary=dictionary)
+
+
+@pytest.mark.parametrize("with_dict", [False, True], ids=["nodict", "dict"])
+@pytest.mark.parametrize("bsid", ["max64KB", "max256KB", "max1MB"])
+def test_linked_frames_decode_like_reference(bsid, with_dict, jax_codec):
+    data = _linked_data(700_000 + 321)
+    d = data[50_000:50_000 + 40_000] if with_dict else None
+    fr = _host_frame(lz4f, data, bsid, "linked", d)
+    assert fr == _host_frame(ref_frame, data, bsid, "linked", d)
+    assert lz4f.parse_frame_header(fr)[0].block_mode == lz4f.BlockMode.linked
+    port = ShardedFrameCodec(device="cpu", dictionary=d)
+    got = port.decompress_frame(fr)
+    assert got == data
+    assert got == jax_codec(dictionary=d).decompress_frame(fr)
+
+
+def test_linked_multi_window_with_dictionary(jax_codec):
+    """Over 2 MB of output forces at least two windows through the
+    history carry (``dlen`` accumulation, right-aligned history) and
+    cross-window path compression (tests/test_tmap.py:157)."""
+    data = _linked_data(4_500_000 + 321)
+    assert len(data) > 1 << 21
+    d = data[50_000:50_000 + 40_000]
+    fr = _host_frame(lz4f, data, "max64KB", "linked", d)
+    port = ShardedFrameCodec(device="cpu", dictionary=d)
+    got = port.decompress_frame(fr)
+    assert got == data
+    assert got == jax_codec(dictionary=d).decompress_frame(fr)
+    # without the dictionary the first match reaches before the frame
+    with pytest.raises(E.LZ4Error):
+        ShardedFrameCodec(device="cpu").decompress_frame(fr)
+
+
+@pytest.mark.parametrize("level", [0, 9])
+def test_linked_frames_small_and_concatenated(level, corpus, port):
+    frames, want = [], b""
+    for name in CORPUS:
+        fr = _host_frame(lz4f, corpus[name], "max64KB", "linked",
+                         level=level, block_checksum=False)
+        assert port.decompress_frame(fr) == corpus[name]
+        frames.append(fr)
+        want += corpus[name]
+    # concatenated frames of both kinds, as the lz4 CLI writes them
+    frames.append(port.compress_frame(corpus["lorem"]))
+    assert port.decompress_frame(b"".join(frames)) == want + corpus["lorem"]
+
+
+def test_linked_window_budget_widens_for_long_payloads(port):
+    """A stored block larger than the 1 MB payload budget of its window
+    (the reference hands such a frame to the host decoder) still goes
+    through the linked step."""
+    rng = np.random.default_rng(4)
+    big = rng.integers(0, 256, (1 << 20) + 5000, dtype=np.uint8).tobytes()
+    head = b"abcdefgh" * 100
+    blob = make_goldens.frame(
+        [(compress_fast(head), False), (big, True)], bsize=5,
+        indep=False, content=head + big)
+    assert port.decompress_frame(blob) == head + big
+
+
+@pytest.mark.parametrize("bsid", ["max64KB", "max256KB"])
+def test_independent_dictionary_frames_decode_like_reference(bsid,
+                                                             jax_codec):
+    data = _linked_data(400_000, seed=5)
+    d = data[30_000:30_000 + 70_000]         # longer than the window
+    fr = _host_frame(lz4f, data, bsid, "independent", d, level=9)
+    port = ShardedFrameCodec(device="cpu", dictionary=d, dict_id=7)
+    assert port.dcap == 65536 and port.info.dict_id == 7
+    got = port.decompress_frame(fr)
+    assert got == data
+    assert got == jax_codec(dictionary=d).decompress_frame(fr)
+
+
+def test_linked_corruption_raises_reference_class(jax_codec):
+    data = _linked_data(200_000)
+    fr = bytearray(_host_frame(lz4f, data, "max64KB", "linked",
+                               block_checksum=False))
+    fr[len(fr) // 3] ^= 0xFF
+    ref, port = jax_codec(), ShardedFrameCodec(device="cpu")
+    _raises_like(ref, port, bytes(fr))
+    # a second block whose match reaches before the frame's start
+    bad = bytes([0x10, ord("A"), 0xFF, 0xFF, 0x00])
+    blob = make_goldens.frame([(b"stored block", True), (bad, False)],
+                              indep=False)
+    exc = _raises_like(ref, port, blob)
+    assert "frame block 1" in str(exc)
+
+
+def test_linked_decode_needs_the_native_runtime(monkeypatch, port):
+    from zig_lz4_tpu_torch.parallel import sharded
+    monkeypatch.setattr(sharded, "native_resolve_tmap_linked",
+                        lambda *a, **k: None)
+    monkeypatch.setattr(sharded, "native_resolve_tmap",
+                        lambda *a, **k: None)
+    with pytest.raises(RuntimeError, match="native host runtime"):
+        port.decompress_frame(_GOLDENS["linked_blocks.lz4"][0])
+    with pytest.raises(RuntimeError, match="native host runtime"):
+        port.decompress_frame(_GOLDENS["periodic_match.lz4"][0])
+
+
+# -- the single-block codec family ------------------------------------
+
+@pytest.mark.parametrize("level", [0, 1, 4, 9])
+def test_cuda_codec_compresses_one_block(level):
+    data = make_corpus(2)[13 * 65536:13 * 65536 + 3000]
+    codec = CUDACodec(block_capacity=4096, level=level, device="cpu")
+    comp = codec.compress(data)
+    assert decompress_safe(comp, len(data)) == data
+    hc, _deep = tb.level_params(level)
+    w = torch.zeros((1, 4096), dtype=torch.uint8)
+    w[0, :len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    out, n = tb.encode_blocks_plain(
+        w, torch.tensor([len(data)], dtype=torch.int32), hc=hc)
+    assert comp == out[0, :int(n[0])].numpy().tobytes()
+    with pytest.raises(E.OutputTooSmall):
+        codec.compress(data, max_output=10)
+    with pytest.raises(ValueError):
+        codec.compress(b"x" * 5000)
+
+
+def test_get_codec_cuda_family():
+    assert type(get_codec(0)).__name__ == "FastCodec"
+    assert type(get_codec(5)).__name__ == "HCCodec"
+    if not torch.cuda.is_available():
+        # nothing picks the CPU on its own
+        with pytest.raises(RuntimeError, match="CUDA"):
+            get_codec("cuda")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            get_codec("cuda9")
+    else:
+        assert get_codec("cuda").level == 1
+        assert get_codec("cuda9").level == 9
+    with pytest.raises(NotImplementedError, match="item 8"):
+        CUDACodec(level=12, device="cpu").compress(b"deep level")

@@ -1,8 +1,10 @@
-"""The port's T-map block rebuild (zig_lz4_tpu_torch.ops.torch_decode)
-against the JAX reference (zig_lz4_tpu.ops.jax_decode).
+"""The port's T-map rebuilds (zig_lz4_tpu_torch.ops.torch_decode) --
+independent blocks and the linked-frame window step -- against the JAX
+reference (zig_lz4_tpu.ops.jax_decode).
 
 Tolerance: none; outputs are bytes and compared for equality.  The
-inputs are those of tests/test_tmap.py:24-36, made with numpy seeds.
+block inputs are those of tests/test_tmap.py:24-36, made with numpy
+seeds; the linked step runs at small H, PCQ and NOUT with seeded T.
 ``cuda``-marked tests hold the kernel against the plain version and
 skip where there is no CUDA device.
 """
@@ -11,9 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from zig_lz4_tpu.native import native_resolve_tmap
-from zig_lz4_tpu.ops.hc import compress_hc
+from zig_lz4_tpu_torch.native import native_resolve_tmap
 from zig_lz4_tpu_torch.ops import torch_decode as td
+from zig_lz4_tpu_torch.ops.hc import compress_hc
 
 BLK = 4096
 
@@ -112,6 +114,119 @@ def test_rejects_bad_inputs():
         td.decode_blocks_tmap(fetch, T, ol[:1])
     with pytest.raises(ValueError):
         td.decode_blocks_tmap(fetch[:, :0], T, ol)
+
+
+#: (H, PCQ, NOUT) of the linked step, small; the last is unaligned
+LINKED_SHAPES = [(64, 96, 128), (256, 1000, 512), (61, 35, 131)]
+
+
+def _linked_inputs(H, PCQ, NOUT, seed):
+    """hist, payloads, and a T whose entries reach both, some out of
+    range on either side (the step clips them)."""
+    rng = np.random.default_rng(seed)
+    hist = rng.integers(0, 256, H, dtype=np.uint8)
+    pay = rng.integers(0, 256, PCQ, dtype=np.uint8)
+    T = rng.integers(-5, H + PCQ + 5, NOUT, dtype=np.int64).astype(np.int32)
+    return hist, pay, T
+
+
+def _linked(hist, pay, T, total, device="cpu"):
+    out, new_hist = td.linked_tmap_step(
+        torch.from_numpy(hist).to(device), torch.from_numpy(pay).to(device),
+        torch.from_numpy(T).to(device), total)
+    return out.cpu().numpy(), new_hist.cpu().numpy()
+
+
+def _totals(NOUT):
+    """0, 1, mid, NOUT - 1, NOUT, and past NOUT (the shift clips)."""
+    return [0, 1, NOUT // 2 + 1, NOUT - 1, NOUT, NOUT + 7]
+
+
+@pytest.mark.parametrize("shape", LINKED_SHAPES, ids=str)
+def test_linked_step_plain_matches_jax(shape):
+    pytest.importorskip("jax")
+    from zig_lz4_tpu.ops.jax_decode import _linked_tmap_stepper
+    H, PCQ, NOUT = shape
+    step = _linked_tmap_stepper(H, PCQ, NOUT)
+    hist, pay, T = _linked_inputs(H, PCQ, NOUT, seed=H + NOUT)
+    for total in _totals(NOUT):
+        want_out, want_hist = step(hist, pay, T, np.int32(total))
+        out, new_hist = _linked(hist, pay, T, total)
+        assert np.array_equal(out, np.asarray(want_out)), total
+        assert np.array_equal(new_hist, np.asarray(want_hist)), total
+
+
+@pytest.mark.parametrize("shape", LINKED_SHAPES, ids=str)
+def test_linked_step_plain_semantics(shape):
+    """out[j] = fetch[clip(T[j])] for j < total, else 0; new_hist = the
+    H bytes of [hist | out] from clip(total, 0, NOUT); garbage in T at
+    or past total changes nothing; hist is not written."""
+    H, PCQ, NOUT = shape
+    hist, pay, T = _linked_inputs(H, PCQ, NOUT, seed=3)
+    fetch = np.concatenate([hist, pay])
+    rng = np.random.default_rng(8)
+    for total in _totals(NOUT):
+        live = min(total, NOUT)
+        want = np.zeros(NOUT, np.uint8)
+        want[:live] = fetch[np.clip(T[:live], 0, H + PCQ - 1)]
+        hist_in = hist.copy()
+        out, new_hist = _linked(hist_in, pay, T, total)
+        assert np.array_equal(hist_in, hist)
+        assert np.array_equal(out, want)
+        assert np.array_equal(new_hist,
+                              np.concatenate([hist, want])[live:live + H])
+        T2 = T.copy()
+        T2[live:] = rng.integers(-2 ** 31, 2 ** 31 - 1, NOUT - live,
+                                 dtype=np.int64).astype(np.int32)
+        out2, hist2 = _linked(hist, pay, T2, total)
+        assert np.array_equal(out2, out) and np.array_equal(hist2, new_hist)
+
+
+def test_linked_steps_chain():
+    """Two steps carry the history as the frame decoder does: the
+    second window's history coordinates read the first one's tail."""
+    H, NOUT = 64, 128
+    rng = np.random.default_rng(12)
+    hist0 = np.zeros(H, np.uint8)
+    pay1 = rng.integers(0, 256, 100, dtype=np.uint8)
+    T1 = (H + np.arange(NOUT) % 100).astype(np.int32)
+    out1, hist1 = _linked(hist0, pay1, T1, 100)
+    assert np.array_equal(hist1, pay1[100 - H:])
+    # second window: 40 bytes copied from the history's tail, then 24 new
+    pay2 = rng.integers(0, 256, 24, dtype=np.uint8)
+    T2 = np.concatenate([H - 40 + np.arange(40), H + np.arange(24),
+                         np.zeros(NOUT - 64)]).astype(np.int32)
+    out2, hist2 = _linked(hist1, pay2, T2, 64)
+    assert np.array_equal(out2[:40], pay1[60:])
+    assert np.array_equal(out2[40:64], pay2)
+    assert np.array_equal(hist2, out2[:64])
+
+
+def test_linked_step_rejects_bad_inputs():
+    hist, pay, T = (torch.zeros(8, dtype=torch.uint8),
+                    torch.zeros(8, dtype=torch.uint8),
+                    torch.zeros(8, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        td.linked_tmap_step(hist, pay, T.long(), 4)
+    with pytest.raises(TypeError):
+        td.linked_tmap_step(hist.int(), pay, T, 4)
+    with pytest.raises(TypeError):
+        td.linked_tmap_step(hist, pay, T, torch.tensor(4))
+    with pytest.raises(ValueError):
+        td.linked_tmap_step(hist[:0], pay, T, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LINKED_SHAPES + [(65536, 70_001, 1 << 18)],
+                         ids=str)
+def test_linked_kernels_match_plain(cuda, shape):
+    H, PCQ, NOUT = shape
+    hist, pay, T = _linked_inputs(H, PCQ, NOUT, seed=5)
+    for total in _totals(NOUT):
+        got = _linked(hist, pay, T, total, device=cuda)
+        want = _linked(hist, pay, T, total)
+        assert np.array_equal(got[0], want[0]), total
+        assert np.array_equal(got[1], want[1]), total
 
 
 @pytest.mark.cuda

@@ -1,15 +1,20 @@
-"""The port's level-9 encoder (zig_lz4_tpu_torch.ops.torch_block)
-against the JAX reference (zig_lz4_tpu.ops.jax_block, hc=9).
+"""The port's block encoder, levels 0-9
+(zig_lz4_tpu_torch.ops.torch_block) against the JAX reference
+(zig_lz4_tpu.ops.jax_block).
 
 Tolerance: none.  The outputs are bytes and lengths, so every
 comparison is exact equality.
 
-* 4 KB windows: the plain encoder against a live
-  ``encode_blocks_jax(..., blk=4096, hc=9)`` run on the same inputs
-  (one JAX compile for the whole batch).
-* 64 KB windows: the plain encoder against the JAX payloads checked in
-  by ``tests/fixtures/make_torch_goldens.py`` (compiling JAX at 64 KB
-  takes minutes on a CPU).
+* 4 KB windows, live: the plain encoder against
+  ``encode_blocks_jax(..., blk=4096)`` at ``hc=9`` and at ``hc=0``
+  on the same inputs (one JAX compile each for the whole batch; this is
+  the one test file that compiles the JAX encoder).
+* 4 KB windows, checked in: every other configuration (``hc=0`` at
+  ``accel`` 1, 2, 4, 8 and ``hc`` 2..8) against the JAX payloads of
+  ``tests/fixtures/levels4k.npz``.
+* 64 KB windows: the plain encoder at levels 0, 4 and 9 against the JAX
+  payloads checked in by ``tests/fixtures/make_torch_goldens.py``
+  (compiling JAX at 64 KB takes minutes on a CPU).
 * ``cuda``-marked tests hold the CUDA kernels against the plain
   versions; they skip where there is no CUDA device.  On the card:
   ``python -m pytest --noconftest -m cuda tests/test_torch_*.py``.
@@ -22,14 +27,22 @@ import numpy as np
 import pytest
 import torch
 
-from zig_lz4_tpu.constants import compress_bound
-from zig_lz4_tpu.ops.block import decompress_safe
+from zig_lz4_tpu_torch.constants import compress_bound
 from zig_lz4_tpu_torch.corpus import make_corpus
 from zig_lz4_tpu_torch.ops import torch_block as tb
+from zig_lz4_tpu_torch.ops.block import (decompress_safe,
+                                         decompress_safe_using_dict)
 
 BLK = 4096
-GOLDENS = os.path.join(os.path.dirname(__file__), "fixtures",
-                       "l9_corpus64k.npz")
+_FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures")
+GOLDENS = os.path.join(_FIXDIR, "l9_corpus64k.npz")
+#: JAX payloads of the same 64 KB blocks at levels 0 and 4, and of the
+#: static 4 KB inputs at every configuration below level 9
+LEVEL_GOLDENS = os.path.join(_FIXDIR, "levels_corpus64k.npz")
+GOLDENS_4K = os.path.join(_FIXDIR, "levels4k.npz")
+#: name -> (hc, accel), as tests/fixtures/make_torch_goldens.py writes
+LEVEL_CONFIGS = {**{f"hc0_a{a}": (0, a) for a in (1, 2, 4, 8)},
+                 **{f"hc{h}": (h, 1) for h in range(2, 9)}}
 #: make_corpus(2) 64 KB blocks of the goldens file, one per content type
 GOLDEN_BLOCKS = (0, 5, 7, 9, 13, 18, 27, 29)
 
@@ -119,11 +132,18 @@ def _pack(inputs):
     return rows, windows, lens, starts
 
 
-def _encode(windows, lens, starts, device="cpu"):
+def _encode(windows, lens, starts, device="cpu", hc=9, accel=1):
     out, out_len = tb.encode_blocks(torch.from_numpy(windows).to(device),
                                     torch.from_numpy(lens).to(device),
-                                    torch.from_numpy(starts).to(device))
+                                    torch.from_numpy(starts).to(device),
+                                    hc=hc, accel=accel)
     return out.cpu().numpy(), out_len.cpu().numpy()
+
+
+def _payloads(dense, out_len):
+    """The payloads packed back to back in ``dense``, as a list."""
+    ends = np.cumsum(out_len)
+    return [dense[e - n:e].tobytes() for e, n in zip(ends, out_len)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -159,15 +179,39 @@ def port_out(batch):
 
 
 @pytest.fixture(scope="module")
+def jax_out_fast(batch):
+    pytest.importorskip("jax")
+    from zig_lz4_tpu.ops.jax_block import encode_blocks_jax
+    _rows, windows, lens, starts = batch
+    out, out_len = encode_blocks_jax(windows, lens, blk=BLK, starts=starts,
+                                     hc=0, accel=1)
+    return np.asarray(out), np.asarray(out_len)
+
+
+@pytest.fixture(scope="module")
+def port_out_fast(batch):
+    _rows, windows, lens, starts = batch
+    return _encode(windows, lens, starts, hc=0)
+
+
+@pytest.fixture(scope="module")
+def static_batch():
+    return _pack(_static_inputs())
+
+
+@pytest.fixture(scope="module")
 def goldens():
     z = np.load(GOLDENS)
     assert tuple(z["blocks"]) == GOLDEN_BLOCKS
     c = make_corpus(2)
     rows = np.stack([np.frombuffer(c[i * 65536:(i + 1) * 65536], np.uint8)
                      for i in GOLDEN_BLOCKS])
-    ends = np.cumsum(z["out_len"])
-    payloads = [z["payloads"][e - n:e].tobytes()
-                for e, n in zip(ends, z["out_len"])]
+    zl = np.load(LEVEL_GOLDENS)
+    assert tuple(zl["blocks"]) == GOLDEN_BLOCKS
+    payloads = {9: _payloads(z["payloads"], z["out_len"])}
+    for level in (0, 4):
+        payloads[level] = _payloads(zl[f"payloads_l{level}"],
+                                    zl[f"out_len_l{level}"])
     return rows, payloads
 
 
@@ -190,12 +234,19 @@ def test_plain_encode_matches_jax_4k(name, batch, jax_out, port_out):
 
 
 @pytest.mark.parametrize("name", NAMES)
-def test_plain_encode_decodes_with_oracle(name, batch, port_out):
-    rows, windows, lens, starts = batch
+def test_plain_fast_encode_matches_jax_4k(name, batch, jax_out_fast,
+                                          port_out_fast):
+    rows, _w, lens, starts = batch
     for r in rows[name]:
+        assert port_out_fast[1][r] == jax_out_fast[1][r]
+        assert np.array_equal(port_out_fast[0][r], jax_out_fast[0][r])
+
+
+def _decodes(windows, lens, starts, out, rows):
+    for r in rows:
         n, s = int(lens[r]), int(starts[r])
-        comp = port_out[0][r, :port_out[1][r]].tobytes()
-        assert not port_out[0][r, port_out[1][r]:].any()
+        comp = out[0][r, :out[1][r]].tobytes()
+        assert not out[0][r, out[1][r]:].any()
         if n == s:
             assert comp == b""
             continue
@@ -203,25 +254,82 @@ def test_plain_encode_decodes_with_oracle(name, batch, port_out):
         if s == 0:
             assert decompress_safe(comp, n) == want
         else:
-            from zig_lz4_tpu.ops.block import decompress_safe_using_dict
             assert decompress_safe_using_dict(
                 comp, n - s, windows[r, :s].tobytes()) == want
 
 
+@pytest.mark.parametrize("name", NAMES)
+def test_plain_encode_decodes_with_oracle(name, batch, port_out):
+    rows, windows, lens, starts = batch
+    _decodes(windows, lens, starts, port_out, rows[name])
+
+
+@pytest.mark.parametrize("config", sorted(LEVEL_CONFIGS))
+def test_plain_encode_matches_jax_goldens_4k(config, static_batch):
+    """Every configuration below level 9 on the static inputs (cases,
+    corpus slices, history and fuzz rows), against the JAX payloads
+    checked in; each output also decodes to its input."""
+    hc, accel = LEVEL_CONFIGS[config]
+    rows, windows, lens, starts = static_batch
+    z = np.load(GOLDENS_4K)
+    out = _encode(windows, lens, starts, hc=hc, accel=accel)
+    assert np.array_equal(out[1], z[f"out_len_{config}"])
+    want = _payloads(z[f"payloads_{config}"], z[f"out_len_{config}"])
+    for r, p in enumerate(want):
+        assert out[0][r, :out[1][r]].tobytes() == p, (config, r)
+    _decodes(windows, lens, starts, out, range(len(lens)))
+
+
+def test_goldens_4k_cover_every_configuration():
+    with np.load(GOLDENS_4K) as z:
+        assert set(z.files) == {f"{kind}_{c}" for c in LEVEL_CONFIGS
+                                for kind in ("out_len", "payloads")}
+        # the acceleration knob and the level change the bytes
+        sizes = {c: int(z[f"out_len_{c}"].sum()) for c in LEVEL_CONFIGS}
+    assert sizes["hc0_a1"] < sizes["hc0_a2"] < sizes["hc0_a4"] \
+        < sizes["hc0_a8"]
+    assert sizes["hc8"] < sizes["hc2"] < sizes["hc0_a1"]
+
+
+def _matches_golden_64k(k, level, goldens):
+    rows, payloads = goldens
+    hc, _deep = tb.level_params(level)
+    out, out_len = _encode(rows[k:k + 1], np.full(1, 65536, np.int32),
+                           np.zeros(1, np.int32), hc=hc)
+    assert out.shape == (1, compress_bound(65536))
+    assert out[0, :out_len[0]].tobytes() == payloads[level][k]
+
+
 @pytest.mark.parametrize("k", range(len(GOLDEN_BLOCKS)))
 def test_plain_encode_matches_jax_goldens_64k(k, goldens):
-    rows, payloads = goldens
-    out, out_len = _encode(rows[k:k + 1], np.full(1, 65536, np.int32),
-                           np.zeros(1, np.int32))
-    assert out.shape == (1, compress_bound(65536))
-    assert out[0, :out_len[0]].tobytes() == payloads[k]
+    _matches_golden_64k(k, 9, goldens)
+
+
+@pytest.mark.parametrize("level", [0, 4])
+@pytest.mark.parametrize("k", range(len(GOLDEN_BLOCKS)))
+def test_plain_encode_matches_jax_level_goldens_64k(k, level, goldens):
+    _matches_golden_64k(k, level, goldens)
 
 
 def test_level_params_match_reference():
     pytest.importorskip("jax")
-    from zig_lz4_tpu.ops.jax_block import level_params
+    from zig_lz4_tpu.ops.jax_block import fast_params, level_params
     for level in range(-1, 14):
         assert tb.level_params(level) == level_params(level)
+    for accel in range(-1, 12):
+        assert tb.fast_params(accel) == fast_params(accel)
+
+
+def test_deep_levels_raise_not_implemented():
+    w = torch.zeros((1, 64), dtype=torch.uint8)
+    n = torch.full((1,), 64, dtype=torch.int32)
+    for deep in (1, 2, 3):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+            tb.encode_blocks(w, n, hc=8, deep=deep)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+            tb.encode_blocks_plain(w, n, hc=8, deep=deep)
+    with pytest.raises(ValueError):
+        tb.encode_blocks(w, n, hc=-1)
 
 
 def test_encoder_rejects_what_it_does_not_take():
@@ -239,29 +347,36 @@ def test_encoder_rejects_what_it_does_not_take():
 
 
 @pytest.mark.cuda
-def test_kernels_match_plain_4k(cuda):
+@pytest.mark.parametrize("config", ["hc9"] + sorted(LEVEL_CONFIGS))
+def test_kernels_match_plain_4k(cuda, config):
+    hc, accel = {"hc9": (9, 1), **LEVEL_CONFIGS}[config]
     _rows, windows, lens, starts = _pack(_static_inputs())
     w, n, s = (torch.from_numpy(a).to(cuda) for a in (windows, lens, starts))
-    pk = tb.match_candidates(w, n)
-    assert torch.equal(pk.cpu(), tb.match_candidates_plain(w.cpu(), n.cpu()))
-    out, out_len = tb.parse_emit(w, n, s, pk)
-    out_p, len_p = tb.parse_emit_plain(w.cpu(), n.cpu(), s.cpu(), pk.cpu())
+    pk = tb.match_candidates(w, n, hc, accel)
+    assert torch.equal(pk.cpu(), tb.match_candidates_plain(w.cpu(), n.cpu(),
+                                                           hc, accel))
+    out, out_len = tb.parse_emit(w, n, s, pk, hc, accel)
+    out_p, len_p = tb.parse_emit_plain(w.cpu(), n.cpu(), s.cpu(), pk.cpu(),
+                                       hc, accel)
     torch.cuda.synchronize()
     assert torch.equal(out_len.cpu(), len_p)
     assert torch.equal(out.cpu(), out_p)
 
 
 @pytest.mark.cuda
-def test_kernels_match_goldens_64k(cuda, goldens):
+@pytest.mark.parametrize("level", [0, 4, 9])
+def test_kernels_match_goldens_64k(cuda, goldens, level):
     rows, payloads = goldens
+    hc, _deep = tb.level_params(level)
     out, out_len = _encode(rows, np.full(len(rows), 65536, np.int32),
-                           np.zeros(len(rows), np.int32), device=cuda)
-    for k, p in enumerate(payloads):
+                           np.zeros(len(rows), np.int32), device=cuda, hc=hc)
+    for k, p in enumerate(payloads[level]):
         assert out[k, :out_len[k]].tobytes() == p
 
 
 @pytest.mark.cuda
-def test_kernels_odd_window_sizes(cuda):
+@pytest.mark.parametrize("hc,accel", [(9, 1), (3, 1), (0, 1), (0, 8)])
+def test_kernels_odd_window_sizes(cuda, hc, accel):
     """Windows that are not powers of two pad the bitonic sort."""
     rng = np.random.default_rng(5)
     text = CASES["text"]
@@ -271,7 +386,8 @@ def test_kernels_odd_window_sizes(cuda):
         windows[1] = rng.integers(0, 3, blk, dtype=np.uint8)
         lens = np.array([blk, blk, blk // 2], np.int32)
         starts = np.zeros(3, np.int32)
-        got = _encode(windows, lens, starts, device=cuda)
-        want = _encode(windows, lens, starts)
+        got = _encode(windows, lens, starts, device=cuda, hc=hc,
+                      accel=accel)
+        want = _encode(windows, lens, starts, hc=hc, accel=accel)
         assert np.array_equal(got[1], want[1])
         assert np.array_equal(got[0], want[0])

@@ -1,9 +1,11 @@
 """Package-level properties of the port (zig_lz4_tpu_torch): it loads
-no JAX, builds nothing at import, carries the bench's corpus and the
-reference codec's settings, and picks no device on its own."""
+no JAX and nothing of the JAX package, builds nothing at import,
+carries the bench's corpus and the reference codec's settings, and
+picks no device on its own."""
 
 import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -42,17 +44,48 @@ def test_import_loads_no_jax_and_builds_nothing():
 
 
 def test_sources_name_no_jax():
-    """The port and chip_smoke.py reach no JAX module, directly or
-    through the JAX package's device layers."""
-    files = glob.glob(os.path.join(PKG, "**", "*.py"), recursive=True)
+    """No file of the port, and not chip_smoke.py, names the JAX
+    package (its name not followed by ``_torch``) or imports JAX."""
+    files = [f for f in glob.glob(os.path.join(PKG, "**", "*"),
+                                  recursive=True)
+             if os.path.isfile(f) and "__pycache__" not in f
+             and os.sep + "_build" + os.sep not in f]
+    assert any(f.endswith(".cu") for f in files)
+    assert any(f.endswith(".cpp") for f in files)
     files.append(os.path.join(ROOT, "chip_smoke.py"))
-    banned = ("import jax", "from jax", "zig_lz4_tpu.parallel",
-              "zig_lz4_tpu.ops.jax_", "zig_lz4_tpu.models", "import bench")
+    reference = re.compile(r"zig_lz4_tpu(?!_torch)")
     for path in files:
-        with open(path) as f:
+        with open(path, errors="replace") as f:
             src = f.read()
-        for word in banned:
+        hit = reference.search(src)
+        assert hit is None, (f"{path} names the JAX package: "
+                             f"{src[max(hit.start() - 40, 0):hit.end() + 20]!r}")
+        for word in ("import jax", "from jax", "import bench"):
             assert word not in src, f"{path} names {word!r}"
+
+
+def test_round_trip_loads_nothing_of_the_jax_package():
+    """Importing the port and a CPU compress/decompress of both frame
+    kinds leave neither ``jax`` nor the JAX package in sys.modules."""
+    r = _run(
+        "import sys\n"
+        "import zig_lz4_tpu_torch as z\n"
+        "from zig_lz4_tpu_torch import frame as lz4f\n"
+        "data = b'no module of the reference is loaded, ' * 300\n"
+        "c = z.ShardedFrameCodec(device='cpu', compression_level=0)\n"
+        "fr = c.compress_frame(data)\n"
+        "assert c.decompress_frame(fr) == data\n"
+        "assert lz4f.decompress_frame(fr) == data\n"
+        "assert c.decompress_frame(lz4f.compress_frame(data)) == data\n"
+        "assert z.native.is_available()\n"
+        "print(sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith('jax.') or m == 'zig_lz4_tpu'\n"
+        "             or m.startswith('zig_lz4_tpu.')))\n"
+        "print(z.native._SO)\n")
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.split("\n")
+    assert lines[0] == "[]"
+    assert lines[1] == os.path.join(PKG, "_build", "liblz4tpu_native.so")
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
@@ -62,8 +95,13 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     before = dict(kernels.LAUNCHES)
     w = torch.from_numpy(np.frombuffer(b"abcd" * 64, np.uint8)
                          .copy()[None, :])
-    out, n = tb.encode_blocks(w, torch.tensor([256], dtype=torch.int32))
-    assert int(n[0]) > 0
+    for hc in (9, 0):
+        out, n = tb.encode_blocks(w, torch.tensor([256], dtype=torch.int32),
+                                  hc=hc)
+        assert int(n[0]) > 0
+    td.linked_tmap_step(torch.zeros(8, dtype=torch.uint8),
+                        torch.ones(8, dtype=torch.uint8),
+                        torch.arange(16, dtype=torch.int32), 12)
     td.decode_blocks_tmap(torch.zeros((1, 4), dtype=torch.uint8),
                           torch.zeros((1, 8), dtype=torch.int32),
                           torch.ones(1, dtype=torch.int32))
@@ -77,10 +115,12 @@ def test_launch_checks_its_tensors():
                        torch.zeros(1, dtype=torch.int32),
                        torch.zeros(4, dtype=torch.uint8), 1, 4, 4)
     assert set(kernels.LAUNCHES) == set(kernels.KERNELS)
-    for _fn, src, _args, ref in kernels.KERNELS.values():
+    for name, (_fn, src, _args, _ref) in kernels.KERNELS.items():
         assert os.path.exists(os.path.join(PKG, "kernels", "csrc", src))
-        path, line = ref.split(":")
+        path, line = kernels.reference_path(name).split(":")
         assert os.path.exists(os.path.join(ROOT, path)) and int(line) > 0
+        with open(os.path.join(ROOT, path)) as f:
+            assert len(f.readlines()) >= int(line)
 
 
 def test_corpus_equals_bench_corpus():
@@ -92,17 +132,31 @@ def test_corpus_equals_bench_corpus():
 
 def test_from_reference_copies_settings():
     pytest.importorskip("jax")
-    import zig_lz4_tpu.frame as lz4f
+    import dataclasses
+
+    import zig_lz4_tpu.frame as ref_frame
     from zig_lz4_tpu.parallel import ShardedFrameCodec as JaxCodec
+    from zig_lz4_tpu_torch import frame as lz4f
     ref = JaxCodec(compression_level=9, block_checksum=True,
                    content_checksum=False,
-                   block_size_id=lz4f.BlockSizeID.max256KB)
+                   block_size_id=ref_frame.BlockSizeID.max256KB,
+                   dictionary=b"0123456789" * 20, dict_id=77)
     ref.block_size = ref.window = 8192
     port = ShardedFrameCodec.from_reference(ref, device="cpu")
     assert port.device == torch.device("cpu")
-    for attr in ("level", "block_size", "window", "info",
-                 "decode_engine"):
+    for attr in ("level", "block_size", "window", "decode_engine", "dict",
+                 "dcap"):
         assert getattr(port, attr) == getattr(ref, attr), attr
+    # the frame settings are the port's own classes with equal values
+    assert type(port.info) is lz4f.FrameInfo
+    assert type(port.info.block_size_id) is lz4f.BlockSizeID
+    assert type(port.info.block_mode) is lz4f.BlockMode
+    want = dataclasses.asdict(ref.info)
+    got = dataclasses.asdict(port.info)
+    assert set(got) == set(want)
+    for field, value in want.items():
+        assert int(got[field]) == int(value), field
+    assert port.info.dict_id == 77
 
 
 def test_device_is_explicit():

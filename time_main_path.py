@@ -1,0 +1,71 @@
+#!/usr/bin/env python3
+"""Time the port's level-9 main path, for comparing two checkouts.
+
+Host-bound times move between machines and between processes, so two
+versions of the port are compared only inside one call on one card, in
+turns.  Unpack the other commit into a directory (``git archive``) and
+run this file from each checkout's root, which is put first on the
+module path:
+
+    cd other_checkout && python3 /path/to/time_main_path.py
+    cd this_checkout && python3 time_main_path.py
+
+It compresses and decompresses the bench's 48 MB corpus in 64 KB
+independent blocks at level 9 on one CUDA device and prints, for two
+rounds, the median and range of 5 runs of each call in milliseconds
+between CUDA events.  It uses only what every version of the port has:
+``ShardedFrameCodec`` and ``corpus.make_corpus``.
+"""
+
+import os
+import statistics
+import sys
+
+sys.path.insert(0, os.getcwd())
+
+import torch  # noqa: E402
+
+from zig_lz4_tpu_torch import ShardedFrameCodec  # noqa: E402
+from zig_lz4_tpu_torch.corpus import make_corpus  # noqa: E402
+
+BLK = 65536
+REPS = 5
+
+
+def cuda_ms(fn):
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    data = make_corpus(48)
+    data = data[:len(data) - len(data) % (BLK * 64)]
+    codec = ShardedFrameCodec(compression_level=9, device="cuda")
+    frame = codec.compress_frame(data)
+    if codec.decompress_frame(frame) != data:
+        print("round trip differs", file=sys.stderr)
+        return 1
+    for rnd in range(2):
+        enc = [cuda_ms(lambda: codec.compress_frame(data))
+               for _ in range(REPS)]
+        dec = [cuda_ms(lambda: codec.decompress_frame(frame))
+               for _ in range(REPS)]
+        print(f"{os.getcwd()} round {rnd}: compress_frame "
+              f"{statistics.median(enc):.2f} ms ({min(enc):.2f}-"
+              f"{max(enc):.2f}), decompress_frame "
+              f"{statistics.median(dec):.2f} ms ({min(dec):.2f}-"
+              f"{max(dec):.2f}) on {torch.cuda.get_device_name(0)}",
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,12 +1,12 @@
 """Builds, loads and launches the port's hand-written CUDA kernels.
 
 The sources under ``csrc/`` are compiled for Hopper (``sm_90a``) by
-``nvcc`` into one shared library with a plain C interface, at first
-use, into ``zig_lz4_tpu_torch/_build/`` -- the same build-on-first-use
-scheme as the host runtime (``zig_lz4_tpu/native/__init__.py:41-69``),
-without PyTorch's headers, so a build takes seconds.  The library is
-rebuilt when any source is newer than it.  Nothing is built or loaded
-at import time.
+``nvcc``, one process per source and all started together, and linked
+into one shared library with a plain C interface, at first use, into
+``zig_lz4_tpu_torch/_build/`` -- the same build-on-first-use scheme as
+the host runtime (``native/__init__.py``), without PyTorch's headers,
+so a build takes seconds.  The library is rebuilt when any source is
+newer than it.  Nothing is built or loaded at import time.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``launch`` raises if that is not 0 and counts the launch in
@@ -25,7 +25,7 @@ import time
 
 import torch
 
-__all__ = ["LAUNCHES", "KERNELS", "build", "launch",
+__all__ = ["LAUNCHES", "KERNELS", "build", "launch", "reference_path",
            "reset_launch_counts"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -36,17 +36,28 @@ _SO = os.path.join(_BUILD, "libzl4_kernels.so")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: kernel name -> (C entry point, source file, argument types before
-#: the stream, TPU function it replaces)
+#: the stream, function of the JAX reference it replaces as
+#: ``file:line`` inside the reference package)
 KERNELS = {
     "tmap_gather": ("zl4_tmap_gather", "tmap_gather.cu",
                     [_P, _P, _P, _P, _I, _I, _I],
-                    "zig_lz4_tpu/ops/jax_decode.py:1043"),
-    "enc_match": ("zl4_enc_match", "encode_l9.cu",
-                  [_P, _P, _P, _I, _I],
-                  "zig_lz4_tpu/ops/jax_block.py:249"),
-    "enc_parse_emit": ("zl4_enc_parse_emit", "encode_l9.cu",
-                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I],
-                       "zig_lz4_tpu/ops/jax_block.py:522"),
+                    "ops/jax_decode.py:1043"),
+    "enc_match": ("zl4_enc_match", "encode_block.cu",
+                  [_P, _P, _P, _I, _I, _I],
+                  "ops/jax_block.py:249"),
+    "enc_match_fast": ("zl4_enc_match_fast", "encode_block.cu",
+                       [_P, _P, _P, _I, _I, _I, _I],
+                       "ops/jax_block.py:348"),
+    "enc_parse_emit": ("zl4_enc_parse_emit", "encode_block.cu",
+                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I],
+                       "ops/jax_block.py:522"),
+    "linked_tmap_step": ("zl4_linked_gather", "linked_tmap.cu",
+                         [_P, _P, _P, _P, _I, _I, _I, _I],
+                         "ops/jax_decode.py:1084"),
+    "linked_hist_shift": ("zl4_linked_hist_shift", "linked_tmap.cu",
+                          [_P, _P, _P, _I, _I, _I],
+                          "ops/jax_decode.py:1123"),
 }
 #: launches per kernel since the last reset_launch_counts()
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -58,6 +69,14 @@ _lock = threading.Lock()
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def reference_path(name: str) -> str:
+    """``file:line`` of the reference function kernel ``name``
+    replaces, from the repository root: the reference package lies
+    beside this one and has its name without the ``_torch`` suffix."""
+    pkg = os.path.basename(os.path.dirname(_HERE)).removesuffix("_torch")
+    return f"{pkg}/{KERNELS[name][3]}"
 
 
 def _nvcc() -> str:
@@ -86,18 +105,39 @@ def build() -> float:
         if not _stale():
             return 0.0
         os.makedirs(_BUILD, exist_ok=True)
-        tmp = f"{_SO}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", tmp] + sorted(
-            glob.glob(os.path.join(_CSRC, "*.cu")))
+        nvcc = _nvcc()
+        tag = f"{os.getpid()}.tmp"
+        flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC"]
         t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
-                               f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
+        jobs = []
+        for src in sorted(glob.glob(os.path.join(_CSRC, "*.cu"))):
+            obj = os.path.join(_BUILD, f"{os.path.basename(src)}.{tag}.o")
+            cmd = [nvcc, *flags, "-Xptxas", "-v", "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], False
+        for cmd, _obj, proc in jobs:
+            out = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + out)
+            failed |= proc.returncode != 0
+        objs = [obj for _cmd, obj, _proc in jobs]
+        try:
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(log))
+            tmp = f"{_SO}.{tag}"
+            cmd = [nvcc, *flags, "-shared", "-o", tmp, *objs]
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
+        finally:
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
         with open(os.path.join(_BUILD, "build.log"), "w") as f:
-            f.write(" ".join(cmd) + "\n" + r.stdout + r.stderr)
+            f.write("\n".join(log))
         os.replace(tmp, _SO)
         return time.perf_counter() - t0
 

@@ -1,7 +1,8 @@
 // T-map block rebuild: one gather per output byte.
 //
-// Replaces: zig_lz4_tpu/ops/jax_decode.py:_decode_block_tmap (:1043-1075),
-// batched by _batched_tmap_decoder (:1078-1081).  The TPU version merges
+// Replaces: _decode_block_tmap of the JAX reference
+// (ops/jax_decode.py:1043-1075), batched by _batched_tmap_decoder
+// (:1078-1081).  The TPU version merges
 // the fetch buffer against T with two sorts and a packed cummax because
 // gathers are slow there; it computes
 //     out[b, j] = fetch[b, clip(T[b, j], 0, F - 1)]   for j < out_len[b]

@@ -1,20 +1,25 @@
-"""Level-9 LZ4 block encoder for the H100, with its plain PyTorch version.
+"""LZ4 block encoder for the H100, levels 0-9, with its plain PyTorch
+version.
 
-Counterpart of ``zig_lz4_tpu/ops/jax_block.py:_encode_block`` at
-``hc=9, deep=0, W=8`` (levels 2-9 share the code path; this slice
-ports level 9 only).  The JAX function builds every stage out of
+Counterpart of ``_encode_block`` in the JAX reference's
+``ops/jax_block.py`` at ``deep=0``: the fast finder (``hc=0``, levels
+<= 1, with the acceleration knob of ``fast_params``) and the HC finder
+(``hc`` 2..9 = the level).  The JAX function builds every stage out of
 sorts and packed cummax fills because gathers are slow on a TPU; here
-the same semantics are computed in two hand-written CUDA kernels
-(``kernels/csrc/encode_l9.cu``):
+the same semantics are computed by hand-written CUDA kernels
+(``kernels/csrc/encode_block.cu``):
 
-* ``enc_match`` -- window build, the 12-byte grouping sort, the
-  +-1..+-9 sorted-neighbour probes, the positional fallback sort and
-  its +1/+2 probes.  Output: one packed candidate word per position,
+* ``enc_match`` (``hc >= 1``) -- window build, the 12-byte grouping
+  sort, the +-1..+-hc sorted-neighbour probes, the positional fallback
+  sort and its +1/+2 probes.
+* ``enc_match_fast`` (``hc == 0``) -- window build, one grouping sort
+  by the 4-byte string, probes +1..+probes over ``W`` carried windows.
+  Both write one packed candidate word per position,
   ``((cand + 1) << 12) | (fine ml << 6) | back`` (0 = no candidate),
   the same pack the reference unsorts (``jax_block.py:459-466``).
 * ``enc_parse_emit`` -- same-offset chain extension, the ``n - 5``
-  clamp, two-step lazy deferral, the greedy parse and the emission of
-  the LZ4 sequences.
+  clamp, two-step lazy deferral (HC only), the greedy parse and the
+  emission of the LZ4 sequences.
 
 Each kernel has a plain version in this module
 (``match_candidates_plain`` and ``parse_emit_plain``), written with
@@ -27,21 +32,15 @@ from __future__ import annotations
 
 import torch
 
-from zig_lz4_tpu.constants import compress_bound
-
+from ..constants import compress_bound
 from ..kernels import launch
 
-__all__ = ["level_params", "device_encoder_supports", "encode_blocks",
-           "encode_blocks_plain", "match_candidates",
+__all__ = ["level_params", "fast_params", "device_encoder_supports",
+           "encode_blocks", "encode_blocks_plain", "match_candidates",
            "match_candidates_plain", "parse_emit", "parse_emit_plain"]
 
 #: carried u32 windows (jax_block.py:100) -> fine ml up to 4 + 4*W
 _W = 8
-#: probes each way in the 12-byte order at level 9 (level_params)
-_HC = 9
-#: a fine ml at or above this saturated the windows: "capped"
-#: (``mlf >= max_sort_ml - 3``, jax_block.py:536)
-_CAPPED_ML = 4 + 4 * _W
 #: largest window the kernels take: sort indices are u16 and the
 #: window plus its index array must fit one block's shared memory
 _MAX_BLK = 65536
@@ -56,6 +55,32 @@ def level_params(level: int) -> tuple[int, int]:
     if level <= 9:
         return level, 0
     return 8, min(level - 9, 3)
+
+
+def fast_params(accel: int) -> tuple[int, int]:
+    """Map the fast-mode acceleration knob to (W, probes), as
+    ``jax_block.fast_params`` does (``jax_block.py:179-197``): fewer
+    carried windows and one probe less trade ratio for speed."""
+    accel = max(int(accel), 1)
+    if accel <= 1:
+        return _W, 2
+    if accel == 2:
+        return 4, 2
+    if accel <= 4:
+        return 2, 1
+    return 1, 1
+
+
+def _finder(hc: int, deep: int, accel: int) -> tuple[int, int]:
+    """(W, fast probes) of a configuration
+    (``jax_block.py:1144``); the deep levels are not ported."""
+    if deep:
+        raise NotImplementedError(
+            f"deep={deep}: the rank tiers and price parse of levels "
+            "10-12 are not ported yet (ROADMAP Queue 1 item 8)")
+    if hc < 0:
+        raise ValueError(f"hc={hc}")
+    return fast_params(accel) if not hc else (_W, 2)
 
 
 def device_encoder_supports(blk: int) -> bool:
@@ -86,8 +111,9 @@ def _check(blocks: torch.Tensor, lens: torch.Tensor,
 # ---------------------------------------------------------------------
 
 def _windows(row: torch.Tensor, n: int):
-    """(s0, wins[1..W], wb16) of one window as int64 (u32 values):
-    jax_block.py:249-267.  Bytes at or past ``n`` read as zero."""
+    """(s0, wins[1..8], wb16) of one window as int64 (u32 values):
+    jax_block.py:249-267.  Bytes at or past ``n`` read as zero, so a
+    configuration with W < 8 uses the first W windows of these."""
     blk = row.shape[0]
     idx = torch.arange(blk, device=row.device)
     b = torch.where(idx < n, row.long(), 0)
@@ -145,13 +171,35 @@ def _pack(cand, ml, back):
     return torch.where(cand >= 0, ((cand + 1) << 12) | (ml << 6) | back, 0)
 
 
-def _match_one(row: torch.Tensor, n: int) -> torch.Tensor:
-    blk = row.shape[0]
-    s0, wins, wb16 = _windows(row, n)
+def _nearest(order, s0, wins, wb16, n: int, probes: int):
+    """Probes +1..+probes of an order grouped by ``s0`` alone, where a
+    group is in position order: the nearest previous occurrences.  A
+    later probe wins only when strictly longer (jax_block.py:433-450,
+    :498-504).  Returns the packed candidates in position order."""
+    cand, ml, back = _probe(1, order, s0, wins, wb16, n)
+    for s in range(2, probes + 1):
+        c, m, k = _probe(s, order, s0, wins, wb16, n)
+        better = m > ml
+        cand = torch.where(better, c, cand)
+        ml = torch.where(better, m, ml)
+        back = torch.where(better, k, back)
+    pk = torch.empty_like(order)
+    pk[order] = _pack(cand, ml, back)                 # unsort
+    return pk
 
-    # 12-byte grouping order, +-1..+-9 probes (jax_block.py:349-450)
+
+def _match_one(row: torch.Tensor, n: int, hc: int, W: int,
+               probes: int) -> torch.Tensor:
+    s0, wins, wb16 = _windows(row, n)
+    wins = wins[:W]
+    if not hc:
+        # fast finder: one grouping sort by s0 (jax_block.py:348-352)
+        return _nearest(_stable_order((s0,)), s0, wins, wb16, n,
+                        probes).to(torch.int32)
+
+    # 12-byte grouping order, +-1..+-hc probes (jax_block.py:349-450)
     order = _stable_order((s0, wins[0], wins[1]))
-    shifts = [s for k in range(1, _HC + 1) for s in (k, -k)]
+    shifts = [s for k in range(1, hc + 1) for s in (k, -k)]
     cand, ml, back = _probe(shifts[0], order, s0, wins, wb16, n)
     for s in shifts[1:]:
         c, m, k = _probe(s, order, s0, wins, wb16, n)
@@ -164,33 +212,30 @@ def _match_one(row: torch.Tensor, n: int) -> torch.Tensor:
 
     # positional fallback: order by s0 alone, probes +1 then +2
     # (jax_block.py:471-516)
-    order2 = _stable_order((s0,))
-    c2, m2, k2 = _probe(1, order2, s0, wins, wb16, n)
-    c, m, k = _probe(2, order2, s0, wins, wb16, n)
-    b2 = m > m2
-    c2 = torch.where(b2, c, c2)
-    m2 = torch.where(b2, m, m2)
-    k2 = torch.where(b2, k, k2)
-    pk2 = torch.empty_like(order2)
-    pk2[order2] = _pack(c2, m2, k2)
+    pk2 = _nearest(_stable_order((s0,)), s0, wins, wb16, n, 2)
     fb_better = ((pk2 >> 6) & 63) > ((pk >> 6) & 63)
     return torch.where(fb_better, pk2, pk).to(torch.int32)
 
 
-def match_candidates_plain(blocks: torch.Tensor,
-                           lens: torch.Tensor) -> torch.Tensor:
-    """Plain version of the ``enc_match`` kernel: int32[B, blk] packed
+def match_candidates_plain(blocks: torch.Tensor, lens: torch.Tensor,
+                           hc: int = 9, accel: int = 1) -> torch.Tensor:
+    """Plain version of the ``enc_match`` (``hc >= 1``) and
+    ``enc_match_fast`` (``hc == 0``) kernels: int32[B, blk] packed
     candidates ``((cand + 1) << 12) | (fine ml << 6) | back``."""
+    W, probes = _finder(hc, 0, accel)
     if not blocks.shape[0]:
         return torch.zeros(blocks.shape, dtype=torch.int32,
                            device=blocks.device)
-    return torch.stack([_match_one(blocks[i], int(lens[i]))
+    return torch.stack([_match_one(blocks[i], int(lens[i]), hc, W, probes)
                         for i in range(blocks.shape[0])])
 
 
-def _parse_one(pk: torch.Tensor, n: int, start: int):
-    """Chain extension, clamp, lazy deferral and greedy parse of one
-    window (jax_block.py:522-555, :684-743).  Returns the chosen
+def _parse_one(pk: torch.Tensor, n: int, start: int, capped_ml: int,
+               lazy: bool):
+    """Chain extension, clamp, lazy deferral (``lazy``: HC only) and
+    greedy parse of one window (jax_block.py:522-555, :684-743).  A
+    fine ml at or above ``capped_ml`` = 4 + 4 * W saturated the
+    windows (``mlf >= max_sort_ml - 3``, :536).  Returns the chosen
     positions and, per position, (ml, off, back)."""
     blk = pk.shape[0]
     idx = torch.arange(blk, device=pk.device)
@@ -204,7 +249,7 @@ def _parse_one(pk: torch.Tensor, n: int, start: int):
 
     # same-offset chains: a capped row takes its length from the
     # nearest chain boundary at or after it
-    capped = valid & (mlf >= _CAPPED_ML)
+    capped = valid & (mlf >= capped_ml)
     off_next = torch.cat([off[1:], off.new_full((1,), 1 << 21)])
     valid_next = torch.cat([valid[1:], valid.new_zeros(1)])
     link = capped & valid_next & (off_next == off)
@@ -215,18 +260,8 @@ def _parse_one(pk: torch.Tensor, n: int, start: int):
     ml = torch.minimum(ml, (n - 5 - idx).clamp(min=0))
     is_match = valid & (ml >= 4) & (idx >= start)
 
-    # two-step lazy deferral
-    def sh(x, k):
-        return torch.cat([x[k:], x.new_zeros(k)])
-
-    ml1, im1 = sh(ml, 1), sh(is_match, 1)
-    ml2, im2 = sh(ml, 2), sh(is_match, 2)
-    g1 = im1 & (ml1 > ml + 1)
-    g2 = im2 & (ml2 > ml + 2)
-    d0 = g1 | g2
-    d0_1, d0_2 = sh(d0, 1), sh(d0, 2)
-    defer = is_match & ((g1 & ~d0_1) | (g2 & ~d0_2 & (d0_1 | ~im1)))
-    is_match = is_match & ~defer
+    if lazy:
+        is_match = is_match & ~_lazy_defer(ml, is_match)
 
     # greedy parse: the lowest match position not yet covered
     ml_l = ml.tolist()
@@ -237,6 +272,21 @@ def _parse_one(pk: torch.Tensor, n: int, start: int):
             chosen.append(p)
             end = p + ml_l[p]
     return chosen, ml_l, off.tolist(), back.tolist()
+
+
+def _lazy_defer(ml: torch.Tensor, is_match: torch.Tensor) -> torch.Tensor:
+    """Two-step lazy deferral (jax_block.py:684-710): rows that give
+    way to a strictly more profitable match at +1 or +2."""
+    def sh(x, k):
+        return torch.cat([x[k:], x.new_zeros(k)])
+
+    ml1, im1 = sh(ml, 1), sh(is_match, 1)
+    ml2, im2 = sh(ml, 2), sh(is_match, 2)
+    g1 = im1 & (ml1 > ml + 1)
+    g2 = im2 & (ml2 > ml + 2)
+    d0 = g1 | g2
+    d0_1, d0_2 = sh(d0, 1), sh(d0, 2)
+    return is_match & ((g1 & ~d0_1) | (g2 & ~d0_2 & (d0_1 | ~im1)))
 
 
 def _put_len(out: bytearray, v: int) -> None:
@@ -287,10 +337,12 @@ def _emit_one(data: bytes, n: int, start: int, chosen, ml, off,
 
 
 def parse_emit_plain(blocks: torch.Tensor, lens: torch.Tensor,
-                     starts: torch.Tensor, pk: torch.Tensor):
+                     starts: torch.Tensor, pk: torch.Tensor,
+                     hc: int = 9, accel: int = 1):
     """Plain version of the ``enc_parse_emit`` kernel: (out
     uint8[B, compress_bound(blk)], zero past out_len; out_len
     int32[B])."""
+    W, _probes = _finder(hc, 0, accel)
     B, blk = blocks.shape
     cap = compress_bound(blk)
     out = torch.zeros((B, cap), dtype=torch.uint8)
@@ -298,7 +350,8 @@ def parse_emit_plain(blocks: torch.Tensor, lens: torch.Tensor,
     rows = blocks.cpu().numpy()
     for i in range(B):
         n, start = int(lens[i]), int(starts[i])
-        chosen, ml, off, back = _parse_one(pk[i], n, start)
+        chosen, ml, off, back = _parse_one(pk[i], n, start, 4 + 4 * W,
+                                           hc > 0)
         comp = _emit_one(rows[i].tobytes(), n, start, chosen, ml, off,
                          back)
         if comp:
@@ -309,40 +362,49 @@ def parse_emit_plain(blocks: torch.Tensor, lens: torch.Tensor,
 
 
 def encode_blocks_plain(blocks: torch.Tensor, lens: torch.Tensor,
-                        starts: torch.Tensor | None = None):
-    """Plain level-9 encode of uint8[B, blk] windows: (out
+                        starts: torch.Tensor | None = None,
+                        hc: int = 9, deep: int = 0, accel: int = 1):
+    """Plain encode of uint8[B, blk] windows: (out
     uint8[B, compress_bound(blk)], out_len int32[B])."""
+    _finder(hc, deep, accel)
     if starts is None:
         starts = torch.zeros_like(lens)
     _check(blocks, lens, starts)
-    pk = match_candidates_plain(blocks, lens)
-    return parse_emit_plain(blocks, lens, starts, pk)
+    pk = match_candidates_plain(blocks, lens, hc, accel)
+    return parse_emit_plain(blocks, lens, starts, pk, hc, accel)
 
 
 # ---------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------
 
-def match_candidates(blocks: torch.Tensor,
-                     lens: torch.Tensor) -> torch.Tensor:
-    """Packed candidates per position; the ``enc_match`` kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+def match_candidates(blocks: torch.Tensor, lens: torch.Tensor,
+                     hc: int = 9, accel: int = 1) -> torch.Tensor:
+    """Packed candidates per position; for CUDA tensors the
+    ``enc_match`` kernel (``hc >= 1``) or the ``enc_match_fast`` kernel
+    (``hc == 0``, with ``fast_params(accel)``), the plain version for
+    CPU tensors."""
     if blocks.device.type == "cpu":
-        return match_candidates_plain(blocks, lens)
+        return match_candidates_plain(blocks, lens, hc, accel)
+    W, probes = _finder(hc, 0, accel)
     blocks, lens = blocks.contiguous(), lens.contiguous()
-    pk = torch.empty(blocks.shape, dtype=torch.int32, device=blocks.device)
-    if blocks.shape[0]:
-        launch("enc_match", blocks, lens, pk, blocks.shape[0],
-               blocks.shape[1])
+    B, blk = blocks.shape
+    pk = torch.empty((B, blk), dtype=torch.int32, device=blocks.device)
+    if B and hc:
+        launch("enc_match", blocks, lens, pk, B, blk, hc)
+    elif B:
+        launch("enc_match_fast", blocks, lens, pk, B, blk, W, probes)
     return pk
 
 
 def parse_emit(blocks: torch.Tensor, lens: torch.Tensor,
-               starts: torch.Tensor, pk: torch.Tensor):
+               starts: torch.Tensor, pk: torch.Tensor,
+               hc: int = 9, accel: int = 1):
     """Parse and emission; the ``enc_parse_emit`` kernel for CUDA
     tensors, the plain version for CPU tensors."""
     if blocks.device.type == "cpu":
-        return parse_emit_plain(blocks, lens, starts, pk)
+        return parse_emit_plain(blocks, lens, starts, pk, hc, accel)
+    W, _probes = _finder(hc, 0, accel)
     B, blk = blocks.shape
     if pk.shape != (B, blk) or pk.dtype != torch.int32:
         raise TypeError("pk must be int32[B, blk]")
@@ -360,19 +422,22 @@ def parse_emit(blocks: torch.Tensor, lens: torch.Tensor,
                        device=dev)
     if B:
         launch("enc_parse_emit", blocks, lens, starts, pk, mlw, runs,
-               out, out_len, B, blk, cap, runs.shape[1])
+               out, out_len, B, blk, cap, runs.shape[1], 4 + 4 * W,
+               int(hc > 0))
     return out, out_len
 
 
 def encode_blocks(blocks: torch.Tensor, lens: torch.Tensor,
-                  starts: torch.Tensor | None = None):
-    """Level-9 encode of uint8[B, blk] windows with valid lengths
-    ``lens`` and emission starts ``starts`` (default 0), counterpart of
-    ``encode_blocks_jax(..., hc=9)``.  Returns (out
-    uint8[B, compress_bound(blk)], zero past out_len; out_len
-    int32[B])."""
+                  starts: torch.Tensor | None = None,
+                  hc: int = 9, deep: int = 0, accel: int = 1):
+    """Encode uint8[B, blk] windows with valid lengths ``lens`` and
+    emission starts ``starts`` (default 0), counterpart of
+    ``encode_blocks_jax(..., hc, deep, accel)`` (the defaults here are
+    level 9).  Returns (out uint8[B, compress_bound(blk)], zero past
+    out_len; out_len int32[B])."""
+    _finder(hc, deep, accel)
     if starts is None:
         starts = torch.zeros_like(lens)
     _check(blocks, lens, starts)
-    pk = match_candidates(blocks, lens)
-    return parse_emit(blocks, lens, starts, pk)
+    pk = match_candidates(blocks, lens, hc, accel)
+    return parse_emit(blocks, lens, starts, pk, hc, accel)

@@ -1,22 +1,30 @@
-"""LZ4 frame codec on one CUDA device: level-9 encode, T-map decode.
+"""LZ4 frame codec on one CUDA device: levels 0-9 encode, T-map decode.
 
-Counterpart of ``zig_lz4_tpu/parallel/sharded.py:ShardedFrameCodec``
-for the slice the bench headline runs: 64 KB independent blocks at
-level 9, no dictionary, T-map decode.
+Counterpart of ``ShardedFrameCodec`` of the JAX reference
+(``parallel/sharded.py``) for 64 KB blocks at levels 0-9 on the encode
+side, and on the decode side for independent and linked frames of any
+block size, with or without a dictionary.
 
   compress:   frame data -> [B, window] block matrix on the device ->
-              level-9 encoder kernels (ops/torch_block) -> host gather
-              of (payload, length) -> frame assembly on the host, with
+              encoder kernels (ops/torch_block) -> host gather of
+              (payload, length) -> frame assembly on the host, with
               the store-uncompressed fallback and xxh32 checksums.
 
-  decompress: host scan of the frame into block records -> one native
-              ``native_resolve_tmap`` over all compressed payloads ->
-              fetch buffers and T-maps staged to the device -> the
-              gather kernel (ops/torch_decode) -> ordered gather and
-              checksum verification.  Stored blocks are copied as they
-              are.
+  decompress: host scan of the frame into block records, then
+              * independent blocks: one native ``native_resolve_tmap``
+                over all compressed payloads -> fetch buffers
+                ``[dictionary | payload]`` and T-maps staged to the
+                device -> the gather kernel (ops/torch_decode) ->
+                ordered gather.  Stored blocks are copied as they are.
+              * linked blocks: windows of blocks, one native
+                ``native_resolve_tmap_linked`` per window -> payloads
+                and the window's T-map staged to the device -> the
+                linked step kernels, which carry the 64 KB history on
+                the device from window to window -> one copy back at
+                the end.
+              Checksums are verified on the host.
 
-What the slice leaves out raises ``NotImplementedError`` naming its
+What the port leaves out raises ``NotImplementedError`` naming its
 ``ROADMAP.md`` Queue 1 item.
 """
 
@@ -28,27 +36,74 @@ import re
 import numpy as np
 import torch
 
-from zig_lz4_tpu import errors as E
-from zig_lz4_tpu import frame as lz4f
-from zig_lz4_tpu.native import native_resolve_tmap
-from zig_lz4_tpu.utils.xxhash32 import xxh32, xxh32_stream
-
-from ..ops.torch_block import device_encoder_supports, encode_blocks
-from ..ops.torch_decode import decode_blocks_tmap
+from .. import errors as E
+from .. import frame as lz4f
+from ..constants import WINDOW_SIZE, compress_bound
+from ..native import native_resolve_tmap, native_resolve_tmap_linked
+from ..ops.torch_block import (device_encoder_supports, encode_blocks,
+                               level_params)
+from ..ops.torch_decode import decode_blocks_tmap, linked_tmap_step
+from ..utils.xxhash32 import xxh32, xxh32_stream
 from .device import resolve_device
 
 __all__ = ["ShardedFrameCodec"]
 
 _UNCOMPRESSED_BIT = 0x80000000
-#: the level this slice encodes (ROADMAP Queue 1 items 4 and 8 add
-#: the others)
-_LEVEL = 9
+#: highest level the encoder kernels take (ROADMAP Queue 1 item 8 adds
+#: the deep levels 10-12)
+_MAX_LEVEL = 9
 #: windows per encoder launch; the encoder's device scratch is ~12
 #: bytes per window byte, so 1024 64 KB windows hold ~0.8 GB
 _ENC_BATCH = 1024
 #: output bytes per decode launch; T is staged at 4 bytes per output
 #: byte, so 64 MB of output stages 256 MB of T
 _DEC_BYTES = 64 << 20
+#: linked-frame windows: output bytes per window (at least one block)
+#: and the payload budget of a window of blocks under 1 MB, as in the
+#: reference (sharded.py:474-476)
+_LINK_NOUT = 1 << 21
+_LINK_PCQ = 1 << 20
+
+
+def _scan_blocks(comp: bytes, pos: int, block_checksum: bool):
+    """The (payload, uncompressed) block records of a frame from
+    ``pos`` (just past its header) to its end mark, and the position
+    after the end mark."""
+    records = []
+    while True:
+        if pos + 4 > len(comp):
+            raise E.FrameSizeWrong("truncated block header")
+        word = int.from_bytes(comp[pos:pos + 4], "little")
+        pos += 4
+        if word == 0:
+            return records, pos
+        uncompressed = bool(word & _UNCOMPRESSED_BIT)
+        blen = word & ~_UNCOMPRESSED_BIT
+        if pos + blen > len(comp):
+            raise E.FrameSizeWrong("truncated block payload")
+        payload = comp[pos:pos + blen]
+        pos += blen
+        if block_checksum:
+            expect = int.from_bytes(comp[pos:pos + 4], "little")
+            pos += 4
+            if xxh32(payload) != expect:
+                raise E.BlockChecksumInvalid("block checksum mismatch")
+        records.append((payload, uncompressed))
+
+
+def _frame_block_error(exc: E.CorruptedData, what: str,
+                       frame_index) -> E.CorruptedData:
+    """``exc`` of a native resolver, which numbers the blocks of its
+    own call, renamed to the frame's block index."""
+    m = re.search(r"block (\d+)", str(exc))
+    where = (f"frame block {frame_index(int(m.group(1)))}" if m
+             else "a frame block")
+    return E.CorruptedData(f"{what}: {where} is corrupt ({exc})")
+
+
+def _need_native():
+    return RuntimeError("T-map decode needs the native host runtime "
+                        "(zig_lz4_tpu_torch.native), which did not load")
 
 
 class ShardedFrameCodec:
@@ -75,37 +130,36 @@ class ShardedFrameCodec:
                 f"decode_engine {decode_engine!r}: the fragment-ladder "
                 "engines are not ported; T-map covers every block "
                 "(ROADMAP Queue 1 item 9)")
-        if dictionary:
-            raise NotImplementedError(
-                "dictionary frames are not ported yet (ROADMAP Queue 1 "
-                "item 5)")
         self.level = int(compression_level)
         self.decode_engine = decode_engine
         self.device = resolve_device(device)
         self.block_size = lz4f.BlockSizeID(block_size_id).to_block_size()
-        self.window = self.block_size
+        self.dict = bytes(dictionary)[-WINDOW_SIZE:] if dictionary else b""
+        self.dcap = len(self.dict)
+        self.window = self.dcap + self.block_size
         self.info = lz4f.FrameInfo(
             block_size_id=lz4f.BlockSizeID(block_size_id),
             block_mode=lz4f.BlockMode.independent,
             content_checksum=content_checksum,
             block_checksum=block_checksum,
-            dict_id=0)
+            dict_id=dict_id if dictionary else 0)
 
     @classmethod
     def from_reference(cls, ref, device: str | torch.device = "cuda"):
         """The port's codec with the settings of a JAX
         ``ShardedFrameCodec`` ``ref``, read from its plain attributes
         (level, block size, window, frame flags, dictionary, decode
-        engine); ``ref``'s package is never imported."""
+        engine) and converted by value: the two packages share no
+        class, and ``ref``'s package is never imported."""
         info = ref.info
         codec = cls(device=device,
-                    block_size_id=info.block_size_id,
-                    content_checksum=info.content_checksum,
-                    block_checksum=info.block_checksum,
-                    dictionary=ref.dict or None,
-                    dict_id=info.dict_id,
-                    compression_level=ref.level,
-                    decode_engine=ref.decode_engine)
+                    block_size_id=int(info.block_size_id),
+                    content_checksum=bool(info.content_checksum),
+                    block_checksum=bool(info.block_checksum),
+                    dictionary=bytes(ref.dict) or None,
+                    dict_id=int(info.dict_id),
+                    compression_level=int(ref.level),
+                    decode_engine=str(ref.decode_engine))
         codec.block_size = int(ref.block_size)
         codec.window = int(ref.window)
         return codec
@@ -113,11 +167,15 @@ class ShardedFrameCodec:
     # -- compression ----------------------------------------------------
 
     def _check_encode(self) -> None:
-        if self.level != _LEVEL:
-            item = 8 if self.level > _LEVEL else 4
+        if self.level > _MAX_LEVEL:
             raise NotImplementedError(
-                f"compression level {self.level}: the port encodes level "
-                f"{_LEVEL} only so far (ROADMAP Queue 1 item {item})")
+                f"compression level {self.level}: the port encodes levels "
+                f"up to {_MAX_LEVEL} so far (ROADMAP Queue 1 item 8)")
+        if self.dcap:
+            raise NotImplementedError(
+                "dictionary encode is not ported yet: its windows are "
+                "wider than the encoder kernels take (ROADMAP Queue 1 "
+                "item 5)")
         if (self.info.block_size_id != lz4f.BlockSizeID.max64KB
                 or not device_encoder_supports(self.window)):
             raise NotImplementedError(
@@ -127,9 +185,13 @@ class ShardedFrameCodec:
     def _encode_batch(self, windows: np.ndarray, lens: np.ndarray,
                       starts: np.ndarray):
         dev = self.device
+        # levels <= 1 run the fast finder at acceleration 1, as the
+        # reference's frame codec does (sharded.py:112-121)
+        hc, deep = level_params(self.level)
         out, out_len = encode_blocks(torch.from_numpy(windows).to(dev),
                                      torch.from_numpy(lens).to(dev),
-                                     torch.from_numpy(starts).to(dev))
+                                     torch.from_numpy(starts).to(dev),
+                                     hc=hc, deep=deep)
         return out.cpu().numpy(), out_len.cpu().numpy()  # ordered gather
 
     def _encode_span(self, span: bytes) -> list[tuple[bytes, bytes]]:
@@ -184,51 +246,26 @@ class ShardedFrameCodec:
     # -- decompression ----------------------------------------------------
 
     def decompress_frame(self, comp: bytes) -> bytes:
-        """Decode an independent-mode frame on the device (any declared
-        block size); skippable frames go to the host frame layer."""
+        """Decode a frame on the device: independent or linked blocks of
+        any declared block size, against the codec's dictionary if it
+        has one.  Skippable frames go to the host frame layer."""
         comp = bytes(comp)
         info, pos = lz4f.parse_frame_header(comp)
         if info.frame_type == lz4f.FrameType.skippable_frame:
-            return lz4f.decompress_frame(comp)
-        if info.block_mode == lz4f.BlockMode.linked:
-            raise NotImplementedError(
-                "linked-block frames: device decode is not ported yet "
-                "(ROADMAP Queue 1 item 7)")
+            return lz4f.decompress_frame(comp, dictionary=self.dict or None)
         bs = info.block_size_id.to_block_size()
+        records, pos = _scan_blocks(comp, pos, info.block_checksum)
+        if info.block_mode == lz4f.BlockMode.linked:
+            content = self._decode_linked(records, bs)
+        else:
+            content = b"".join(self._decode_records(records, bs))
 
-        # host scan: split frame into block records
-        payloads = []
-        chash = xxh32_stream() if info.content_checksum else None
-        while True:
-            if pos + 4 > len(comp):
-                raise E.FrameSizeWrong("truncated block header")
-            word = int.from_bytes(comp[pos:pos + 4], "little")
-            pos += 4
-            if word == 0:
-                break
-            uncompressed = bool(word & _UNCOMPRESSED_BIT)
-            blen = word & ~_UNCOMPRESSED_BIT
-            if pos + blen > len(comp):
-                raise E.FrameSizeWrong("truncated block payload")
-            payload = comp[pos:pos + blen]
-            pos += blen
-            if info.block_checksum:
-                expect = int.from_bytes(comp[pos:pos + 4], "little")
-                pos += 4
-                if xxh32(payload) != expect:
-                    raise E.BlockChecksumInvalid("block checksum mismatch")
-            payloads.append((payload, uncompressed))
-
-        results = self._decode_records(payloads, bs)
-
-        content = b"".join(results)    # ordered frame gather
-        if chash is not None:
-            chash.update(content)
+        if info.content_checksum:
             if pos + 4 > len(comp):
                 raise E.FrameSizeWrong("missing content checksum")
             expect = int.from_bytes(comp[pos:pos + 4], "little")
             pos += 4
-            if chash.digest() != expect:
+            if xxh32(content) != expect:
                 raise E.ContentChecksumInvalid("content checksum mismatch")
         if info.content_size and len(content) != info.content_size:
             raise E.FrameSizeWrong(
@@ -236,6 +273,88 @@ class ShardedFrameCodec:
         if pos < len(comp):          # concatenated frames (lz4 CLI)
             return content + self.decompress_frame(comp[pos:])
         return content
+
+    def _resolve_linked_windows(self, records: list, bs: int):
+        """Cut the records of a linked frame into windows and resolve
+        each on the host: yields (payloads, T, total) per window, the
+        window's block payloads back to back, its global T-map over
+        ``[64 KB entry history | payloads]`` and its output length
+        (reference: sharded.py:469-555).  Resolution is structural --
+        the native linked resolver path-compresses every
+        history-reaching match through earlier entries without decoded
+        bytes -- so it runs ahead of the device."""
+        H = WINDOW_SIZE
+        nout = max(bs, _LINK_NOUT)
+        pcq = compress_bound(bs) if bs >= (1 << 20) else _LINK_PCQ
+        longest = max((len(p) for p, _u in records), default=0)
+        if longest > pcq:
+            # the reference hands such frames to the host decoder: its
+            # merge packs fetch coordinates into 22 bits.  A gather has
+            # no such limit, so the window budget grows instead.
+            pcq = max(compress_bound(bs), longest)
+        dlen = min(self.dcap, H)
+        b0 = 0
+        while b0 < len(records):
+            # window assembly: greedy under the payload and output
+            # budgets
+            b1, psum = b0, 0
+            while (b1 < len(records)
+                   and psum + len(records[b1][0]) <= pcq
+                   and (b1 - b0 + 1) * bs <= nout):
+                psum += len(records[b1][0])
+                b1 += 1
+            recs = records[b0:b1]
+            lens = np.array([len(p) for p, _u in recs], np.int64)
+            offs = np.zeros_like(lens)
+            offs[1:] = np.cumsum(lens)[:-1]
+            is_raw = np.array([u for _p, u in recs], np.int8)
+            pay = b"".join(p for p, _u in recs)
+            try:
+                r = native_resolve_tmap_linked(
+                    pay, offs, lens, H + offs, is_raw, dict_len=dlen,
+                    total_cap=nout, blk_cap=bs, dict_base=H - dlen)
+            except E.CorruptedData as exc:
+                raise _frame_block_error(exc, "linked T-map resolve",
+                                         lambda k: b0 + k) from exc
+            if r is None:
+                raise _need_native()
+            T, _olens, total = r
+            yield pay, T, total
+            dlen = min(H, dlen + total)     # the history stays
+            b0 = b1                         # right-aligned
+
+    def _linked_history(self) -> np.ndarray:
+        """The history a linked frame starts from: the dictionary,
+        right-aligned in 64 KB (``dict_base = H - dict_len``)."""
+        hist = np.zeros(WINDOW_SIZE, np.uint8)
+        if self.dcap:
+            hist[-self.dcap:] = np.frombuffer(self.dict, np.uint8)
+        return hist
+
+    def _decode_linked(self, records: list, bs: int) -> bytes:
+        """Content of a linked-mode frame via windowed T-maps
+        (reference: ``_decompress_linked_device``, sharded.py:445-576).
+        Linked blocks form a 64 KB dependency chain; only each
+        window's fetch data ``[entry history | payloads]`` needs bytes,
+        and the entry history is the previous window's output tail, so
+        the steps chain on the device and the host copies the output
+        back once."""
+        dev = self.device
+        hist = torch.from_numpy(self._linked_history()).to(dev)
+        outs = []
+        for pay, T, total in self._resolve_linked_windows(records, bs):
+            if not total:
+                continue
+            # T rows at or past ``total`` are uninitialized: only the
+            # live rows are staged
+            out, hist = linked_tmap_step(
+                hist,
+                torch.from_numpy(np.frombuffer(pay, np.uint8).copy()).to(dev),
+                torch.from_numpy(T[:total]).to(dev), total)
+            outs.append(out)
+        if not outs:
+            return b""
+        return torch.cat(outs).cpu().numpy().tobytes()   # the one sync
 
     def _decode_records(self, payloads: list, bs: int) -> list:
         """Raw blocks of the (payload, uncompressed) records of an
@@ -254,7 +373,8 @@ class ShardedFrameCodec:
                      results: list) -> None:
         """T-map decode of the compressed records ``comp_idx``: one
         native resolve of every payload on the host, then the gather
-        kernel over batches of blocks.  Fills ``results`` in place."""
+        kernel over batches of blocks, each from its fetch buffer
+        ``[dictionary | payload]``.  Fills ``results`` in place."""
         lens64 = np.array([len(payloads[k][0]) for k in comp_idx], np.int64)
         offs64 = np.zeros_like(lens64)
         offs64[1:] = np.cumsum(lens64)[:-1]
@@ -263,17 +383,12 @@ class ShardedFrameCodec:
             # owned T: the staging copy below must not race a later
             # resolve that reuses the shared buffer
             r = native_resolve_tmap(concat, offs64, lens64, bs,
-                                    reuse_buffers=False)
+                                    hist_len=self.dcap, reuse_buffers=False)
         except E.CorruptedData as exc:
-            # the resolver numbers blocks within comp_idx
-            m = re.search(r"block (\d+)", str(exc))
-            where = (f"frame block {comp_idx[int(m.group(1))]}" if m
-                     else "a frame block")
-            raise E.CorruptedData(f"T-map resolve: {where} is corrupt "
-                                  f"({exc})") from exc
+            raise _frame_block_error(exc, "T-map resolve",
+                                     lambda k: comp_idx[k]) from exc
         if r is None:
-            raise RuntimeError("T-map decode needs the native host runtime "
-                               "(zig_lz4_tpu.native), which did not load")
+            raise _need_native()
         T, olens = r
         over = np.flatnonzero(olens < 0)
         if over.size:
@@ -281,15 +396,18 @@ class ShardedFrameCodec:
                 f"frame block {comp_idx[int(over[0])]} decodes to more "
                 f"than the frame block size {bs}")
 
-        dev = self.device
+        dev, dcap = self.device, self.dcap
         batch = max(_DEC_BYTES // bs, 1)
         for c0 in range(0, len(comp_idx), batch):
             grp = comp_idx[c0:c0 + batch]
-            fetch = np.zeros((len(grp), int(lens64[c0:c0 + batch].max())),
-                             np.uint8)
+            fetch = np.zeros(
+                (len(grp), dcap + int(lens64[c0:c0 + batch].max())),
+                np.uint8)
+            if dcap:
+                fetch[:, :dcap] = np.frombuffer(self.dict, np.uint8)
             for jj, k in enumerate(grp):
                 p = payloads[k][0]
-                fetch[jj, :len(p)] = np.frombuffer(p, np.uint8)
+                fetch[jj, dcap:dcap + len(p)] = np.frombuffer(p, np.uint8)
             glen = olens[c0:c0 + batch]
             out = decode_blocks_tmap(
                 torch.from_numpy(fetch).to(dev),
