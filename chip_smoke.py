@@ -3,8 +3,8 @@
 
 Builds the CUDA kernels and the C++ host runtime from the sources in
 this checkout, holds each kernel against its plain PyTorch version on
-the card, and drives three paths through ``ShardedFrameCodec`` over the
-bench's 48 MB corpus in 64 KB blocks:
+the card, and drives these paths over the bench's 48 MB corpus in 64 KB
+blocks, most of them through ``ShardedFrameCodec``:
 
 * level 9: ``compress_frame`` and ``decompress_frame`` of independent
   blocks (kernels ``enc_match``, ``enc_parse_emit``, ``tmap_gather``);
@@ -12,7 +12,24 @@ bench's 48 MB corpus in 64 KB blocks:
   acceleration ratios and a level-4 round trip;
 * linked frames: ``decompress_frame`` of a linked-block frame written
   by the host frame layer (``linked_tmap_step``,
-  ``linked_hist_shift``), and dictionary frames of both kinds.
+  ``linked_hist_shift``), and dictionary frames of both kinds;
+* levels 10, 11 and 12: ``compress_frame`` through the deep finder, the
+  price parse and the extension (``enc_deep_match``, ``enc_deep_dp``,
+  ``enc_deep_emit``), each frame decoded by the host decoder and by the
+  port;
+* the block codec ``get_codec("cuda12")``: ``compress`` then
+  ``decompress`` of one block through the sequence-rebuild decoder
+  (``seq_decode``); the batched ``decode_blocks`` over the compressed
+  blocks of the level-12 frame; and ``decompress_frame`` of an
+  independent frame in a child process that runs without the native
+  host runtime (``ZIG_LZ4_TPU_NO_NATIVE=1``), where ``seq_decode``
+  takes the place of the T-map decoder.
+
+The plain versions of the deep encoder kernels run Python loops over
+every position, so those kernels are held against them on the edge-case
+windows and on every 12th corpus block (64 windows, every content
+type); all 768 windows are held by the level-12 ratio, by the checked-in
+JAX payloads and by the round trips.
 
 It checks the round trips and the ratios, shows by launch counts that
 each path went through its kernels, times paths and kernels with CUDA
@@ -28,6 +45,7 @@ reports them, then ``{"ok": true, "device": {...}}``; before them one
 JSON line lists every kernel with its launches, error, times and bound.
 """
 
+import hashlib
 import json
 import os
 import statistics
@@ -44,6 +62,20 @@ BENCH_BATCH = 64
 EXPECT_RATIO = 3.1493
 EXPECT_RATIO_FAST = 2.4175
 EXPECT_RATIO_ACCEL = {2: 2.3525, 4: 2.2022, 8: 2.0919}
+#: the deep levels; the reference recorded a ratio at level 12 only
+DEEP_LEVELS = (10, 11, 12)
+EXPECT_RATIO_DEEP = {12: 3.3168}
+#: JAX payloads of the same make_corpus(2) blocks at a deep level
+DEEP_GOLDENS = os.path.join("tests", "fixtures", "deep_corpus64k_l{}.npz")
+#: the deep kernels meet their plain versions on every 12th block of the
+#: corpus, whose content types change every 256 KB (4 blocks)
+PLAIN_STRIDE = 12
+#: blocks of the frame that the child process decodes without the native
+#: host runtime (every 12th: parsing and checksums run in Python there),
+#: and blocks of the level-12 frame that meet the plain sequence decoder
+CHILD_FLAG = "--decode-without-native"
+DEEP_KERNELS = ("enc_deep_match", "enc_deep_dp", "enc_deep_emit")
+SEQ_PLAIN_BLOCKS = 32
 #: make_corpus(2) blocks (one per content type) with their JAX payloads
 #: at level 9, and at levels 0 and 4
 GOLDENS = os.path.join("tests", "fixtures", "l9_corpus64k.npz")
@@ -120,19 +152,28 @@ def match_ops(B, blk, hc, W, probes):
 
 def edge_inputs(make_corpus, np):
     """8 corpus blocks (one per content type), a 1-byte, an empty and
-    an incompressible block, as 64 KB windows."""
+    an incompressible block, as 64 KB windows; then, for the deep
+    levels, a byte run, a period-300 block and a 50,000-byte text
+    window whose emission starts at 20,000.  Returns (windows, lens,
+    starts, goldens, number of windows before the deep ones)."""
     gold = np.load(GOLDENS)
     corpus = make_corpus(2)
     rows = [corpus[i * BLK:(i + 1) * BLK] for i in gold["blocks"]]
     rows += [b"\x2a", b"",
              np.random.default_rng(7).integers(0, 256, BLK, np.uint8)
              .tobytes()]
+    n_plain = len(rows)
+    period = np.random.default_rng(300).integers(0, 256, 300, np.uint8)
+    rows += [b"\x61" * BLK, (period.tobytes() * (BLK // 300 + 1))[:BLK],
+             corpus[9 * BLK:9 * BLK + 50_000]]
     windows = np.zeros((len(rows), BLK), np.uint8)
     lens = np.zeros(len(rows), np.int32)
     for k, r in enumerate(rows):
         windows[k, :len(r)] = np.frombuffer(r, np.uint8)
         lens[k] = len(r)
-    return windows, lens, gold
+    starts = np.zeros(len(rows), np.int32)
+    starts[-1] = 20_000
+    return windows, lens, starts, gold, n_plain
 
 
 def equals_goldens(out_h, olen_h, out_len, payloads):
@@ -148,17 +189,55 @@ def equals_goldens(out_h, olen_h, out_len, payloads):
 
 
 def frame_payloads(frame, lz4f):
-    """The compressed (not stored) block payloads of a frame."""
-    recs, pos = [], lz4f.parse_frame_header(frame)[1]
+    """(block indices, payloads) of the compressed (not stored) blocks
+    of a frame."""
+    idx, recs, pos, k = [], [], lz4f.parse_frame_header(frame)[1], 0
     while True:
         word = int.from_bytes(frame[pos:pos + 4], "little")
         pos += 4
         if word == 0:
-            return recs
+            return idx, recs
         blen = word & 0x7FFFFFFF
         if not word & 0x80000000:
+            idx.append(k)
             recs.append(frame[pos:pos + blen])
         pos += blen
+        k += 1
+
+
+def deep_match_ops(B, blk, hc, deep):
+    """Operations of the deep finder on B windows of blk bytes: the
+    32-byte rank order compares 8 words a key, the 256-byte rank order
+    (level 12) 8 ranks, the grand order its NK tier operands, and every
+    probe the 4-byte string, 8 windows, 2 back bytes and the tier
+    chain; then the fallback as in ``match_ops``."""
+    lg = max(blk - 1, 1).bit_length()
+    tiers = {1: 4, 2: 8, 3: 11}[deep]
+    ops = blk * lg * 8 + (blk * lg * 8 if deep == 3 else 0)
+    ops += blk * lg * (8 if deep == 2 else 4)
+    ops += blk * 2 * hc * (11 + tiers)
+    ops += blk * lg + blk * 2 * 11
+    return B * ops
+
+
+def decode_without_native():
+    """The child process of the no-native check: reads a frame from
+    stdin, decodes it on the card with the native host runtime switched
+    off, and prints the content's SHA-256 and the launch counts."""
+    import torch
+
+    from zig_lz4_tpu_torch import ShardedFrameCodec, native
+    from zig_lz4_tpu_torch.kernels import LAUNCHES
+    check(os.environ.get("ZIG_LZ4_TPU_NO_NATIVE") == "1"
+          and not native.is_available(),
+          "the child process has the native host runtime")
+    check(torch.cuda.is_available(), "the child process sees no card")
+    frame = sys.stdin.buffer.read()
+    content = ShardedFrameCodec(device="cuda").decompress_frame(frame)
+    torch.cuda.synchronize()
+    print(json.dumps({"sha256": hashlib.sha256(content).hexdigest(),
+                      "bytes": len(content), "launches": dict(LAUNCHES)}))
+    return 0
 
 
 def main():
@@ -169,14 +248,17 @@ def main():
         return 2
     import numpy as np
 
-    from zig_lz4_tpu_torch import ShardedFrameCodec, native
+    from zig_lz4_tpu_torch import ShardedFrameCodec, get_codec, native
     from zig_lz4_tpu_torch import frame as lz4f
+    from zig_lz4_tpu_torch.constants import compress_bound
     from zig_lz4_tpu_torch.corpus import make_corpus
     from zig_lz4_tpu_torch.kernels import (KERNELS, LAUNCHES, build, launch,
                                            reference_path,
                                            reset_launch_counts)
     from zig_lz4_tpu_torch.ops import torch_block as tb
     from zig_lz4_tpu_torch.ops import torch_decode as td
+    from zig_lz4_tpu_torch.ops.block import (decompress_safe,
+                                             decompress_safe_using_dict)
     from zig_lz4_tpu_torch.parallel.sharded import _scan_blocks
 
     dev = torch.device("cuda", 0)
@@ -204,13 +286,22 @@ def main():
     print(f"[build] host runtime {t_native:.2f} s, kernels {t_build:.2f} s "
           f"(0 = up to date); ptxas: " + " | ".join(regs))
 
+    def lz4f_block_decode(comp, history, size):
+        """One block by the host oracle, behind ``history``."""
+        if not size:
+            return b""
+        if history:
+            return decompress_safe_using_dict(comp, size, history)
+        return decompress_safe(comp, size)
+
     results = {k: {} for k in KERNELS}
     counts = {k: 0 for k in KERNELS}
     paths = {}
 
-    def counted(path, fn):
+    def counted(path, fn, expect):
         """Run ``fn`` as one of the main paths: counts set to 0 just
-        before, read just after."""
+        before, read just after; the kernels ``expect`` must each have
+        launched in that run."""
         torch.cuda.synchronize()
         reset_launch_counts()
         res = fn()
@@ -219,13 +310,17 @@ def main():
         for k, v in paths[path].items():
             counts[k] += v
         print(f"[launches] {path}: {paths[path]}")
+        check(all(paths[path][k] > 0 for k in expect),
+              f"the {path} path did not launch every kernel of {expect}")
         return res
 
     # --- phase 2a: encoder kernels against their plain versions, every
     # configuration, on the edge-case windows
-    windows, lens, gold = edge_inputs(make_corpus, np)
-    w_d = torch.from_numpy(windows).to(dev)
-    l_d = torch.from_numpy(lens).to(dev)
+    windows, lens, starts, gold, n_plain = edge_inputs(make_corpus, np)
+    w_deep = torch.from_numpy(windows).to(dev)
+    l_deep = torch.from_numpy(lens).to(dev)
+    s_deep = torch.from_numpy(starts).to(dev)
+    w_d, l_d, lens = w_deep[:n_plain], l_deep[:n_plain], lens[:n_plain]
     s_d = torch.zeros_like(l_d)
     tb.parse_emit(w_d, l_d, s_d, tb.match_candidates(w_d, l_d))  # warm-up
     tb.match_candidates(w_d, l_d, 0, 1)
@@ -267,7 +362,64 @@ def main():
           f"level: {gold_ok}")
     check(all(gold_ok.values()), "encoder output differs from JAX goldens")
 
-    # --- phase 2b: K1 against its plain version, on T-maps of 16
+    # --- phase 2b: the deep kernels against their plain versions, each
+    # on the kernel's own inputs, every deep configuration, on the
+    # edge-case windows
+    deep_err = {"enc_deep_match": 0, "enc_deep_dp": 0, "enc_deep_emit": 0}
+
+    def deep_against_plain(what, w, ln, st_, hc, deep):
+        """Runs the three deep kernels and their plain versions on
+        windows ``w``; returns the kernels' (out, out_len) and the
+        plain versions' milliseconds by kernel."""
+        pk = tb.match_candidates(w, ln, hc, 1, deep)
+        p_m, pk_p = cuda_ms(
+            lambda: tb.match_candidates_plain(w, ln, hc, 1, deep))
+        st = tb.deep_dp(ln, st_, pk, deep)
+        p_d, st_p = cuda_ms(lambda: tb.deep_dp_plain(ln, st_, pk, deep))
+        out, olen = tb.deep_emit(w, ln, st_, pk, st)
+        p_e, (out_p, olen_p) = cuda_ms(
+            lambda: tb.deep_emit_plain(w, ln, st_, pk, st))
+        errs = {"enc_deep_match": max_abs_err(pk, pk_p),
+                "enc_deep_dp": max_abs_err(st, st_p),
+                "enc_deep_emit": max(max_abs_err(out, out_p),
+                                     max_abs_err(olen, olen_p))}
+        tiers = ((pk >> 2) & 15)[pk != 0]
+        print(f"[K4] {what}, hc={hc} deep={deep} at {w.shape[0]} x 64 KB: "
+              f"max_abs_err vs plain {errs}; plain ms: enc_deep_match "
+              f"{p_m:.1f}, enc_deep_dp {p_d:.1f}, enc_deep_emit {p_e:.1f}; "
+              f"deepest tier {int(tiers.max()) if tiers.numel() else 0}, "
+              f"cut rows {int(((st & 0xFFFFF) == 18).sum())}")
+        for k, v in errs.items():
+            deep_err[k] = max(deep_err[k], v)
+        check(not any(errs.values()),
+              f"deep kernels differ from plain at hc={hc} deep={deep} "
+              f"({what}): {errs}")
+        return (out, olen), {"enc_deep_match": p_m, "enc_deep_dp": p_d,
+                             "enc_deep_emit": p_e}
+
+    deep_gold_ok = {}
+    for hc, deep in ((8, 1), (8, 2), (8, 3), (4, 1)):
+        (out, olen), _ms = deep_against_plain(
+            "edge windows", w_deep, l_deep, s_deep, hc, deep)
+        out_h, olen_h = out.cpu().numpy(), olen.cpu().numpy()
+        for k in range(w_deep.shape[0]):        # the host oracle decodes each
+            n_k, s_k = int(l_deep[k]), int(s_deep[k])
+            got = lz4f_block_decode(out_h[k, :olen_h[k]].tobytes(),
+                                    windows[k, :s_k].tobytes(), n_k - s_k)
+            check(got == windows[k, s_k:n_k].tobytes(),
+                  f"deep payload of edge window {k} does not decode")
+        if hc == 8:
+            dg = np.load(DEEP_GOLDENS.format(9 + deep))
+            deep_gold_ok[9 + deep] = equals_goldens(
+                out_h, olen_h, dg["out_len"][:len(gold["out_len"])],
+                dg["payloads"])
+    print(f"[K4] {len(gold['out_len'])} corpus blocks == JAX goldens by "
+          f"level: {deep_gold_ok}; every edge payload decodes with the "
+          f"host block decoder")
+    check(all(deep_gold_ok.values()),
+          "deep encoder output differs from JAX goldens")
+
+    # --- phase 2c: K1 against its plain version, on T-maps of 16
     # level-9 corpus blocks
     print("[corpus] generating make_corpus(48) ...", flush=True)
     t0 = time.perf_counter()
@@ -298,21 +450,21 @@ def main():
           f"== input: {same}")
     check(err_k1 == 0 and same, "K1 differs from plain or input")
 
-    def timed(fn):
-        """(median, min, max) milliseconds of REPS runs of ``fn``."""
-        ts = [cuda_ms(fn)[0] for _ in range(REPS)]
+    def timed(fn, reps=REPS):
+        """(median, min, max) milliseconds of ``reps`` runs of ``fn``."""
+        ts = [cuda_ms(fn)[0] for _ in range(reps)]
         return statistics.median(ts), min(ts), max(ts)
 
     def fmt(t):
         return f"{t[0]:.2f} ms ({t[1]:.2f}-{t[2]:.2f})"
 
-    def time_round_trip(what, cdc, fr):
+    def time_round_trip(what, cdc, fr, reps=REPS):
         """Times of ``cdc.compress_frame(data)`` and of
         ``cdc.decompress_frame(fr)`` on a ``[time]`` line."""
-        t_e = timed(lambda: cdc.compress_frame(data))
-        t_d = timed(lambda: cdc.decompress_frame(fr))
+        t_e = timed(lambda: cdc.compress_frame(data), reps)
+        t_d = timed(lambda: cdc.decompress_frame(fr), reps)
         gbs = 2 * n / ((t_e[0] + t_d[0]) / 1e3) / 1e9
-        print(f"[time] {smi}: {what}, median of {REPS}: compress_frame "
+        print(f"[time] {smi}: {what}, median of {reps}: compress_frame "
               f"{fmt(t_e)}, decompress_frame {fmt(t_d)} -> "
               f"2n/(t_enc+t_dec) = {gbs:.4f} GB/s over {n} bytes")
 
@@ -326,7 +478,8 @@ def main():
         return (frame, codec.decompress_frame(frame),
                 codec.decompress_frame(host_frame))
 
-    frame, back, back_host = counted("level 9", level9_path)
+    frame, back, back_host = counted(
+        "level 9", level9_path, ("enc_match", "enc_parse_emit", "tmap_gather"))
     check(lz4f.decompress_frame(frame) == data,
           "host decoder differs on the port's frame")
     check(back == data, "port decode of the port's frame")
@@ -348,7 +501,9 @@ def main():
         frame0 = codec0.compress_frame(data)
         return frame0, codec0.decompress_frame(frame0)
 
-    frame0, back0 = counted("level 0", level0_path)
+    frame0, back0 = counted(
+        "level 0", level0_path,
+        ("enc_match_fast", "enc_parse_emit", "tmap_gather"))
     check(lz4f.decompress_frame(frame0) == data,
           "host decoder differs on the port's level-0 frame")
     check(back0 == data, "port decode of the port's level-0 frame")
@@ -387,7 +542,8 @@ def main():
     linked_frame = lz4f.compress_frame(data, linked)
     check(lz4f.parse_frame_header(linked_frame)[0].block_mode
           == lz4f.BlockMode.linked, "the host frame is not linked")
-    back_l = counted("linked", lambda: codec.decompress_frame(linked_frame))
+    back_l = counted("linked", lambda: codec.decompress_frame(linked_frame),
+                     ("linked_tmap_step", "linked_hist_shift"))
     check(back_l == data, "port decode of the linked frame")
     t_decl = timed(lambda: codec.decompress_frame(linked_frame))
     print(f"[time] {smi}: linked frame ({len(linked_frame)} bytes), median "
@@ -429,13 +585,161 @@ def main():
     print(f"[dict] linked and independent frames of {len(part)} bytes with "
           f"a {len(d)}-byte dictionary: port decode ok")
 
-    # --- phase 6: launch counts over the three paths
+    # --- phase 6: the deep levels at full width, counted, then timed
+    deep_frames, deep_ratio = {}, {}
+    for level in DEEP_LEVELS:
+        cdc = ShardedFrameCodec(compression_level=level, device="cuda")
+
+        def deep_path():
+            fr = cdc.compress_frame(data)
+            return fr, cdc.decompress_frame(fr)
+
+        fr, back_d = counted(f"level {level}", deep_path,
+                             DEEP_KERNELS + ("tmap_gather",))
+        check(lz4f.decompress_frame(fr) == data,
+              f"host decoder differs on the port's level-{level} frame")
+        check(back_d == data, f"port decode of the port's level-{level} "
+              "frame")
+        _o, olen_d = tb.encode_blocks(w_all, l_all, hc=cdc.hc, deep=cdc.deep)
+        deep_ratio[level] = n / int(olen_d.sum())
+        deep_frames[level] = fr
+        print(f"[deep] level {level}: {n} bytes -> frame {len(fr)} bytes; "
+              f"host decode ok; port decode ok; ratio n/sum(out_len) = "
+              f"{deep_ratio[level]:.6f}"
+              + (f" (expect {EXPECT_RATIO_DEEP[level]})"
+                 if level in EXPECT_RATIO_DEEP else ""))
+        time_round_trip(f"level {level}", cdc, fr, reps=3)
+    for level, want in EXPECT_RATIO_DEEP.items():
+        check(round(deep_ratio[level], 4) == want,
+              f"level-{level} ratio {deep_ratio[level]:.6f}")
+    check(deep_ratio[12] > ratio,
+          f"deep ratios {deep_ratio} beside level 9's {ratio:.6f}")
+    # every 12th corpus block against the plain versions, at each level
+    sel = torch.arange(0, nb, PLAIN_STRIDE, device=dev)
+    w_sel, l_sel, s_sel = w_all[sel], l_all[sel], s_all[sel]
+    deep_plain_ms = {}
+    for level in DEEP_LEVELS:
+        hc, deep = tb.level_params(level)
+        _out, deep_plain_ms[level] = deep_against_plain(
+            f"every {PLAIN_STRIDE}th corpus block", w_sel, l_sel, s_sel, hc,
+            deep)
+
+    # --- phase 7: the sequence-rebuild decoder: the block codec, the
+    # batched entry point over the level-12 frame's compressed blocks,
+    # and a frame decoded without the native host runtime
+    block_codec = get_codec("cuda12")
+    check(type(block_codec).__name__ == "CUDACodec"
+          and block_codec.level == 12, "get_codec('cuda12')")
+    idx12, recs12 = frame_payloads(deep_frames[12], lz4f)
+    at = idx12[len(idx12) // 2]                 # a block that compresses
+    one = data[at * BLK:(at + 1) * BLK]
+
+    def block_path():
+        comp = block_codec.compress(one)
+        return comp, block_codec.decompress(comp, BLK)
+
+    comp_one, back_one = counted("block codec, level 12", block_path,
+                                 DEEP_KERNELS + ("seq_decode",))
+    check(back_one == one and decompress_safe(comp_one, BLK) == one
+          and comp_one == recs12[len(idx12) // 2],
+          "CUDACodec round trip of one 64 KB block")
+    print(f"[block codec] get_codec('cuda12'): block {at}, {len(one)} bytes "
+          f"-> {len(comp_one)} (the frame's payload) -> decompress ok; host "
+          f"block decoder ok")
+
+    plen12 = np.array([len(p) for p in recs12], np.int64)
+    offs12 = np.zeros_like(plen12)
+    offs12[1:] = np.cumsum(plen12)[:-1]
+    concat12 = b"".join(recs12)
+    t_parse = time.perf_counter()
+    tabs = native.native_parse_blocks(concat12, offs12, plen12,
+                                      td.MAX_SEQS(BLK))
+    t_parse = time.perf_counter() - t_parse
+    comp12 = np.zeros((len(recs12), compress_bound(BLK)), np.uint8)
+    for k, p_ in enumerate(recs12):
+        comp12[k, :len(p_)] = np.frombuffer(p_, np.uint8)
+    t_stage_s, seq_in = cuda_ms(lambda: [
+        torch.from_numpy(a).to(dev) for a in (comp12, *tabs)])
+
+    def seq_path():
+        return td.decode_blocks(*seq_in, BLK)
+
+    out_s, olen_s, ok_s = counted("decode_blocks, level-12 frame", seq_path,
+                                  ("seq_decode",))
+    want12 = b"".join(data[k * BLK:(k + 1) * BLK] for k in idx12)
+    same_s = (bool(ok_s.all()) and bool((olen_s == BLK).all())
+              and out_s.cpu().numpy().tobytes() == want12)
+    # the other route over the same blocks: T-map resolve and tmap_gather
+    T12, ol12 = native.native_resolve_tmap(concat12, offs12, plen12, BLK,
+                                           reuse_buffers=False)
+    f12_d = torch.from_numpy(comp12[:, :int(plen12.max())].copy()).to(dev)
+    T12_d = torch.from_numpy(T12).to(dev)
+    ol12_d = torch.from_numpy(ol12.astype(np.int32)).to(dev)
+    k1_out = td.decode_blocks_tmap(f12_d, T12_d, ol12_d)
+    err_s_k1 = max_abs_err(out_s, k1_out)
+    k_seq, _ = cuda_ms(seq_path, 5)
+    k1_same, _ = cuda_ms(lambda: td.decode_blocks_tmap(f12_d, T12_d, ol12_d),
+                         5)
+    del T12_d, k1_out
+    # against the plain version on blocks spread over the frame
+    step = max(len(recs12) // SEQ_PLAIN_BLOCKS, 1)
+    sub = [a[::step].contiguous() for a in seq_in]
+    p_seq, plain_s = cuda_ms(lambda: td.decode_blocks_plain(*sub, BLK))
+    k_seq_sub, kern_s = cuda_ms(lambda: td.decode_blocks(*sub, BLK))
+    err_seq = max(max_abs_err(a, b) for a, b in zip(kern_s, plain_s))
+    nseq_live = int(tabs[4].sum())
+    print(f"[K6] seq_decode over the {len(recs12)} compressed blocks of the "
+          f"level-12 frame ({nseq_live} sequences): == input {same_s}; vs "
+          f"tmap_gather on the same blocks max_abs_err {err_s_k1}; vs plain "
+          f"on {sub[0].shape[0]} blocks max_abs_err {err_seq}")
+    check(same_s and err_s_k1 == 0 and err_seq == 0,
+          "K6 differs from the input, from K1 or from plain")
+    b_seq = bound(len(concat12) + 16 * nseq_live + 4 * len(recs12)
+                  + len(recs12) * (BLK + 8), len(recs12) * BLK)
+    results["seq_decode"].update(
+        max_abs_err=max(err_seq, err_s_k1), ms=k_seq, plain_ms=p_seq,
+        plain_blocks=int(sub[0].shape[0]), bound_ms=b_seq[0],
+        bound_by=b_seq[1], library_ms=None, tmap_gather_ms=k1_same)
+    print(f"[time] {smi}: seq_decode at {len(recs12)} x 64 KB {k_seq:.3f} ms "
+          f"(bound {b_seq[0]:.4f} ms by {b_seq[1]}; tmap_gather on the same "
+          f"blocks {k1_same:.4f} ms; host parse {t_parse * 1e3:.2f} ms, "
+          f"staging {t_stage_s:.2f} ms); at {sub[0].shape[0]} blocks "
+          f"{k_seq_sub:.3f} ms, plain {p_seq:.1f} ms")
+    del seq_in, out_s, sub, kern_s, plain_s
+
+    # a frame of every 12th block, decoded by a child process that runs
+    # without the native host runtime: seq_decode instead of tmap_gather
+    part12 = b"".join(data[k * BLK:(k + 1) * BLK]
+                      for k in range(0, nb, PLAIN_STRIDE))
+    frame_part = ShardedFrameCodec(compression_level=12, device="cuda"
+                                   ).compress_frame(part12)
+    t_child = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), CHILD_FLAG],
+        input=frame_part, capture_output=True, timeout=600,
+        env={**os.environ, "ZIG_LZ4_TPU_NO_NATIVE": "1"})
+    t_child = time.perf_counter() - t_child
+    check(child.returncode == 0,
+          f"the no-native child failed: {child.stderr.decode()[-2000:]}")
+    told = json.loads(child.stdout.decode().strip().splitlines()[-1])
+    check(told["sha256"] == hashlib.sha256(part12).hexdigest()
+          and told["bytes"] == len(part12),
+          "the no-native decode differs from the input")
+    check(told["launches"]["seq_decode"] > 0
+          and told["launches"]["tmap_gather"] == 0,
+          f"the no-native decode launched {told['launches']}")
+    print(f"[no native] ZIG_LZ4_TPU_NO_NATIVE=1 child: decompress_frame of a "
+          f"level-12 frame of {len(part12)} bytes ok in {t_child:.1f} s "
+          f"(process start and Python parse included); launches "
+          f"{ {k: v for k, v in told['launches'].items() if v} }")
+
+    # --- phase 8: launch counts over the paths
     print(f"[launches] all paths: {counts}")
     check(all(counts[k] > 0 for k in KERNELS),
           "a kernel was not launched on any path: "
           + ", ".join(k for k in KERNELS if not counts[k]))
 
-    # --- phase 7: kernels alone at the paths' shapes, each against its
+    # --- phase 9: kernels alone at the paths' shapes, each against its
     # plain version on the same inputs, with its bound
     cap = out4.shape[1]
     tb.match_candidates(w_all, l_all)
@@ -492,8 +796,46 @@ def main():
         ms=k_emit, plain_ms=p_emit, bound_ms=b_emit[0], bound_by=b_emit[1],
         library_ms=None)
 
+    # the deep kernels at the paths' shapes; their plain versions ran on
+    # every PLAIN_STRIDE-th window of these (phase 6)
+    k_deep = {}
+    for level in DEEP_LEVELS:
+        hc, deep = tb.level_params(level)
+        k_dm, pk_d = cuda_ms(
+            lambda: tb.match_candidates(w_all, l_all, hc, 1, deep), 2)
+        k_dd, st_d = cuda_ms(lambda: tb.deep_dp(l_all, s_all, pk_d, deep), 2)
+        k_de, _od = cuda_ms(
+            lambda: tb.deep_emit(w_all, l_all, s_all, pk_d, st_d), 2)
+        k_deep[level] = {"enc_deep_match": k_dm, "enc_deep_dp": k_dd,
+                         "enc_deep_emit": k_de}
+    del pk_d, st_d, _od
+    b_deep = {
+        "enc_deep_match": bound(in_bytes + 4 * nb * BLK,
+                                deep_match_ops(nb, BLK, 8, 3)),
+        # candidates, lengths and starts in, state words out; about 30
+        # operations a position (unpack, tier, chain, clamp, three costs)
+        "enc_deep_dp": bound(8 * nb * BLK + 8 * nb, 30 * nb * BLK),
+        # windows, candidates, state words, lengths and starts in; the
+        # zero-padded payload rows and their lengths out
+        "enc_deep_emit": bound(in_bytes + 4 * nb + 8 * nb * BLK + nb * cap
+                               + 4 * nb, 8 * nb * BLK)}
+    for k, (b_ms, b_by) in b_deep.items():
+        results[k].update(
+            max_abs_err=deep_err[k], ms=k_deep[12][k],
+            ms_by_level={lv: k_deep[lv][k] for lv in DEEP_LEVELS},
+            plain_ms=deep_plain_ms[12][k], plain_windows=int(sel.numel()),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    print(f"[time] {smi}: deep kernels at {nb} x 64 KB by level: "
+          + "; ".join(f"level {lv}: " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in k_deep[lv].items())
+              for lv in DEEP_LEVELS)
+          + "; bounds at level 12: " + ", ".join(
+              f"{k} {b[0]:.4f} ms by {b[1]}" for k, b in b_deep.items())
+          + f"; plain versions at {int(sel.numel())} x 64 KB, level 12: "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in deep_plain_ms[12].items()))
+
     # decode: every compressed block of the level-9 frame in one launch
-    recs = frame_payloads(frame, lz4f)
+    _idx, recs = frame_payloads(frame, lz4f)
     plen = np.array([len(p) for p in recs], np.int64)
     offs = np.zeros_like(plen)
     offs[1:] = np.cumsum(plen)[:-1]
@@ -642,7 +984,8 @@ def main():
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(decode_without_native() if sys.argv[1:] == [CHILD_FLAG]
+                 else main())
     except Failed as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         sys.exit(1)

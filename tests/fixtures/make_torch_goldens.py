@@ -22,13 +22,31 @@ The port (zig_lz4_tpu_torch) is compared byte for byte with these:
 * ``levels_frames4k.npz`` -- the JAX codec's level-0 and level-5 frames
   of the inputs of ``l9_frames4k.npz``.
 
+* ``deep4k.npz`` -- the static 4 KB inputs again at the deep
+  configurations ``(hc, deep)`` = (8, 1), (8, 2), (8, 3) and (4, 1):
+  rank tiers, price parse, extension and absorb (levels 10-12 and the
+  reference's fuzz configuration).
+* ``deep_corpus64k_l{10,11,12}.npz`` -- the 64 KB blocks of
+  ``l9_corpus64k.npz`` plus a byte run, a period-300 block, a
+  code-like block (matches far over 1024 bytes) and a short text
+  window with ``start > 0``, at levels 10, 11 and 12; one group and one
+  file per level, since each compiles the JAX encoder at 64 KB.
+* ``deep_frames4k.npz`` -- the JAX codec's level-12 frames of the
+  inputs of ``l9_frames4k.npz``.
+* ``seqdec4k.npz`` -- ``decode_blocks_jax`` (the sequence-rebuild
+  decoder) on the level-8 payloads of ``levels4k.npz``: the rows with
+  ``start == 0`` without a history, and every row with its history
+  right-aligned in a 4 KB window.
+
 Run once from the repository root (needs JAX):
 
     JAX_PLATFORMS=cpu python tests/fixtures/make_torch_goldens.py
 
 or name groups as arguments (``64k``, ``frames4k``, ``levels4k``,
-``levels64k``, ``levels_frames4k``); the groups are independent, so
-they may run as separate processes side by side.
+``levels64k``, ``levels_frames4k``, ``deep4k``, ``deep64k_l10``,
+``deep64k_l11``, ``deep64k_l12``, ``deep_frames4k``, ``seqdec4k``); the
+groups are independent, so they may run as separate processes side by
+side (``seqdec4k`` reads the ``levels4k`` file).
 """
 
 import os
@@ -60,6 +78,14 @@ LEVELS64K = (0, 4)
 LEVELS64K_OUT = os.path.join(HERE, "levels_corpus64k.npz")
 FRAME_LEVELS = (0, 5)
 LEVEL_FRAMES_OUT = os.path.join(HERE, "levels_frames4k.npz")
+#: the deep configurations: name -> (hc, deep)
+DEEP_CONFIGS = {"hc8_d1": (8, 1), "hc8_d2": (8, 2), "hc8_d3": (8, 3),
+                "hc4_d1": (4, 1)}
+DEEP4K_OUT = os.path.join(HERE, "deep4k.npz")
+DEEP_LEVELS = (10, 11, 12)
+DEEP64K_OUT = os.path.join(HERE, "deep_corpus64k_l{}.npz")
+DEEP_FRAMES_OUT = os.path.join(HERE, "deep_frames4k.npz")
+SEQDEC_OUT = os.path.join(HERE, "seqdec4k.npz")
 #: the "multi" input: 11 blocks of 4 KB across the text/XML boundary
 MULTI = slice(13 * BLK, 13 * BLK + 45_000)
 
@@ -121,6 +147,109 @@ def levels4k() -> None:
     np.savez_compressed(LEVELS4K_OUT, **arrays)
 
 
+def deep4k() -> None:
+    import test_torch_encode as tte
+
+    from zig_lz4_tpu.ops.jax_block import encode_blocks_jax
+
+    _rows, windows, lens, starts = tte._pack(tte._static_inputs())
+    arrays = {}
+    for name, (hc, deep) in DEEP_CONFIGS.items():
+        out_len, payloads = _dense(*encode_blocks_jax(
+            windows, lens, blk=tte.BLK, starts=starts, hc=hc, deep=deep))
+        arrays[f"out_len_{name}"] = out_len
+        arrays[f"payloads_{name}"] = payloads
+        print(f"{name}: {len(out_len)} windows, {int(out_len.sum())} bytes",
+              flush=True)
+    np.savez_compressed(DEEP4K_OUT, **arrays)
+
+
+def deep_rows(corpus: bytes):
+    """(windows, lens, starts) of the 64 KB deep goldens: the corpus
+    blocks, then a byte run, a period-300 block, a code-like block and
+    a 50,000-byte text window that starts emission at 20,000."""
+    rows, lens = _golden_rows(corpus)
+    rng = np.random.default_rng(300)
+    period = rng.integers(0, 256, 300, dtype=np.uint8).tobytes()
+    crng = np.random.default_rng(0xC0FFEE)
+    lines = [b"    if (state->pos + len > state->cap) return -1;",
+             b"    memcpy(dst + op, src + ip, run_length);",
+             b"    for (size_t i = 0; i < n; ++i) acc += table[i];",
+             b"    return lz4_emit_sequence(ctx, literals, match);",
+             b"    uint32_t h = (seq * 2654435761u) >> shift;"]
+    code = b"\n".join(lines[i] for i in
+                      crng.integers(0, len(lines), BLK // 30))[:BLK]
+    extra = [b"\x61" * BLK, (period * (BLK // 300 + 1))[:BLK], code,
+             corpus[9 * BLK:9 * BLK + 50_000]]
+    windows = np.zeros((len(rows) + len(extra), BLK), np.uint8)
+    windows[:len(rows)] = rows
+    for k, d in enumerate(extra):
+        windows[len(rows) + k, :len(d)] = np.frombuffer(d, np.uint8)
+    lens = np.concatenate([lens, [len(d) for d in extra]]).astype(np.int32)
+    starts = np.zeros(len(lens), np.int32)
+    starts[-1] = 20_000
+    return windows, lens, starts
+
+
+def deep64k(corpus: bytes, level: int) -> None:
+    from zig_lz4_tpu.ops.jax_block import encode_blocks_jax, level_params
+
+    windows, lens, starts = deep_rows(corpus)
+    hc, deep = level_params(level)
+    out_len, payloads = _dense(*encode_blocks_jax(
+        windows, lens, blk=BLK, starts=starts, hc=hc, deep=deep))
+    print(f"level {level}: {out_len.tolist()}")
+    np.savez_compressed(DEEP64K_OUT.format(level),
+                        blocks=np.array(BLOCKS, np.int32), out_len=out_len,
+                        payloads=payloads)
+
+
+def deep_frames4k(corpus: bytes) -> None:
+    np.savez_compressed(DEEP_FRAMES_OUT, **{
+        f"l12_{name}": f for name, f in _frames(corpus, 12).items()})
+
+
+def seqdec4k() -> None:
+    import test_torch_encode as tte
+
+    from zig_lz4_tpu.ops.jax_decode import (MAX_SEQS, decode_blocks_jax,
+                                            parse_sequences, seqs_to_arrays)
+
+    _rows, windows, lens, starts = tte._pack(tte._static_inputs())
+    z = np.load(LEVELS4K_OUT)
+    ends = np.cumsum(z["out_len_hc8"])
+    pays = [z["payloads_hc8"][e - n:e].tobytes()
+            for e, n in zip(ends, z["out_len_hc8"])]
+    blk, cap = tte.BLK, MAX_SEQS(tte.BLK)
+    arrays = {}
+    for name, sel in (("nohist", np.flatnonzero(starts == 0)),
+                      ("hist", np.arange(len(lens)))):
+        comp = np.zeros((len(sel), 4096 + 64), np.uint8)
+        hists = np.zeros((len(sel), blk), np.uint8)
+        seqs = []
+        for j, r in enumerate(sel):
+            comp[j, :len(pays[r])] = np.frombuffer(pays[r], np.uint8)
+            if starts[r]:
+                hists[j, blk - starts[r]:] = windows[r, :starts[r]]
+            seqs.append(seqs_to_arrays(
+                parse_sequences(pays[r], int(starts[r])), cap))
+        lit, lsrc, ml, off = (np.stack([s[k] for s in seqs])
+                              for k in range(4))
+        ns = np.array([s[4] for s in seqs], np.int32)
+        out, out_len = decode_blocks_jax(
+            comp, lit, lsrc, ml, off, ns, blk,
+            hists=hists if name == "hist" else None)
+        out, out_len = np.asarray(out), np.asarray(out_len)
+        for j, r in enumerate(sel):
+            assert out[j, :out_len[j]].tobytes() == \
+                windows[r, starts[r]:lens[r]].tobytes(), (name, r)
+        arrays[f"rows_{name}"] = sel.astype(np.int32)
+        arrays[f"out_{name}"] = out
+        arrays[f"out_len_{name}"] = out_len.astype(np.int32)
+        print(f"{name}: {len(sel)} blocks, {int(out_len.sum())} bytes")
+    np.savez_compressed(SEQDEC_OUT, **arrays)
+
+
 def _frames(corpus: bytes, level: int) -> dict:
     """name -> the JAX codec's frame of each codec-test input, at 4 KB
     blocks and windows."""
@@ -159,7 +288,12 @@ def main():
               "frames4k": lambda: frames4k(corpus),
               "levels4k": levels4k,
               "levels64k": lambda: levels64k(corpus),
-              "levels_frames4k": lambda: level_frames4k(corpus)}
+              "levels_frames4k": lambda: level_frames4k(corpus),
+              "deep4k": deep4k,
+              **{f"deep64k_l{lv}": (lambda lv=lv: deep64k(corpus, lv))
+                 for lv in DEEP_LEVELS},
+              "deep_frames4k": lambda: deep_frames4k(corpus),
+              "seqdec4k": seqdec4k}
     for name in sys.argv[1:] or groups:
         groups[name]()
 

@@ -1,15 +1,18 @@
 """The port's frame codec (zig_lz4_tpu_torch.ShardedFrameCodec) against
 the JAX one (zig_lz4_tpu.parallel.ShardedFrameCodec), end to end.
 
-Encode: both codecs at levels 9, 5 and 0 with ``block_size``/``window``
-shrunk to 4 KB (as tests/test_parallel.py:48-49 shrinks them).  The JAX
-codec's frames come from ``tests/fixtures/l9_frames4k.npz`` and
-``levels_frames4k.npz``, written by
+Encode: both codecs at levels 12, 9, 5 and 0 with
+``block_size``/``window`` shrunk to 4 KB (as tests/test_parallel.py:48-49
+shrinks them).  The JAX codec's frames come from
+``tests/fixtures/l9_frames4k.npz``, ``levels_frames4k.npz`` and
+``deep_frames4k.npz``, written by
 ``tests/fixtures/make_torch_goldens.py``: a live JAX encode would cost
 this file encoder compiles beside test_torch_encode.py's.  The JAX
 codec decodes the port's frames live.  Decode: independent, linked and
 dictionary frames written by the host frame layer, decoded by both
-codecs.  The port runs on ``device="cpu"``: the plain versions of its
+codecs; independent frames again with the native runtime taken away,
+through the sequence-rebuild decoder, and single blocks through
+``CUDACodec``.  The port runs on ``device="cpu"``: the plain versions of its
 kernels.  Tolerance: none; frames and contents are compared byte for
 byte, and errors by the name of the exception class (the two packages
 share no class).
@@ -127,7 +130,45 @@ def test_level_frames_identical_and_cross_decode(name, level, corpus,
     assert ref.decompress_frame(frame) == data
 
 
-def test_frame_goldens_cover_every_input(jax_frames, jax_level_frames):
+@pytest.fixture(scope="module")
+def jax_deep_frames():
+    """``l12_<name>`` -> the JAX codec's frame at level 12."""
+    with np.load(make_torch_goldens.DEEP_FRAMES_OUT) as z:
+        return {k: z[k].tobytes() for k in z.files}
+
+
+@pytest.mark.parametrize("name", CORPUS + ("multi",))
+def test_deep_frames_identical_and_cross_decode(name, corpus, codecs,
+                                                jax_deep_frames):
+    ref, _port9 = codecs
+    data = _multi() if name == "multi" else corpus[name]
+    frame_ref = jax_deep_frames[f"l12_{name}"]
+    assert ref_frame.decompress_frame(frame_ref) == data
+    port4k = ShardedFrameCodec(compression_level=12, device="cpu")
+    port4k.block_size = port4k.window = SMALL
+    frame = port4k.compress_frame(data)
+    assert frame == frame_ref
+    assert port4k.decompress_frame(frame_ref) == data
+    assert ref.decompress_frame(frame) == data
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 9, 10, 11, 12, 13])
+def test_from_reference_carries_level(level, jax_codec):
+    """``level``, ``hc`` and ``deep`` of both codecs agree
+    (tests/test_parallel.py:146-158)."""
+    ref = jax_codec(compression_level=level)
+    port = ShardedFrameCodec.from_reference(ref, device="cpu")
+    assert (port.level, port.hc, port.deep) == (ref.level, ref.hc, ref.deep)
+    assert (port.hc, port.deep) == tb.level_params(level)
+    same = ShardedFrameCodec(compression_level=level, device="cpu")
+    assert (same.level, same.hc, same.deep) == (port.level, port.hc,
+                                                port.deep)
+
+
+def test_frame_goldens_cover_every_input(jax_frames, jax_level_frames,
+                                         jax_deep_frames):
+    assert set(jax_deep_frames) == {f"l12_{name}"
+                                    for name in CORPUS + ("multi",)}
     assert set(jax_frames) == set(CORPUS) | {"multi"}
     assert set(jax_level_frames) == {
         f"l{level}_{name}" for level in make_torch_goldens.FRAME_LEVELS
@@ -198,17 +239,15 @@ def test_outside_the_slice_raises_not_implemented(port):
         ShardedFrameCodec(decode_engine="win", device="cpu")
     with pytest.raises(ValueError):
         ShardedFrameCodec(decode_engine="bogus", device="cpu")
-    for level in (10, 12):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ShardedFrameCodec(compression_level=level,
-                              device="cpu").compress_frame(b"deep level")
     with pytest.raises(NotImplementedError, match="item 6"):
         ShardedFrameCodec(compression_level=9, device="cpu",
                           block_size_id=lz4f.BlockSizeID.max256KB
                           ).compress_frame(b"256 KB blocks")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        CUDACodec(device="cpu").decompress(b"\x00", 16)
-    # what this slice brought in no longer raises
+    # what the slices brought in no longer raises
+    assert CUDACodec(device="cpu").decompress(b"\x00", 16) == b""
+    frame = ShardedFrameCodec(compression_level=12, device="cpu"
+                              ).compress_frame(b"deep level " * 40)
+    assert lz4f.decompress_frame(frame) == b"deep level " * 40
     assert port.decompress_frame(_GOLDENS["linked_blocks.lz4"][0]) == \
         _GOLDENS["linked_blocks.lz4"][1]
     frame = ShardedFrameCodec(device="cpu").compress_frame(b"level 0")
@@ -327,31 +366,106 @@ def test_linked_corruption_raises_reference_class(jax_codec):
     assert "frame block 1" in str(exc)
 
 
-def test_linked_decode_needs_the_native_runtime(monkeypatch, port):
+def _without_native(monkeypatch):
+    """Take the native resolvers away, as a runtime that did not load
+    leaves them, and count the sequence-rebuild calls."""
     from zig_lz4_tpu_torch.parallel import sharded
     monkeypatch.setattr(sharded, "native_resolve_tmap_linked",
                         lambda *a, **k: None)
     monkeypatch.setattr(sharded, "native_resolve_tmap",
                         lambda *a, **k: None)
+    calls = []
+    real = sharded.decode_blocks
+
+    def counted(*a, **k):
+        calls.append(a[0].shape)
+        return real(*a, **k)
+    monkeypatch.setattr(sharded, "decode_blocks", counted)
+    return calls
+
+
+def test_linked_decode_needs_the_native_runtime(monkeypatch, port):
+    calls = _without_native(monkeypatch)
     with pytest.raises(RuntimeError, match="native host runtime"):
         port.decompress_frame(_GOLDENS["linked_blocks.lz4"][0])
-    with pytest.raises(RuntimeError, match="native host runtime"):
-        port.decompress_frame(_GOLDENS["periodic_match.lz4"][0])
+    assert not calls
+    # an independent frame no longer needs it
+    blob, content = _GOLDENS["periodic_match.lz4"]
+    assert port.decompress_frame(blob) == content
+    assert len(calls) == 1
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n, (blob, _c) in _GOLDENS.items()
+    if n not in _GOLDEN_DICTS and n not in ("block256k.lz4", "block1m.lz4",
+                                            "block4m.lz4")))
+def test_golden_fixtures_decode_without_native(name, monkeypatch, port):
+    """Every golden frame of blocks up to 64 KB through the
+    sequence-rebuild decoder (linked frames still need the runtime)."""
+    blob, content = _GOLDENS[name]
+    _without_native(monkeypatch)
+    if name == "linked_blocks.lz4":
+        with pytest.raises(RuntimeError, match="native host runtime"):
+            port.decompress_frame(blob)
+        return
+    assert port.decompress_frame(blob) == content
+
+
+def test_frames_decode_without_native(monkeypatch, corpus, jax_frames,
+                                      jax_deep_frames):
+    calls = _without_native(monkeypatch)
+    port4k = ShardedFrameCodec(compression_level=9, device="cpu")
+    port4k.block_size = port4k.window = SMALL
+    for name in CORPUS + ("multi",):
+        data = _multi() if name == "multi" else corpus[name]
+        assert port4k.decompress_frame(jax_frames[name]) == data
+        assert port4k.decompress_frame(jax_deep_frames[f"l12_{name}"]) == data
+    assert len(calls) >= len(CORPUS)    # some inputs store every block
+    # a dictionary is the history of every block
+    data = _linked_data(150_000, seed=5)
+    d = data[30_000:30_000 + 70_000]
+    fr = _host_frame(lz4f, data, "max64KB", "independent", d, level=9)
+    port = ShardedFrameCodec(device="cpu", dictionary=d)
+    del calls[:]
+    assert port.decompress_frame(fr) == data
+    assert len(calls) == 1
+    with pytest.raises(E.LZ4Error):
+        ShardedFrameCodec(device="cpu").decompress_frame(fr)
+
+
+def test_errors_without_native(monkeypatch, codecs):
+    """The same error classes and block names as with the runtime."""
+    ref, port4k = codecs
+    _without_native(monkeypatch)
+    bad = bytes([0x10, ord("A"), 0xFF, 0xFF, 0x00])   # offset past output
+    blob = make_goldens.frame([(b"stored block", True), (bad, False)])
+    exc = _raises_like(ref, port4k, blob)
+    assert isinstance(exc, E.CorruptedData) and "frame block 1" in str(exc)
+    blob = make_goldens.frame([(compress_fast(b"ab" * 65536), False)])
+    exc = _raises_like(ref, port4k, blob)
+    assert isinstance(exc, E.CorruptedData)
+    assert "frame block 0 decodes to more than" in str(exc)
+    for name in sorted(_NEGATIVES):
+        _raises_like(ref, port4k, _NEGATIVES[name][0])
+    # blocks over 64 KB have no sequence-rebuild route
+    big = _host_frame(lz4f, _linked_data(300_000), "max256KB", "independent")
+    with pytest.raises(NotImplementedError, match="T-map"):
+        ShardedFrameCodec(device="cpu").decompress_frame(big)
 
 
 # -- the single-block codec family ------------------------------------
 
-@pytest.mark.parametrize("level", [0, 1, 4, 9])
+@pytest.mark.parametrize("level", [0, 1, 4, 9, 10, 12])
 def test_cuda_codec_compresses_one_block(level):
     data = make_corpus(2)[13 * 65536:13 * 65536 + 3000]
     codec = CUDACodec(block_capacity=4096, level=level, device="cpu")
     comp = codec.compress(data)
     assert decompress_safe(comp, len(data)) == data
-    hc, _deep = tb.level_params(level)
+    hc, deep = tb.level_params(level)
     w = torch.zeros((1, 4096), dtype=torch.uint8)
     w[0, :len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
     out, n = tb.encode_blocks_plain(
-        w, torch.tensor([len(data)], dtype=torch.int32), hc=hc)
+        w, torch.tensor([len(data)], dtype=torch.int32), hc=hc, deep=deep)
     assert comp == out[0, :int(n[0])].numpy().tobytes()
     with pytest.raises(E.OutputTooSmall):
         codec.compress(data, max_output=10)
@@ -371,5 +485,32 @@ def test_get_codec_cuda_family():
     else:
         assert get_codec("cuda").level == 1
         assert get_codec("cuda9").level == 9
-    with pytest.raises(NotImplementedError, match="item 8"):
-        CUDACodec(level=12, device="cpu").compress(b"deep level")
+    assert decompress_safe(CUDACodec(level=12, device="cpu", block_capacity=64
+                                     ).compress(b"deep level"), 10) == \
+        b"deep level"
+
+
+@pytest.mark.parametrize("level", [1, 9, 12])
+@pytest.mark.parametrize("name", CORPUS)
+def test_cuda_codec_round_trips(name, level, corpus):
+    """``compress`` then ``decompress`` (the sequence-rebuild decoder),
+    as ``TPUCodec`` does (tests/test_models.py); any LZ4 block decodes,
+    whoever wrote it."""
+    data = corpus[name][:4096]
+    codec = CUDACodec(block_capacity=4096, level=level, device="cpu")
+    comp = codec.compress(data)
+    assert codec.decompress(comp, len(data)) == data
+    assert codec.decompress(compress_fast(data), 4096) == data
+    if data:
+        with pytest.raises(E.OutputTooSmall):
+            codec.decompress(comp, len(data) - 1)
+
+
+def test_cuda_codec_decompress_rejects_bad_blocks():
+    codec = CUDACodec(block_capacity=4096, level=12, device="cpu")
+    with pytest.raises(E.CorruptedData):
+        codec.decompress(bytes([0x10, 65, 0xFF, 0xFF, 0x00]), 4096)
+    with pytest.raises(E.CorruptedData, match="capacity"):
+        codec.decompress(compress_fast(b"ab" * 4096), 8192)
+    with pytest.raises(E.CorruptedData, match="capacity"):
+        codec.decompress(compress_fast(bytes(range(256)) * 40), 1 << 20)

@@ -1,23 +1,38 @@
-"""The port's T-map rebuilds (zig_lz4_tpu_torch.ops.torch_decode) --
-independent blocks and the linked-frame window step -- against the JAX
-reference (zig_lz4_tpu.ops.jax_decode).
+"""The port's block rebuilds (zig_lz4_tpu_torch.ops.torch_decode) --
+T-map decode of independent blocks, the linked-frame window step, and
+the rebuild from parsed sequences -- against the JAX reference
+(zig_lz4_tpu.ops.jax_decode).
 
 Tolerance: none; outputs are bytes and compared for equality.  The
 block inputs are those of tests/test_tmap.py:24-36, made with numpy
 seeds; the linked step runs at small H, PCQ and NOUT with seeded T.
+The sequence rebuild runs live against ``decode_blocks_jax`` on those
+blocks (4 KB, with and without a history, byte runs and overlapping
+matches) and against ``tests/fixtures/seqdec4k.npz``, the JAX decoder's
+output on the level-8 payloads of the encoder tests' static inputs.
 ``cuda``-marked tests hold the kernel against the plain version and
 skip where there is no CUDA device.
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 
+from zig_lz4_tpu_torch import errors as E
+from zig_lz4_tpu_torch.constants import compress_bound
 from zig_lz4_tpu_torch.native import native_resolve_tmap
 from zig_lz4_tpu_torch.ops import torch_decode as td
+from zig_lz4_tpu_torch.ops.block import compress_fast
 from zig_lz4_tpu_torch.ops.hc import compress_hc
+from zig_lz4_tpu_torch.stream import Stream
 
 BLK = 4096
+_FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures")
+SEQDEC_GOLDENS = os.path.join(_FIXDIR, "seqdec4k.npz")
+LEVEL_GOLDENS_4K = os.path.join(_FIXDIR, "levels4k.npz")
 
 
 def _cases():
@@ -214,6 +229,270 @@ def test_linked_step_rejects_bad_inputs():
         td.linked_tmap_step(hist, pay, T, torch.tensor(4))
     with pytest.raises(ValueError):
         td.linked_tmap_step(hist[:0], pay, T, 4)
+
+
+# -- rebuild from parsed sequences ------------------------------------
+
+def _tables(comps, hist_lens=None, cap=None, ccap=None):
+    """(comp uint8[B, ccap], lit_len, lit_src, mlen, off int32[B, cap],
+    nseq int32[B]) of the payloads ``comps``, parsed by the port."""
+    cap = cap or td.MAX_SEQS(BLK)
+    ccap = ccap or BLK + 64
+    hist_lens = hist_lens or [0] * len(comps)
+    comp = np.zeros((len(comps), ccap), np.uint8)
+    tabs = np.zeros((4, len(comps), cap), np.int32)
+    ns = np.zeros(len(comps), np.int32)
+    for j, (c, h) in enumerate(zip(comps, hist_lens)):
+        comp[j, :len(c)] = np.frombuffer(c, np.uint8)
+        (tabs[0, j], tabs[1, j], tabs[2, j], tabs[3, j],
+         ns[j]) = td.seqs_to_arrays(td.parse_sequences(c, h), cap)
+    return (comp, *tabs, ns)
+
+
+def _seq_decode(arrays, blk=BLK, hists=None, device="cpu"):
+    out, out_len, ok = td.decode_blocks(
+        *(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+          for a in arrays), blk,
+        hists=None if hists is None else torch.from_numpy(hists).to(device))
+    return out.cpu().numpy(), out_len.cpu().numpy(), ok.cpu().numpy()
+
+
+def _compress_with_dict(data: bytes, dictionary: bytes) -> bytes:
+    """One block whose matches may reach into ``dictionary``."""
+    stream = Stream()
+    stream.load_dict(dictionary)
+    return stream.compress_fast_continue(data)
+
+
+def _history_cases():
+    """(history, data) pairs whose blocks reach into the history: the
+    data repeats the history's tail, then itself."""
+    rng = np.random.default_rng(33)
+    text = b"the quick brown fox jumps over the lazy dog " * 100
+    noise = rng.integers(0, 256, 1500, dtype=np.uint8).tobytes()
+    return [(text[:BLK], text[100:100 + BLK]),
+            (noise, noise[-700:] + noise[:900] + b"z" * 300),
+            (b"ab" * 600, b"ab" * 1000),
+            (b"", text[:2000])]
+
+
+def _hist_tables(cases):
+    comps = [_compress_with_dict(d, h) if h else compress_fast(d)
+             for h, d in cases]
+    hists = np.zeros((len(cases), BLK), np.uint8)
+    for j, (h, _d) in enumerate(cases):
+        if h:
+            hists[j, BLK - len(h):] = np.frombuffer(h, np.uint8)
+    return _tables(comps, [len(h) for h, _d in cases]), hists
+
+
+def test_seq_decode_plain_matches_jax():
+    pytest.importorskip("jax")
+    from zig_lz4_tpu.ops.jax_decode import decode_blocks_jax
+    cases = _cases()
+    arrays = _tables([compress_hc(d, 9) for d in cases])
+    want, want_len = decode_blocks_jax(*arrays, BLK)
+    out, out_len, ok = _seq_decode(arrays)
+    assert ok.all()
+    assert np.array_equal(out_len, np.asarray(want_len))
+    assert np.array_equal(out, np.asarray(want))
+    for i, d in enumerate(cases):
+        assert out[i, :len(d)].tobytes() == d and out_len[i] == len(d)
+        assert not out[i, len(d):].any()
+
+
+def test_seq_decode_plain_matches_jax_with_history():
+    pytest.importorskip("jax")
+    from zig_lz4_tpu.ops.jax_decode import decode_blocks_jax
+    cases = _history_cases()
+    arrays, hists = _hist_tables(cases)
+    # a match reaches into the history in every case that has one
+    assert all((arrays[4][j] > np.cumsum(arrays[1][j] + arrays[3][j])
+                - arrays[3][j]).any() for j in range(3))
+    want, want_len = decode_blocks_jax(*arrays, BLK, hists=hists)
+    out, out_len, ok = _seq_decode(arrays, hists=hists)
+    assert ok.all()
+    assert np.array_equal(out_len, np.asarray(want_len))
+    assert np.array_equal(out, np.asarray(want))
+    for i, (_h, d) in enumerate(cases):
+        assert out[i, :out_len[i]].tobytes() == d
+
+
+def _golden_seq_inputs(name):
+    """The inputs tests/fixtures/make_torch_goldens.py fed the JAX
+    decoder: level-8 payloads of the encoder tests' static inputs."""
+    sys.path.insert(0, os.path.dirname(__file__))
+    import test_torch_encode as tte
+    _rows, windows, lens, starts = tte._pack(tte._static_inputs())
+    with np.load(LEVEL_GOLDENS_4K) as z:
+        pays = tte._payloads(z["payloads_hc8"], z["out_len_hc8"])
+    with np.load(SEQDEC_GOLDENS) as z:
+        sel, want, want_len = (z[f"rows_{name}"], z[f"out_{name}"],
+                               z[f"out_len_{name}"])
+    arrays = _tables([pays[r] for r in sel], [int(starts[r]) for r in sel])
+    hists = None
+    if name == "hist":
+        hists = np.zeros((len(sel), BLK), np.uint8)
+        for j, r in enumerate(sel):
+            if starts[r]:
+                hists[j, BLK - starts[r]:] = windows[r, :starts[r]]
+    data = [windows[r, starts[r]:lens[r]].tobytes() for r in sel]
+    return arrays, hists, want, want_len, data
+
+
+@pytest.mark.parametrize("name", ["nohist", "hist"])
+def test_seq_decode_plain_matches_jax_goldens(name):
+    arrays, hists, want, want_len, data = _golden_seq_inputs(name)
+    out, out_len, ok = _seq_decode(arrays, hists=hists)
+    assert ok.all()
+    assert np.array_equal(out_len, want_len)
+    assert np.array_equal(out, want)
+    for j, d in enumerate(data):
+        assert out[j, :out_len[j]].tobytes() == d
+    if name == "hist":
+        assert hists.any()          # some rows do start behind a history
+
+
+@pytest.mark.parametrize("k", range(6))
+def test_parse_sequences_matches_reference(k):
+    import zig_lz4_tpu.errors as ref_errors
+    from zig_lz4_tpu.ops import jax_decode as ref
+    comp = compress_hc(_cases()[k], 9)
+    seqs = td.parse_sequences(comp)
+    assert seqs == ref.parse_sequences(comp)
+    cap = td.MAX_SEQS(BLK)
+    assert cap == ref.MAX_SEQS(BLK)
+    for a, b in zip(td.seqs_to_arrays(seqs, cap),
+                    ref.seqs_to_arrays(seqs, cap)):
+        assert np.array_equal(a, b) and np.asarray(a).dtype == np.int32
+    with pytest.raises(ValueError):
+        td.seqs_to_arrays(seqs + [(0, 0, 0, 0)], len(seqs))
+    # truncations and a wild offset: the same error class by name
+    for bad in (comp[:len(comp) // 2], comp[:1], b"\xf0",
+                bytes([0x10, 65, 0xFF, 0xFF, 0x00])):
+        try:
+            want = ref.parse_sequences(bad)
+        except ref_errors.LZ4Error as exc:
+            with pytest.raises(E.CorruptedData) as got:
+                td.parse_sequences(bad)
+            assert type(exc).__name__ == "CorruptedData"
+            assert str(got.value) == str(exc)
+        else:
+            assert td.parse_sequences(bad) == want
+
+
+def test_seq_decode_shared_history_and_dense_capacity():
+    """A 1-D history is shared by every block; the tables may be cut to
+    the sequences in use."""
+    h = (b"shared dictionary bytes " * 40)[:BLK // 2]
+    datas = [h[-300:] * 3, h[5:900] + b"tail", b""]
+    comps = [_compress_with_dict(d, h) for d in datas]
+    cap = max(len(td.parse_sequences(c, len(h))) for c in comps)
+    arrays = _tables(comps, [len(h)] * 3, cap=cap, ccap=1024)
+    hist = np.frombuffer(h, np.uint8).copy()
+    out, out_len, ok = _seq_decode(arrays, hists=hist)
+    out2, out_len2, ok2 = _seq_decode(arrays,
+                                      hists=np.stack([hist] * 3))
+    assert ok.all() and ok2.all()
+    assert np.array_equal(out, out2) and np.array_equal(out_len, out_len2)
+    for j, d in enumerate(datas):
+        assert out[j, :out_len[j]].tobytes() == d
+
+
+def _bad_tables():
+    """Tables the host parser would not produce, one fault each; the
+    last row is sound."""
+    cap = 4
+    comp = np.arange(64, dtype=np.uint8)[None].repeat(7, 0)
+    lit = np.zeros((7, cap), np.int32)
+    lsrc = np.zeros((7, cap), np.int32)
+    ml = np.zeros((7, cap), np.int32)
+    off = np.ones((7, cap), np.int32)
+    ns = np.full(7, 2, np.int32)
+    lit[:, 0], ml[:, 0], off[:, 0], lit[:, 1] = 8, 8, 4, 3
+    lsrc[:, 0], lsrc[:, 1] = 1, 20
+    lsrc[0, 1] = 62                 # a literal run past the payload
+    off[1, 0] = 9                   # a match before the block's start
+    ml[2, 0] = 200                  # more output than the block holds
+    ns[3] = cap + 1                 # more sequences than the table has
+    lit[4, 1] = -1                  # a negative length
+    lsrc[5, 0] = -1                 # a literal run before the payload
+    return comp, lit, lsrc, ml, off, ns
+
+
+def test_seq_decode_flags_tables_out_of_range():
+    arrays = _bad_tables()
+    out, out_len, ok = _seq_decode(arrays, blk=64)
+    assert ok.tolist() == [0, 0, 0, 0, 0, 0, 1]
+    assert not out[:6].any()
+    assert out_len[6] == 19 and out_len[2] == 65    # saturates at blk + 1
+    want = list(range(1, 9)) + [5, 6, 7, 8, 5, 6, 7, 8] + [20, 21, 22]
+    assert out[6, :19].tolist() == want and not out[6, 19:].any()
+    # a history makes row 1 sound: its match starts one byte before
+    hist = np.full(1, 77, np.uint8)
+    out, out_len, ok = _seq_decode(arrays, blk=64, hists=hist)
+    assert ok.tolist() == [0, 1, 0, 0, 0, 0, 1]
+    assert out[1, 8:16].tolist() == [77] + list(range(1, 8))
+
+
+def test_seq_decode_rejects_what_it_does_not_take():
+    assert td.device_seq_decoder_supports(65536, 65536)
+    assert not td.device_seq_decoder_supports(65537)
+    assert not td.device_seq_decoder_supports(4096, 65537)
+    arrays = [torch.from_numpy(a) for a in _bad_tables()]
+    with pytest.raises(NotImplementedError, match="T-map"):
+        td.decode_blocks(*arrays, 1 << 18)
+    with pytest.raises(TypeError):
+        td.decode_blocks(arrays[0], arrays[1].long(), *arrays[2:], 64)
+    with pytest.raises(TypeError):
+        td.decode_blocks(*arrays[:5], arrays[5][:2], 64)
+    with pytest.raises(TypeError):
+        td.decode_blocks(*arrays, 64, hists=torch.zeros((2, 8),
+                                                        dtype=torch.uint8))
+    assert compress_bound(BLK) <= BLK + 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["nohist", "hist"])
+def test_seq_kernel_matches_plain(cuda, name):
+    arrays, hists, want, want_len, _data = _golden_seq_inputs(name)
+    out, out_len, ok = _seq_decode(arrays, hists=hists, device=cuda)
+    assert ok.all()
+    assert np.array_equal(out, want) and np.array_equal(out_len, want_len)
+    for got, plain in zip((out, out_len, ok),
+                          _seq_decode(arrays, hists=hists)):
+        assert np.array_equal(got, plain)
+
+
+@pytest.mark.cuda
+def test_seq_kernel_flags_like_plain(cuda):
+    arrays = _bad_tables()
+    for hists in (None, np.full(1, 77, np.uint8)):
+        for got, plain in zip(_seq_decode(arrays, 64, hists, device=cuda),
+                              _seq_decode(arrays, 64, hists)):
+            assert np.array_equal(got, plain)
+
+
+@pytest.mark.cuda
+def test_seq_kernel_64k_blocks_with_history(cuda):
+    """Full-size blocks behind a full-size shared history, byte runs and
+    long overlapping matches included."""
+    from zig_lz4_tpu_torch.corpus import make_corpus
+    c = make_corpus(2)
+    h = c[13 * 65536:14 * 65536]
+    datas = [c[14 * 65536:15 * 65536], b"\x00" * 65536, b"abc" * 21845,
+             h[1000:30000] + c[:20000], c[27 * 65536:28 * 65536]]
+    comps = [_compress_with_dict(d, h) for d in datas]
+    arrays = _tables(comps, [65536] * len(comps), cap=td.MAX_SEQS(65536),
+                     ccap=compress_bound(65536))
+    hist = np.frombuffer(h, np.uint8).copy()
+    out, out_len, ok = _seq_decode(arrays, 65536, hist, device=cuda)
+    assert ok.all()
+    for j, d in enumerate(datas):
+        assert out[j, :out_len[j]].tobytes() == d
+    for got, plain in zip((out, out_len, ok),
+                          _seq_decode(arrays, 65536, hist)):
+        assert np.array_equal(got, plain)
 
 
 @pytest.mark.cuda

@@ -1,4 +1,4 @@
-"""The port's block encoder, levels 0-9
+"""The port's block encoder, levels 0-12
 (zig_lz4_tpu_torch.ops.torch_block) against the JAX reference
 (zig_lz4_tpu.ops.jax_block).
 
@@ -15,6 +15,11 @@ comparison is exact equality.
 * 64 KB windows: the plain encoder at levels 0, 4 and 9 against the JAX
   payloads checked in by ``tests/fixtures/make_torch_goldens.py``
   (compiling JAX at 64 KB takes minutes on a CPU).
+* The deep levels: ``(hc, deep)`` = (8, 1), (8, 2), (8, 3) and (4, 1)
+  at 4 KB against ``tests/fixtures/deep4k.npz``, and levels 10, 11, 12
+  at 64 KB against ``deep_corpus64k_l<level>.npz`` (the corpus blocks,
+  a byte run, a period-300 block, a code-like block whose matches run
+  far over 1024 bytes, and a window with ``start > 0`` and ``n < blk``).
 * ``cuda``-marked tests hold the CUDA kernels against the plain
   versions; they skip where there is no CUDA device.  On the card:
   ``python -m pytest --noconftest -m cuda tests/test_torch_*.py``.
@@ -45,6 +50,15 @@ LEVEL_CONFIGS = {**{f"hc0_a{a}": (0, a) for a in (1, 2, 4, 8)},
                  **{f"hc{h}": (h, 1) for h in range(2, 9)}}
 #: make_corpus(2) 64 KB blocks of the goldens file, one per content type
 GOLDEN_BLOCKS = (0, 5, 7, 9, 13, 18, 27, 29)
+#: the deep configurations: name -> (hc, deep), as make_torch_goldens.py
+#: writes them: levels 10, 11, 12 and the reference's fuzz configuration
+DEEP_CONFIGS = {"hc8_d1": (8, 1), "hc8_d2": (8, 2), "hc8_d3": (8, 3),
+                "hc4_d1": (4, 1)}
+DEEP_GOLDENS_4K = os.path.join(_FIXDIR, "deep4k.npz")
+DEEP_GOLDENS_64K = os.path.join(_FIXDIR, "deep_corpus64k_l{}.npz")
+DEEP_LEVELS = (10, 11, 12)
+#: windows of the 64 KB deep goldens: the corpus blocks and four more
+DEEP_ROWS_64K = len(GOLDEN_BLOCKS) + 4
 
 #: tests/test_jax_codec.py:50-62
 CASES = {
@@ -132,11 +146,11 @@ def _pack(inputs):
     return rows, windows, lens, starts
 
 
-def _encode(windows, lens, starts, device="cpu", hc=9, accel=1):
+def _encode(windows, lens, starts, device="cpu", hc=9, accel=1, deep=0):
     out, out_len = tb.encode_blocks(torch.from_numpy(windows).to(device),
                                     torch.from_numpy(lens).to(device),
                                     torch.from_numpy(starts).to(device),
-                                    hc=hc, accel=accel)
+                                    hc=hc, deep=deep, accel=accel)
     return out.cpu().numpy(), out_len.cpu().numpy()
 
 
@@ -321,15 +335,152 @@ def test_level_params_match_reference():
 
 
 def test_deep_levels_raise_not_implemented():
-    w = torch.zeros((1, 64), dtype=torch.uint8)
+    """The deep levels encode now; what still raises is a ``deep``
+    outside 1..3, ``deep`` over the fast finder, and a negative
+    ``hc``."""
+    data = (b"deep levels encode " * 4)[:64]
+    w = torch.frombuffer(bytearray(data), dtype=torch.uint8)[None]
     n = torch.full((1,), 64, dtype=torch.int32)
     for deep in (1, 2, 3):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            tb.encode_blocks(w, n, hc=8, deep=deep)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            tb.encode_blocks_plain(w, n, hc=8, deep=deep)
+        for fn in (tb.encode_blocks, tb.encode_blocks_plain):
+            out, out_len = fn(w, n, hc=8, deep=deep)
+            assert decompress_safe(out[0, :int(out_len[0])].numpy()
+                                   .tobytes(), 64) == data
+    for hc, deep in ((8, 4), (8, -1), (0, 1)):
+        with pytest.raises(ValueError):
+            tb.encode_blocks(w, n, hc=hc, deep=deep)
     with pytest.raises(ValueError):
         tb.encode_blocks(w, n, hc=-1)
+    with pytest.raises(ValueError):
+        tb.deep_dp(n, n, torch.zeros((1, 64), dtype=torch.int32), 0)
+
+
+@pytest.fixture(scope="module")
+def deep_out_4k(static_batch):
+    """config -> the plain encoder's (out, out_len) of the static
+    inputs, encoded once per configuration."""
+    _rows, windows, lens, starts = static_batch
+    done = {}
+
+    def get(config):
+        if config not in done:
+            hc, deep = DEEP_CONFIGS[config]
+            done[config] = _encode(windows, lens, starts, hc=hc, deep=deep)
+        return done[config]
+    return get
+
+
+STATIC_NAMES = list(_static_inputs())
+
+
+@pytest.mark.parametrize("config", sorted(DEEP_CONFIGS))
+@pytest.mark.parametrize("name", STATIC_NAMES)
+def test_plain_deep_encode_matches_jax_goldens_4k(name, config, static_batch,
+                                                  deep_out_4k):
+    """Rank tiers, price parse, extension and absorb on the static
+    inputs (empty, 12- and 13-byte, byte-run and incompressible
+    windows, corpus slices with ``n < blk``, history rows with
+    ``start > 0``, fuzz rows), against the JAX payloads checked in;
+    each output also decodes to its input."""
+    rows, windows, lens, starts = static_batch
+    z = np.load(DEEP_GOLDENS_4K)
+    want = _payloads(z[f"payloads_{config}"], z[f"out_len_{config}"])
+    out = deep_out_4k(config)
+    for r in rows[name]:
+        assert out[1][r] == z[f"out_len_{config}"][r]
+        assert out[0][r, :out[1][r]].tobytes() == want[r], (config, r)
+    _decodes(windows, lens, starts, out, rows[name])
+
+
+def test_deep_goldens_4k_cover_every_configuration(static_batch):
+    with np.load(DEEP_GOLDENS_4K) as z:
+        assert set(z.files) == {f"{kind}_{c}" for c in DEEP_CONFIGS
+                                for kind in ("out_len", "payloads")}
+        sizes = {c: int(z[f"out_len_{c}"].sum()) for c in DEEP_CONFIGS}
+        assert all(len(z[f"out_len_{c}"]) == len(static_batch[2])
+                   for c in DEEP_CONFIGS)
+    with np.load(GOLDENS_4K) as z:
+        hc8 = int(z["out_len_hc8"].sum())
+    # the price parse pays: every deep configuration beats level 8
+    assert max(sizes.values()) < hc8
+
+
+@pytest.fixture(scope="module")
+def deep_rows_64k():
+    """(windows, lens, starts) of the 64 KB deep goldens."""
+    import sys
+    sys.path.insert(0, _FIXDIR)
+    import make_torch_goldens
+    rows = make_torch_goldens.deep_rows(make_corpus(
+        make_torch_goldens.CORPUS_MB))
+    assert len(rows[1]) == DEEP_ROWS_64K
+    return rows
+
+
+def _deep_golden_64k(level):
+    z = np.load(DEEP_GOLDENS_64K.format(level))
+    assert tuple(z["blocks"]) == GOLDEN_BLOCKS
+    assert len(z["out_len"]) == DEEP_ROWS_64K
+    return _payloads(z["payloads"], z["out_len"])
+
+
+@pytest.mark.parametrize("level", DEEP_LEVELS)
+@pytest.mark.parametrize("k", range(DEEP_ROWS_64K))
+def test_plain_deep_encode_matches_jax_goldens_64k(k, level, deep_rows_64k):
+    windows, lens, starts = deep_rows_64k
+    hc, deep = tb.level_params(level)
+    out = _encode(windows[k:k + 1], lens[k:k + 1], starts[k:k + 1], hc=hc,
+                  deep=deep)
+    assert out[0][0, :out[1][0]].tobytes() == _deep_golden_64k(level)[k]
+    _decodes(windows[k:k + 1], lens[k:k + 1], starts[k:k + 1], out, [0])
+
+
+def test_deep_goldens_64k_hold_long_matches(deep_rows_64k):
+    """The goldens reach what only 64 KB windows can: matches over 512
+    bytes (the cost ring prices them at 512) and over 1024 bytes (the
+    deepest 256-byte tier)."""
+    from zig_lz4_tpu_torch.ops.torch_decode import parse_sequences
+    longest = max(ml for p in _deep_golden_64k(12)
+                  for _l, _s, ml, _o in parse_sequences(p, 65536))
+    assert longest > 1024
+    mls = [ml for _l, _s, ml, _o in parse_sequences(_deep_golden_64k(12)[3])]
+    assert max(mls) > 18 and min(m for m in mls if m) >= 4
+
+
+def test_plain_deep_encode_matches_jax_live_4k(static_batch, deep_out_4k):
+    """One live JAX compile of a deep configuration: level 12 on the
+    static inputs, against the plain encoder and the checked-in
+    goldens, so a stale fixture cannot hide a difference."""
+    pytest.importorskip("jax")
+    from zig_lz4_tpu.ops.jax_block import encode_blocks_jax
+    _rows, windows, lens, starts = static_batch
+    out, out_len = encode_blocks_jax(windows, lens, blk=BLK, starts=starts,
+                                     hc=8, deep=3)
+    out, out_len = np.asarray(out), np.asarray(out_len)
+    got = deep_out_4k("hc8_d3")
+    assert np.array_equal(got[1], out_len)
+    assert np.array_equal(got[0], out)
+    with np.load(DEEP_GOLDENS_4K) as z:
+        assert np.array_equal(z["out_len_hc8_d3"], out_len)
+
+
+def test_tier_lengths_and_stages_compose(static_batch):
+    """The stage functions compose to ``encode_blocks_plain``, and the
+    tier table is the reference's (jax_block.py:307-321)."""
+    assert tb.tier_lengths(0) == []
+    assert tb.tier_lengths(1) == [32, 64, 96, 128]
+    assert tb.tier_lengths(2) == [32 * k for k in range(1, 9)]
+    assert tb.tier_lengths(3) == [32 * k for k in range(1, 8)] + [
+        256, 512, 768, 1024]
+    rows, windows, lens, starts = static_batch
+    sel = rows["case_text"] + rows["fuzz"][:3] + rows["history"]
+    w, n, s = (torch.from_numpy(a[sel]) for a in (windows, lens, starts))
+    pk = tb.match_candidates(w, n, 8, 1, 3)
+    assert int(((pk >> 2) & 15).max()) > 0      # a rank tier was used
+    st = tb.deep_dp(n, s, pk, 3)
+    out, out_len = tb.deep_emit(w, n, s, pk, st)
+    want, want_len = tb.encode_blocks_plain(w, n, s, hc=8, deep=3)
+    assert torch.equal(out_len, want_len) and torch.equal(out, want)
 
 
 def test_encoder_rejects_what_it_does_not_take():
@@ -389,5 +540,60 @@ def test_kernels_odd_window_sizes(cuda, hc, accel):
         got = _encode(windows, lens, starts, device=cuda, hc=hc,
                       accel=accel)
         want = _encode(windows, lens, starts, hc=hc, accel=accel)
+        assert np.array_equal(got[1], want[1])
+        assert np.array_equal(got[0], want[0])
+
+
+def _deep_stages_match_plain(w, n, s, hc, deep):
+    """Each deep kernel against its plain version on the kernel's own
+    inputs, then the whole against the plain encoder."""
+    cw, cn, cs = w.cpu(), n.cpu(), s.cpu()
+    pk = tb.match_candidates(w, n, hc, 1, deep)
+    assert torch.equal(pk.cpu(), tb.match_candidates_plain(cw, cn, hc, 1,
+                                                           deep))
+    st = tb.deep_dp(n, s, pk, deep)
+    assert torch.equal(st.cpu(), tb.deep_dp_plain(cn, cs, pk.cpu(), deep))
+    out, out_len = tb.deep_emit(w, n, s, pk, st)
+    out_p, len_p = tb.deep_emit_plain(cw, cn, cs, pk.cpu(), st.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(out_len.cpu(), len_p)
+    assert torch.equal(out.cpu(), out_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", sorted(DEEP_CONFIGS))
+def test_deep_kernels_match_plain_4k(cuda, config):
+    hc, deep = DEEP_CONFIGS[config]
+    _rows, windows, lens, starts = _pack(_static_inputs())
+    w, n, s = (torch.from_numpy(a).to(cuda) for a in (windows, lens, starts))
+    _deep_stages_match_plain(w, n, s, hc, deep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", DEEP_LEVELS)
+def test_deep_kernels_match_goldens_64k(cuda, deep_rows_64k, level):
+    windows, lens, starts = deep_rows_64k
+    hc, deep = tb.level_params(level)
+    out, out_len = _encode(windows, lens, starts, device=cuda, hc=hc,
+                           deep=deep)
+    for k, p in enumerate(_deep_golden_64k(level)):
+        assert out[k, :out_len[k]].tobytes() == p, k
+    w, n, s = (torch.from_numpy(a).to(cuda) for a in (windows, lens, starts))
+    _deep_stages_match_plain(w, n, s, hc, deep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deep", [1, 2, 3])
+def test_deep_kernels_odd_window_sizes(cuda, deep):
+    rng = np.random.default_rng(6)
+    text = CASES["text"]
+    for blk in (1, 13, 300, 1000, 5000):
+        windows = np.zeros((3, blk), np.uint8)
+        windows[0] = np.frombuffer((text * 20)[:blk], np.uint8)
+        windows[1] = rng.integers(0, 3, blk, dtype=np.uint8)
+        lens = np.array([blk, blk, blk // 2], np.int32)
+        starts = np.array([0, blk // 3, 0], np.int32)
+        got = _encode(windows, lens, starts, device=cuda, hc=8, deep=deep)
+        want = _encode(windows, lens, starts, hc=8, deep=deep)
         assert np.array_equal(got[1], want[1])
         assert np.array_equal(got[0], want[0])

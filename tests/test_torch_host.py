@@ -115,6 +115,18 @@ def test_xxh32_equal(name):
         assert port_native.native_xxh32(data, seed) == want
 
 
+def test_xxh32_without_the_native_runtime(monkeypatch):
+    """A runtime that did not load leaves ``native_xxh32`` returning
+    None; the one-shot hash then runs in Python, at every length."""
+    monkeypatch.setattr(port_native, "_lib", None)
+    monkeypatch.setattr(port_native, "_tried", True)
+    assert not port_native.is_available()
+    for n in (0, 15, 255, 256, 257, 5000):
+        data = bytes(range(256)) * 20
+        assert port_xxh.xxh32(data[:n]) == port_xxh.xxh32_python(data[:n])
+    assert type(port_xxh.xxh32_stream()).__name__ == "XXH32"
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_xxh32_stream_equal(name):
     data = INPUTS[name]

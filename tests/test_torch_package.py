@@ -50,9 +50,14 @@ def test_sources_name_no_jax():
                                   recursive=True)
              if os.path.isfile(f) and "__pycache__" not in f
              and os.sep + "_build" + os.sep not in f]
-    assert any(f.endswith(".cu") for f in files)
     assert any(f.endswith(".cpp") for f in files)
-    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    # every kernel source, the shared header included
+    assert {os.path.basename(f) for f in files
+            if f.endswith((".cu", ".cuh"))} == {
+        "encode_block.cu", "encode_common.cuh", "encode_deep.cu",
+        "linked_tmap.cu", "seq_decode.cu", "tmap_gather.cu"}
+    files += [os.path.join(ROOT, "chip_smoke.py"),
+              os.path.join(ROOT, "time_main_path.py")]
     reference = re.compile(r"zig_lz4_tpu(?!_torch)")
     for path in files:
         with open(path, errors="replace") as f:
@@ -95,10 +100,15 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     before = dict(kernels.LAUNCHES)
     w = torch.from_numpy(np.frombuffer(b"abcd" * 64, np.uint8)
                          .copy()[None, :])
-    for hc in (9, 0):
+    for hc, deep in ((9, 0), (0, 0), (8, 1), (8, 2), (8, 3)):
         out, n = tb.encode_blocks(w, torch.tensor([256], dtype=torch.int32),
-                                  hc=hc)
+                                  hc=hc, deep=deep)
         assert int(n[0]) > 0
+    comp = out[:, :int(n[0])].contiguous()
+    tabs = td.seqs_to_arrays(td.parse_sequences(bytes(comp[0].numpy())), 8)
+    dec, dec_len, ok = td.decode_blocks(
+        comp, *(torch.from_numpy(np.asarray(a)[None]) for a in tabs), 256)
+    assert int(ok[0]) and bytes(dec[0].numpy()) == b"abcd" * 64
     td.linked_tmap_step(torch.zeros(8, dtype=torch.uint8),
                         torch.ones(8, dtype=torch.uint8),
                         torch.arange(16, dtype=torch.int32), 12)
@@ -173,7 +183,9 @@ def test_device_is_explicit():
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: chip_smoke.py would run")
-    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode != 0
-    assert '"ok": true' not in r.stdout
+    for args in ([], ["--decode-without-native"]):
+        r = subprocess.run([sys.executable, "chip_smoke.py", *args],
+                           cwd=ROOT, capture_output=True, text=True,
+                           timeout=300, input="")
+        assert r.returncode != 0
+        assert '"ok": true' not in r.stdout and "sha256" not in r.stdout

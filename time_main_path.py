@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's level-9 main path, for comparing two checkouts.
+"""Time the port's main path at one level, for comparing two checkouts.
 
 Host-bound times move between machines and between processes, so two
 versions of the port are compared only inside one call on one card, in
@@ -7,14 +7,15 @@ turns.  Unpack the other commit into a directory (``git archive``) and
 run this file from each checkout's root, which is put first on the
 module path:
 
-    cd other_checkout && python3 /path/to/time_main_path.py
-    cd this_checkout && python3 time_main_path.py
+    cd other_checkout && python3 /path/to/time_main_path.py [level]
+    cd this_checkout && python3 time_main_path.py [level]
 
 It compresses and decompresses the bench's 48 MB corpus in 64 KB
-independent blocks at level 9 on one CUDA device and prints, for two
-rounds, the median and range of 5 runs of each call in milliseconds
-between CUDA events.  It uses only what every version of the port has:
-``ShardedFrameCodec`` and ``corpus.make_corpus``.
+independent blocks at ``level`` (default 9; 0-12) on one CUDA device
+and prints, for two rounds, the median and range of 5 runs of each
+call in milliseconds between CUDA events.  It uses only what every
+version of the port has: ``ShardedFrameCodec`` and
+``corpus.make_corpus``.
 """
 
 import os
@@ -46,9 +47,10 @@ def main():
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
+    level = int(sys.argv[1]) if len(sys.argv) > 1 else 9
     data = make_corpus(48)
     data = data[:len(data) - len(data) % (BLK * 64)]
-    codec = ShardedFrameCodec(compression_level=9, device="cuda")
+    codec = ShardedFrameCodec(compression_level=level, device="cuda")
     frame = codec.compress_frame(data)
     if codec.decompress_frame(frame) != data:
         print("round trip differs", file=sys.stderr)
@@ -58,7 +60,7 @@ def main():
                for _ in range(REPS)]
         dec = [cuda_ms(lambda: codec.decompress_frame(frame))
                for _ in range(REPS)]
-        print(f"{os.getcwd()} round {rnd}: compress_frame "
+        print(f"{os.getcwd()} level {level} round {rnd}: compress_frame "
               f"{statistics.median(enc):.2f} ms ({min(enc):.2f}-"
               f"{max(enc):.2f}), decompress_frame "
               f"{statistics.median(dec):.2f} ms ({min(dec):.2f}-"

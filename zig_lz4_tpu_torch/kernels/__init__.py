@@ -52,12 +52,25 @@ KERNELS = {
                        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I],
                        "ops/jax_block.py:522"),
+    "enc_deep_match": ("zl4_enc_deep_match", "encode_deep.cu",
+                       [_P, _P, _P, _P, _I, _I, _I, _I],
+                       "ops/jax_block.py:274"),
+    "enc_deep_dp": ("zl4_enc_deep_dp", "encode_deep.cu",
+                    [_P, _P, _P, _P, _I, _I, _I, _I],
+                    "ops/jax_block.py:556"),
+    "enc_deep_emit": ("zl4_enc_deep_emit", "encode_deep.cu",
+                      [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _I],
+                      "ops/jax_block.py:748"),
     "linked_tmap_step": ("zl4_linked_gather", "linked_tmap.cu",
                          [_P, _P, _P, _P, _I, _I, _I, _I],
                          "ops/jax_decode.py:1084"),
     "linked_hist_shift": ("zl4_linked_hist_shift", "linked_tmap.cu",
                           [_P, _P, _P, _I, _I, _I],
                           "ops/jax_decode.py:1123"),
+    "seq_decode": ("zl4_seq_decode", "seq_decode.cu",
+                   [_P] * 11 + [_I] * 6,
+                   "ops/jax_decode.py:120"),
 }
 #: launches per kernel since the last reset_launch_counts()
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -41,126 +41,9 @@
 //   warps.  Bound: the single parsing thread's dependent loads; the small
 //   footprint lets every window of a launch run at once.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "encode_common.cuh"
 
 namespace {
-
-constexpr int kMaxW = 8;         // u32 windows after s0 (jax_block.py:100)
-constexpr int kPad = 64;         // zero bytes past blk (reads reach 4W+7)
-constexpr int kMatchThreads = 1024;
-constexpr int kParseThreads = 256;
-constexpr int kImBit = 1 << 30;  // is_match flag beside ml in mlw
-
-struct Window {
-  const uint32_t* w;  // little-endian words, zero at and past n
-  int n;
-
-  // LE u32 of bytes p..p+3
-  __device__ __forceinline__ uint32_t at(int p) const {
-    return __funnelshift_r(w[p >> 2], w[(p >> 2) + 1], (p & 3) * 8);
-  }
-  __device__ __forceinline__ uint32_t s0(int p) const {
-    return p > n - 4 ? 0xFFFFFFFFu : at(p);
-  }
-  __device__ __forceinline__ uint32_t byte(int p) const {
-    return p < 0 ? 0u : (w[p >> 2] >> ((p & 3) * 8)) & 0xFFu;
-  }
-};
-
-// Sorted position order; rows >= blk are padding that sorts last.
-template <class Less>
-__device__ void bitonic_sort(uint16_t* s, int N, Less less) {
-  for (int k = 2; k <= N; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int q = threadIdx.x; q < (N >> 1); q += blockDim.x) {
-        const int i = ((q & ~(j - 1)) << 1) | (q & (j - 1));
-        const int l = i + j;
-        const int a = s[i], c = s[l];
-        if ((i & k) == 0 ? less(c, a) : less(a, c)) {
-          s[i] = (uint16_t)c;
-          s[l] = (uint16_t)a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-struct Cand {
-  int cand, ml, back;
-};
-
-// cand_at for sorted row p against neighbour q over nwin carried windows
-// (jax_block.py:394-426)
-__device__ __forceinline__ Cand probe(const Window& W, int p, int q,
-                                      int nwin) {
-  const int n = W.n;
-  Cand r{-1, 0, 0};
-  if (p > n - 4 || q > n - 4 || q >= p || p - q > 65535) return r;
-  if (W.at(p) != W.at(q)) return r;
-  int ml = 4;
-  for (int k = 1; k <= nwin; ++k) {
-    const uint32_t x = W.at(p + 4 * k) ^ W.at(q + 4 * k);
-    if (x != 0) {
-      ml += (__ffs(x) - 1) >> 3;  // equal low bytes, low byte first
-      break;
-    }
-    ml += 4;
-  }
-  int back;
-  if (W.byte(p - 1) != W.byte(q - 1)) back = 0;
-  else if (W.byte(p - 2) != W.byte(q - 2)) back = 1;
-  else back = 2;
-  r.cand = q;
-  r.ml = ml;
-  r.back = back;
-  return r;
-}
-
-__device__ __forceinline__ int pack(const Cand& c) {
-  return c.cand >= 0 ? ((c.cand + 1) << 12) | (c.ml << 6) | c.back : 0;
-}
-
-// The window as zero-padded LE words in shared memory, and the identity
-// order over N >= blk rows.
-__device__ void load_window(const uint8_t* row, int n, uint32_t* words,
-                            int nwords, uint16_t* s, int N) {
-  for (int q = threadIdx.x; q < nwords; q += blockDim.x) {
-    uint32_t v = 0;
-    for (int k = 0; k < 4; ++k) {
-      const int p = 4 * q + k;
-      if (p < n) v |= (uint32_t)row[p] << (8 * k);
-    }
-    words[q] = v;
-  }
-  for (int i = threadIdx.x; i < N; i += blockDim.x) s[i] = (uint16_t)i;
-  __syncthreads();
-}
-
-// Order by s0 alone, ties by position: within a group of equal 4-byte
-// strings the rows before t are the nearest previous occurrences.
-__device__ void sort_by_s0(const Window& W, uint16_t* s, int N, int blk) {
-  bitonic_sort(s, N, [&](int p, int q) {
-    if (p >= blk || q >= blk) return p < q;
-    const uint32_t a = W.s0(p), c = W.s0(q);
-    if (a != c) return a < c;
-    return p < q;
-  });
-}
-
-// Probes +1..+probes of sorted row t; a later probe wins only when
-// strictly longer (jax_block.py:445, :500).
-__device__ __forceinline__ Cand nearest(const Window& W, const uint16_t* s,
-                                        int t, int probes, int nwin) {
-  Cand best{-1, 0, 0};
-  const int p = s[t];
-  for (int k = 1; k <= probes && k <= t; ++k) {
-    const Cand c = probe(W, p, s[t - k], nwin);
-    if (c.ml > best.ml) best = c;
-  }
-  return best;
-}
 
 __global__ void __launch_bounds__(kMatchThreads)
 enc_match_kernel(const uint8_t* __restrict__ data,
@@ -202,8 +85,7 @@ enc_match_kernel(const uint8_t* __restrict__ data,
   __syncthreads();
 
   // positional fallback: order by s0 alone, probes +1 and +2
-  for (int i = threadIdx.x; i < N; i += blockDim.x) s[i] = (uint16_t)i;
-  __syncthreads();
+  identity_order(s, N);
   sort_by_s0(W, s, N, blk);
   for (int t = threadIdx.x; t < blk; t += blockDim.x) {
     const int p = s[t];
@@ -230,32 +112,6 @@ enc_match_fast_kernel(const uint8_t* __restrict__ data,
     out[s[t]] = pack(nearest(W, s, t, probes, nwin));
 }
 
-struct Fields {
-  const int32_t* pk;
-  int n, blk;
-  int capped_ml;  // a fine ml from here on saturated the carried windows
-
-  __device__ __forceinline__ int cand(int p) const { return (pk[p] >> 12) - 1; }
-  __device__ __forceinline__ bool valid(int p) const {
-    return p < blk && p <= n - 13 && cand(p) >= 0;
-  }
-  __device__ __forceinline__ int ml0(int p) const {
-    return valid(p) ? (pk[p] >> 6) & 63 : 0;
-  }
-  __device__ __forceinline__ bool capped(int p) const {
-    return valid(p) && ((pk[p] >> 6) & 63) >= capped_ml;
-  }
-  // row p continues a capped chain at the same offset into p + 1
-  __device__ __forceinline__ bool link(int p) const {
-    return capped(p) && valid(p + 1) && (p + 1 - cand(p + 1)) == (p - cand(p));
-  }
-};
-
-__device__ __forceinline__ void put_len(uint8_t* o, int& op, int v) {
-  for (; v >= 255; v -= 255) o[op++] = 255;
-  o[op++] = (uint8_t)v;
-}
-
 __global__ void __launch_bounds__(kParseThreads)
 enc_parse_emit_kernel(const uint8_t* __restrict__ data,
                       const int32_t* __restrict__ lens,
@@ -272,44 +128,12 @@ enc_parse_emit_kernel(const uint8_t* __restrict__ data,
   const int n = min(max(lens[b], 0), blk);
   const int start = min(max(starts[b], 0), n);
   const uint8_t* row = data + (size_t)b * blk;
-  const Fields F{pk + (size_t)b * blk, n, blk, capped_ml};
+  const Fields F{pk + (size_t)b * blk, n, blk, capped_ml, 0};
   int32_t* M = mlw + (size_t)b * blk;
   int32_t* R = runs + (size_t)b * runcap;
   uint8_t* o = out + (size_t)b * cap;
 
-  // --- chain extension: each capped row takes its length from the
-  // nearest chain boundary at or after it (a reverse cummax in the
-  // reference); chunked: local first boundary, carry, then a rescan
-  const int chunk = (blk + kParseThreads - 1) / kParseThreads;
-  const int lo = min(tid * chunk, blk), hi = min(lo + chunk, blk);
-  int fb = blk;  // none in this chunk
-  for (int p = lo; p < hi; ++p) {
-    if (!F.link(p)) {
-      fb = p;
-      break;
-    }
-  }
-  first_bnd[tid] = fb;
-  __syncthreads();
-  if (tid == 0) {
-    int running = blk;  // row blk - 1 is always a boundary
-    for (int t = kParseThreads - 1; t >= 0; --t) {
-      const int f = first_bnd[t];
-      first_bnd[t] = running;
-      if (f < blk) running = f;
-    }
-  }
-  __syncthreads();
-  int nb = first_bnd[tid];
-  for (int p = hi - 1; p >= lo; --p) {
-    if (!F.link(p)) nb = p;
-    int ml = F.ml0(p);
-    if (F.capped(p)) ml = max(nb - p + min(F.ml0(nb), 2047), ml);
-    ml = min(ml, max(n - 5 - p, 0));
-    const bool im = F.valid(p) && ml >= 4 && p >= start;
-    M[p] = ml | (im ? kImBit : 0);
-  }
-  __syncthreads();
+  chain_lengths(F, start, M, first_bnd);
 
   // --- two-step lazy deferral (HC only) into a bit mask of final match
   // rows
@@ -322,7 +146,7 @@ enc_parse_emit_kernel(const uint8_t* __restrict__ data,
       bool im[5];
       for (int k = 0; k < 5; ++k) {
         const int v = p + k < blk ? M[p + k] : 0;
-        m[k] = v & (kImBit - 1);
+        m[k] = v & kMlMask;
         im[k] = (v & kImBit) != 0;
       }
       const bool g1 = im[1] && m[1] > m[0] + 1;
@@ -340,27 +164,10 @@ enc_parse_emit_kernel(const uint8_t* __restrict__ data,
 
   // --- greedy parse and sequence headers (one thread)
   if (tid == 0) {
-    int op = 0, nr = 0;
+    Emitter em{o, R, start};
     if (n > start) {
       const int nw = (blk + 31) >> 5;
-      int last_e = -1, pos = 0;
-      bool have = false;
-      int h_ls = 0, h_ms = 0, h_off = 0, h_e = 0;
-      auto emit = [&]() {
-        const int lit = h_ms - h_ls, mml = h_e - h_ms;
-        o[op++] = (uint8_t)((min(lit, 15) << 4) | min(mml - 4, 15));
-        if (lit >= 15) put_len(o, op, lit - 15);
-        if (lit > 0) {
-          R[3 * nr] = h_ls;
-          R[3 * nr + 1] = op;
-          R[3 * nr + 2] = lit;
-          ++nr;
-          op += lit;
-        }
-        o[op++] = (uint8_t)(h_off & 0xFF);
-        o[op++] = (uint8_t)(h_off >> 8);
-        if (mml - 4 >= 15) put_len(o, op, mml - 19);
-      };
+      int pos = 0;
       while (true) {
         int wi = pos >> 5;
         if (wi >= nw) break;
@@ -368,61 +175,20 @@ enc_parse_emit_kernel(const uint8_t* __restrict__ data,
         while (bits == 0 && ++wi < nw) bits = imask[wi];
         if (bits == 0) break;
         const int p = (wi << 5) + __ffs(bits) - 1;
-        const int e = p + (M[p] & (kImBit - 1));
-        const int off = p - F.cand(p);
-        if (have && last_e == p && h_off == off) {
-          h_e = e;  // continues the previous match at the same offset
-        } else {
-          if (have) emit();
-          const int prev_end = max(last_e, start);
-          const int bq = max(min(min(F.pk[p] & 3, p - prev_end), p - off), 0);
-          h_ls = prev_end;
-          h_ms = p - bq;
-          h_off = off;
-          h_e = e;
-          have = true;
-        }
-        last_e = e;
+        const int e = p + (M[p] & kMlMask);
+        em.add(p, e, p - F.cand(p), F.pk[p] & 3);
         pos = e;
       }
-      if (have) emit();
-      const int tail = max(last_e, start), lit = n - tail;
-      o[op++] = (uint8_t)(min(lit, 15) << 4);
-      if (lit >= 15) put_len(o, op, lit - 15);
-      if (lit > 0) {
-        R[3 * nr] = tail;
-        R[3 * nr + 1] = op;
-        R[3 * nr + 2] = lit;
-        ++nr;
-        op += lit;
-      }
+      em.finish(n);
     }
-    s_nruns = nr;
-    s_olen = op;
-    out_len[b] = op;
+    s_nruns = em.nr;
+    s_olen = em.op;
+    out_len[b] = em.op;
   }
   __syncthreads();
 
   // --- literal runs, one warp each; zeros past out_len
-  const int nr = s_nruns, olen = s_olen;
-  for (int r = warp; r < nr; r += kParseThreads / 32) {
-    const int src = R[3 * r], dst = R[3 * r + 1], len = R[3 * r + 2];
-    for (int k = lane; k < len; k += 32) o[dst + k] = row[src + k];
-  }
-  for (int k = olen + tid; k < cap; k += kParseThreads) o[k] = 0;
-}
-
-// Sort width, window words and shared memory of a match kernel launch.
-struct MatchShape {
-  int N, nwords;
-  size_t smem;
-};
-
-MatchShape match_shape(int blk) {
-  int N = 1;
-  while (N < blk) N <<= 1;
-  const int nwords = (blk + kPad) / 4 + 1;
-  return {N, nwords, (size_t)nwords * 4 + (size_t)N * 2};
+  copy_runs(row, R, s_nruns, o, s_olen, cap);
 }
 
 }  // namespace

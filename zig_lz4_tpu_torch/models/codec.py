@@ -62,10 +62,13 @@ class CUDACodec(BlockCodec):
     """Block codec on the hand-written CUDA kernels; one encoder call
     per compress.
 
-    ``level`` <= 1 selects the fast finder; 2..9 the HC-class
-    suffix-order finder (deeper candidate probes + lazy deferral,
-    same wire format).  For bulk work use the batched entry point
-    ``ops.torch_block.encode_blocks`` or the ShardedFrameCodec
+    ``level`` <= 1 selects the fast finder; 2..12 the HC-class
+    suffix-order finder (deeper candidate probes + lazy deferral; from
+    10 on exact rank tiers and a price-aware parse; same wire format).
+    ``decompress`` parses the block on the host and rebuilds it with
+    the sequence-rebuild kernel.  For bulk work use the batched entry
+    points ``ops.torch_block.encode_blocks`` and
+    ``ops.torch_decode.decode_blocks`` or the ShardedFrameCodec
     pipeline -- this class is the single-block convenience wrapper.
     ``device="cpu"`` must be asked for and runs the kernels' plain
     PyTorch versions.
@@ -100,10 +103,32 @@ class CUDACodec(BlockCodec):
         return comp
 
     def decompress(self, comp, max_output_size):
-        raise NotImplementedError(
-            "CUDACodec.decompress: the sequence-rebuild block decoder is "
-            "not ported yet (ROADMAP Queue 1 item 9); decode frames with "
-            "ShardedFrameCodec or blocks with the host codec")
+        import numpy as np
+        import torch
+        from ..constants import compress_bound
+        from ..errors import CorruptedData, OutputTooSmall
+        from ..ops.torch_decode import (MAX_SEQS, decode_blocks,
+                                        parse_sequences, seqs_to_arrays)
+        comp = bytes(comp)
+        cap = self.block_capacity
+        buf = np.zeros((1, max(compress_bound(cap), len(comp))), np.uint8)
+        buf[0, :len(comp)] = np.frombuffer(comp, np.uint8)
+        seqs = parse_sequences(comp)
+        if len(seqs) > MAX_SEQS(cap):
+            raise CorruptedData(
+                f"block decodes to more than the capacity {cap}")
+        lit, lsrc, ml, off, ns = (
+            torch.from_numpy(np.asarray(a)[None]).to(self.device)
+            for a in seqs_to_arrays(seqs, MAX_SEQS(cap)))
+        out, n, ok = decode_blocks(torch.from_numpy(buf).to(self.device),
+                                   lit, lsrc, ml, off, ns, cap)
+        if not int(ok[0]):
+            raise CorruptedData(
+                f"block decodes to more than the capacity {cap}")
+        res = out[0, :int(n[0])].cpu().numpy().tobytes()
+        if len(res) > max_output_size:
+            raise OutputTooSmall(f"{len(res)} > {max_output_size}")
+        return res
 
 
 def get_codec(level: int | str = 0) -> BlockCodec:

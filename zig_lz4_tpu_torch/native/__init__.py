@@ -4,8 +4,10 @@ Compiles ``native/lz4tpu_native.cpp`` with ``g++`` to a shared library
 at first use, into the package's ``_build/`` directory (never beside
 the source), and exposes ctypes wrappers.  The host codec paths degrade
 to the pure-Python oracle when a compiler is unavailable (set
-ZIG_LZ4_TPU_NO_NATIVE=1 to force that); the device decode paths, which
-need the T-map resolvers, raise instead.
+ZIG_LZ4_TPU_NO_NATIVE=1 to force that).  On the device side
+independent frames of blocks up to 64 KB then decode through the
+sequence-rebuild kernel; linked frames and larger blocks, which need
+the T-map resolvers, raise instead.
 
 The native codec is bit-identical to the oracle (tests enforce it);
 it exists so frame serialization, checksums and the decode-path

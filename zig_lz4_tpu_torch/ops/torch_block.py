@@ -1,13 +1,15 @@
-"""LZ4 block encoder for the H100, levels 0-9, with its plain PyTorch
+"""LZ4 block encoder for the H100, levels 0-12, with its plain PyTorch
 version.
 
 Counterpart of ``_encode_block`` in the JAX reference's
-``ops/jax_block.py`` at ``deep=0``: the fast finder (``hc=0``, levels
-<= 1, with the acceleration knob of ``fast_params``) and the HC finder
-(``hc`` 2..9 = the level).  The JAX function builds every stage out of
-sorts and packed cummax fills because gathers are slow on a TPU; here
-the same semantics are computed by hand-written CUDA kernels
-(``kernels/csrc/encode_block.cu``):
+``ops/jax_block.py``: the fast finder (``hc=0``, levels <= 1, with the
+acceleration knob of ``fast_params``), the HC finder (``hc`` 2..9 = the
+level) and the deep levels 10-12 (``hc=8``, ``deep`` 1..3: exact rank
+tiers, a price-aware parse, exact extension of capped matches).  The
+JAX function builds every stage out of sorts and packed cummax fills
+because gathers are slow on a TPU; here the same semantics are
+computed by hand-written CUDA kernels (``kernels/csrc/encode_block.cu``
+and, for the deep levels, ``kernels/csrc/encode_deep.cu``):
 
 * ``enc_match`` (``hc >= 1``) -- window build, the 12-byte grouping
   sort, the +-1..+-hc sorted-neighbour probes, the positional fallback
@@ -20,10 +22,25 @@ the same semantics are computed by hand-written CUDA kernels
 * ``enc_parse_emit`` -- same-offset chain extension, the ``n - 5``
   clamp, two-step lazy deferral (HC only), the greedy parse and the
   emission of the LZ4 sequences.
+* ``enc_deep_match`` (``deep`` 1..3) -- the finder of the deep levels:
+  exact 32-byte ranks (and 256-byte ranks at ``deep=3``), the grand
+  grouping sort by the deepest tier operands, +-1..+-hc probes with
+  nested tier lengths, then the positional fallback.  The pack gains a
+  4-bit tier field: ``((cand + 1) << 12) | (fine ml << 6) | (tier << 2)
+  | back`` (``jax_block.py:459-461``).
+* ``enc_deep_dp`` -- chain extension with the tier lengths, then the
+  backward price parse over a 512-entry cost ring with the 18-byte cut
+  (``run_dp``, ``jax_block.py:556-683``): per position the final
+  length, the ``take`` bit and the capped-end bit.
+* ``enc_deep_emit`` -- the greedy parse over ``take``, the pooled exact
+  extension of capped chosen ends and the one-pass absorb
+  (``jax_block.py:748-863``), then the same emission as
+  ``enc_parse_emit``.
 
 Each kernel has a plain version in this module
-(``match_candidates_plain`` and ``parse_emit_plain``), written with
-torch ops and short Python loops.  The wrappers take the plain
+(``match_candidates_plain``, ``parse_emit_plain`` and, for the two
+halves of the deep parse, ``deep_dp_plain`` and ``deep_emit_plain``),
+written with torch ops and short Python loops.  The wrappers take the plain
 version only for tensors on the CPU; for a CUDA tensor they launch
 the kernel or raise.
 """
@@ -37,13 +54,23 @@ from ..kernels import launch
 
 __all__ = ["level_params", "fast_params", "device_encoder_supports",
            "encode_blocks", "encode_blocks_plain", "match_candidates",
-           "match_candidates_plain", "parse_emit", "parse_emit_plain"]
+           "match_candidates_plain", "parse_emit", "parse_emit_plain",
+           "deep_dp", "deep_dp_plain", "deep_emit", "deep_emit_plain",
+           "tier_lengths"]
 
 #: carried u32 windows (jax_block.py:100) -> fine ml up to 4 + 4*W
 _W = 8
 #: largest window the kernels take: sort indices are u16 and the
 #: window plus its index array must fit one block's shared memory
 _MAX_BLK = 65536
+#: price parse: cost ring size, so jumps are priced at min(ml, 512);
+#: cost scale and the cost of one literal (jax_block.py:136-141, :577)
+_DP_R = 512
+_DP_SCALE = 256
+#: extension of capped chosen ends: bytes measured and rows pooled per
+#: 64 KB of window (jax_block.py: _EXT_BYTES, _EXT_POOL)
+_EXT_BYTES = 32
+_EXT_POOL = 512
 
 
 def level_params(level: int) -> tuple[int, int]:
@@ -71,16 +98,34 @@ def fast_params(accel: int) -> tuple[int, int]:
     return 1, 1
 
 
+def tier_lengths(deep: int) -> list[int]:
+    """Match length each rank tier of a deep configuration proves, by
+    tier index (``jax_block.py:307-321``): 32-byte steps over the
+    32-byte rank, then at ``deep=3`` 256-byte steps over the 256-byte
+    rank.  Tier ``t`` of the pack is ``tier_lengths(deep)[t - 1]``."""
+    if not deep:
+        return []
+    if deep == 1:
+        return [32 * (k + 1) for k in range(4)]
+    if deep == 2:
+        return [32 * (k + 1) for k in range(8)]
+    return [32 * (k + 1) for k in range(7)] + [256 * (k + 1)
+                                               for k in range(4)]
+
+
 def _finder(hc: int, deep: int, accel: int) -> tuple[int, int]:
-    """(W, fast probes) of a configuration
-    (``jax_block.py:1144``); the deep levels are not ported."""
-    if deep:
-        raise NotImplementedError(
-            f"deep={deep}: the rank tiers and price parse of levels "
-            "10-12 are not ported yet (ROADMAP Queue 1 item 8)")
+    """(W, fast probes) of a configuration (``jax_block.py:1144``)."""
     if hc < 0:
         raise ValueError(f"hc={hc}")
-    return fast_params(accel) if not hc else (_W, 2)
+    if deep:
+        if not 1 <= deep <= 3 or not hc:
+            raise ValueError(f"deep={deep} with hc={hc}: the deep levels "
+                             "take deep 1..3 over the HC finder")
+    W, probes = fast_params(accel) if not hc else (_W, 2)
+    # the 32-byte rank reads s0 and seven carried windows
+    # (jax_block.py:306)
+    assert not deep or W >= 7, "the deep ranks need W >= 7"
+    return W, probes
 
 
 def device_encoder_supports(blk: int) -> bool:
@@ -137,10 +182,13 @@ def _stable_order(keys) -> torch.Tensor:
     return order
 
 
-def _probe(shift: int, order, s0, wins, wb16, n: int):
+def _probe(shift: int, order, s0, wins, wb16, n: int, tiers=()):
     """cand_at (jax_block.py:379-426) against the sorted row ``shift``
     places earlier (a negative shift looks later), with no wrap.
-    Returns (cand, ml, back) per sorted row; cand = -1 when rejected."""
+    ``tiers`` = [(L, operand)], nested: a tier counts only while every
+    shallower one matched, and proves ``L`` equal bytes.  Returns
+    (cand, total ml, fine ml, tier, back) per sorted row; cand = -1
+    when rejected."""
     blk = order.shape[0]
     t = torch.arange(blk, device=order.device)
     u = t - shift
@@ -161,14 +209,58 @@ def _probe(shift: int, order, s0, wins, wb16, n: int):
         ml = ml + torch.where(still & eq, 4, 0) \
             + torch.where(still & ~eq, pb, 0)
         still = still & eq
+    tier = torch.zeros_like(p)
+    dml = torch.zeros_like(p)
+    still_t = ok
+    for tk, (L, op) in enumerate(tiers):
+        still_t = still_t & (op[p] == op[q])
+        tier = torch.where(still_t, tk + 1, tier)
+        dml = torch.where(still_t, L, dml)
     bx = wb16[p] ^ wb16[q]
     bk = torch.where((bx & 0xFF00) != 0, 0, torch.where(bx != 0, 1, 2))
-    return (torch.where(ok, q, -1), torch.where(ok, ml, 0),
-            torch.where(ok, bk, 0))
+    return (torch.where(ok, q, -1), torch.where(ok, torch.maximum(ml, dml), 0),
+            torch.where(ok, ml, 0), tier, torch.where(ok, bk, 0))
 
 
-def _pack(cand, ml, back):
-    return torch.where(cand >= 0, ((cand + 1) << 12) | (ml << 6) | back, 0)
+def _pack(cand, mlf, back, tier=0):
+    return torch.where(cand >= 0, ((cand + 1) << 12) | (mlf << 6)
+                       | (tier << 2) | back, 0)
+
+
+def _shl(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x[i + k], -1 past the end (jax_block.py:277-283).  The equal
+    fills make tail rows look alike; the reference keeps that, and so
+    does this."""
+    if k >= x.shape[0]:
+        return torch.full_like(x, -1)
+    return torch.cat([x[k:], x.new_full((k,), -1)])
+
+
+def _ranks(keys) -> torch.Tensor:
+    """Exact rank of each position under the order of ``keys``: equal
+    key tuples share a rank, ranks count from 1 in key order
+    (``ranksN``, jax_block.py:285-296)."""
+    order = _stable_order(keys)
+    newg = torch.zeros_like(order, dtype=torch.bool)
+    for k in keys:
+        ks = k[order]
+        newg[1:] |= ks[1:] != ks[:-1]
+    newg[0] = True
+    r = torch.empty_like(order)
+    r[order] = torch.cumsum(newg.long(), 0)
+    return r
+
+
+def _rank_tiers(s0, wins, deep: int):
+    """([(L, operand)] nested, number of grouping keys) of a deep
+    configuration (jax_block.py:306-322)."""
+    r = _ranks((s0,) + tuple(wins[:7]))               # 32-byte rank
+    n32 = {1: 4, 2: 8, 3: 7}[deep]
+    ops = [_shl(r, 32 * k) for k in range(n32)]
+    if deep == 3:
+        r2 = _ranks(tuple(ops) + (_shl(r, 224),))     # 256-byte rank
+        ops += [_shl(r2, 256 * k) for k in range(4)]
+    return list(zip(tier_lengths(deep), ops)), (8 if deep == 2 else 4)
 
 
 def _nearest(order, s0, wins, wb16, n: int, probes: int):
@@ -176,9 +268,9 @@ def _nearest(order, s0, wins, wb16, n: int, probes: int):
     group is in position order: the nearest previous occurrences.  A
     later probe wins only when strictly longer (jax_block.py:433-450,
     :498-504).  Returns the packed candidates in position order."""
-    cand, ml, back = _probe(1, order, s0, wins, wb16, n)
+    cand, ml, _mf, _t, back = _probe(1, order, s0, wins, wb16, n)
     for s in range(2, probes + 1):
-        c, m, k = _probe(s, order, s0, wins, wb16, n)
+        c, m, _mf, _t, k = _probe(s, order, s0, wins, wb16, n)
         better = m > ml
         cand = torch.where(better, c, cand)
         ml = torch.where(better, m, ml)
@@ -189,7 +281,7 @@ def _nearest(order, s0, wins, wb16, n: int, probes: int):
 
 
 def _match_one(row: torch.Tensor, n: int, hc: int, W: int,
-               probes: int) -> torch.Tensor:
+               probes: int, deep: int = 0) -> torch.Tensor:
     s0, wins, wb16 = _windows(row, n)
     wins = wins[:W]
     if not hc:
@@ -197,81 +289,247 @@ def _match_one(row: torch.Tensor, n: int, hc: int, W: int,
         return _nearest(_stable_order((s0,)), s0, wins, wb16, n,
                         probes).to(torch.int32)
 
-    # 12-byte grouping order, +-1..+-hc probes (jax_block.py:349-450)
-    order = _stable_order((s0, wins[0], wins[1]))
+    if deep:
+        # grand order by the deepest NK tier operands; the shallower
+        # tiers ride along (jax_block.py:322, :341-346)
+        tiers, nk = _rank_tiers(s0, wins, deep)
+        order = _stable_order(tuple(op for _L, op in tiers[-nk:]))
+    else:
+        # 12-byte grouping order (jax_block.py:349-350)
+        tiers = []
+        order = _stable_order((s0, wins[0], wins[1]))
+    # +-1..+-hc probes; ties on the total length go to the larger
+    # (nearer) candidate (jax_block.py:432-450)
     shifts = [s for k in range(1, hc + 1) for s in (k, -k)]
-    cand, ml, back = _probe(shifts[0], order, s0, wins, wb16, n)
+    cand, ml, mlf, tier, back = _probe(shifts[0], order, s0, wins, wb16, n,
+                                       tiers)
     for s in shifts[1:]:
-        c, m, k = _probe(s, order, s0, wins, wb16, n)
+        c, m, mf, t, k = _probe(s, order, s0, wins, wb16, n, tiers)
         better = (m > ml) | ((m == ml) & (c > cand))
         cand = torch.where(better, c, cand)
         ml = torch.where(better, m, ml)
+        mlf = torch.where(better, mf, mlf)
+        tier = torch.where(better, t, tier)
         back = torch.where(better, k, back)
     pk = torch.empty_like(order)
-    pk[order] = _pack(cand, ml, back)                 # unsort
+    pk[order] = _pack(cand, mlf, back, tier)          # unsort
+    ml_u = torch.empty_like(order)
+    ml_u[order] = ml
 
-    # positional fallback: order by s0 alone, probes +1 then +2
-    # (jax_block.py:471-516)
+    # positional fallback: order by s0 alone, probes +1 then +2; it
+    # wins when its fine length beats the total length, and then the
+    # tier is cleared (jax_block.py:471-516)
     pk2 = _nearest(_stable_order((s0,)), s0, wins, wb16, n, 2)
-    fb_better = ((pk2 >> 6) & 63) > ((pk >> 6) & 63)
+    fb_better = ((pk2 >> 6) & 63) > ml_u
     return torch.where(fb_better, pk2, pk).to(torch.int32)
 
 
 def match_candidates_plain(blocks: torch.Tensor, lens: torch.Tensor,
-                           hc: int = 9, accel: int = 1) -> torch.Tensor:
-    """Plain version of the ``enc_match`` (``hc >= 1``) and
-    ``enc_match_fast`` (``hc == 0``) kernels: int32[B, blk] packed
-    candidates ``((cand + 1) << 12) | (fine ml << 6) | back``."""
-    W, probes = _finder(hc, 0, accel)
+                           hc: int = 9, accel: int = 1,
+                           deep: int = 0) -> torch.Tensor:
+    """Plain version of the ``enc_match`` (``hc >= 1``),
+    ``enc_match_fast`` (``hc == 0``) and ``enc_deep_match`` (``deep``
+    1..3) kernels: int32[B, blk] packed candidates ``((cand + 1) << 12)
+    | (fine ml << 6) | (tier << 2) | back``."""
+    W, probes = _finder(hc, deep, accel)
     if not blocks.shape[0]:
         return torch.zeros(blocks.shape, dtype=torch.int32,
                            device=blocks.device)
-    return torch.stack([_match_one(blocks[i], int(lens[i]), hc, W, probes)
+    return torch.stack([_match_one(blocks[i], int(lens[i]), hc, W, probes,
+                                   deep)
                         for i in range(blocks.shape[0])])
 
 
-def _parse_one(pk: torch.Tensor, n: int, start: int, capped_ml: int,
-               lazy: bool):
-    """Chain extension, clamp, lazy deferral (``lazy``: HC only) and
-    greedy parse of one window (jax_block.py:522-555, :684-743).  A
-    fine ml at or above ``capped_ml`` = 4 + 4 * W saturated the
-    windows (``mlf >= max_sort_ml - 3``, :536).  Returns the chosen
-    positions and, per position, (ml, off, back)."""
+def _chain_lengths(pk: torch.Tensor, n: int, start: int, capped_ml: int,
+                   tiers=()):
+    """Per position (ml, off, back, is_match, cap_end) after the
+    same-offset chain extension and the ``n - 5`` clamp
+    (jax_block.py:522-555).  A fine ml at or above ``capped_ml`` =
+    4 + 4 * W saturated the windows (``mlf >= max_sort_ml - 3``, :536);
+    at the deep levels the pack's tier field gives ``ml = max(fine ml,
+    tiers[tier - 1])`` (:467-469) and a length that came from a tier is
+    capped too.  ``cap_end``: the row's chain ends at a capped row, so
+    its length may still fall short."""
     blk = pk.shape[0]
     idx = torch.arange(blk, device=pk.device)
     pk = pk.long()
     cand = (pk >> 12) - 1
     mlf = (pk >> 6) & 63
+    tier = (pk >> 2) & 15
     back = pk & 3
+    ml = mlf
+    for tk, L in enumerate(tiers):
+        ml = torch.where(tier == tk + 1, mlf.clamp(min=L), ml)
     valid = (cand >= 0) & (idx <= n - 13)
-    ml = torch.where(valid, mlf, 0)
+    mlf = torch.where(valid, mlf, 0)
+    ml = torch.where(valid, ml, 0)
     off = torch.where(valid, idx - cand, 1 << 20)
 
     # same-offset chains: a capped row takes its length from the
     # nearest chain boundary at or after it
-    capped = valid & (mlf >= capped_ml)
+    capped = valid & ((mlf >= capped_ml) | (ml > mlf))
     off_next = torch.cat([off[1:], off.new_full((1,), 1 << 21)])
     valid_next = torch.cat([valid[1:], valid.new_zeros(1)])
     link = capped & valid_next & (off_next == off)
     bnd_at = torch.where(~link, idx, blk)
     nb = torch.flip(torch.cummin(torch.flip(bnd_at, (0,)), 0).values, (0,))
     bml = torch.minimum(ml[nb], torch.tensor(2047, device=pk.device))
+    cap_end = valid & capped[nb]
     ml = torch.where(capped, torch.maximum((nb - idx) + bml, ml), ml)
     ml = torch.minimum(ml, (n - 5 - idx).clamp(min=0))
     is_match = valid & (ml >= 4) & (idx >= start)
+    return ml, off, back, is_match, cap_end
 
-    if lazy:
-        is_match = is_match & ~_lazy_defer(ml, is_match)
 
-    # greedy parse: the lowest match position not yet covered
-    ml_l = ml.tolist()
+def _greedy(is_match: torch.Tensor, ml_l: list) -> list:
+    """Greedy parse (jax_block.py:716-743): the lowest match position
+    not yet covered, again and again."""
     chosen = []
     end = 0
     for p in torch.nonzero(is_match).flatten().tolist():
         if p >= end:
             chosen.append(p)
             end = p + ml_l[p]
-    return chosen, ml_l, off.tolist(), back.tolist()
+    return chosen
+
+
+def _parse_one(pk: torch.Tensor, n: int, start: int, capped_ml: int,
+               lazy: bool):
+    """Chain extension, clamp, lazy deferral (``lazy``: HC only) and
+    greedy parse of one window at ``deep=0`` (jax_block.py:522-555,
+    :684-743).  Returns the chosen positions and, per position, (ml,
+    off, back)."""
+    ml, off, back, is_match, _cap_end = _chain_lengths(pk, n, start,
+                                                       capped_ml)
+    if lazy:
+        is_match = is_match & ~_lazy_defer(ml, is_match)
+    ml_l = ml.tolist()
+    return _greedy(is_match, ml_l), ml_l, off.tolist(), back.tolist()
+
+
+#: fields of the deep parse's state word beside the length
+_TAKE_BIT = 1 << 30
+_CAPEND_BIT = 1 << 29
+_ML_MASK = (1 << 20) - 1
+
+
+def _deep_dp_one(pk: torch.Tensor, n: int, start: int, capped_ml: int,
+                 deep: int) -> torch.Tensor:
+    """State word per position of one window after the price parse
+    (``run_dp``, jax_block.py:556-683): ``ml | take << 30 | cap_end <<
+    29``.  The reference relaxes 32-position chunks to the fixpoint of
+    ``cost[i] = min(LITC + cost[i + 1], price[i] + cost[i + jmp[i]],
+    3 * 256 + cost[i + 18])`` with ``cost = 0`` past the window; this
+    is that recurrence, run backwards."""
+    ml, _off, _back, is_match, cap_end = _chain_lengths(
+        pk, n, start, capped_ml, tier_lengths(deep))
+    blk = pk.shape[0]
+    R, S = min(_DP_R, blk), _DP_SCALE
+    ml_l, im_l = ml.tolist(), is_match.tolist()
+    cost = [0] * (blk + R + 1)
+    take = [False] * blk
+    cut = [False] * blk
+    for i in range(blk - 1, -1, -1):
+        lit = S + cost[i + 1]
+        if not im_l[i]:
+            cost[i] = lit
+            continue
+        jmp = min(ml_l[i], R)
+        esc = 1 + max(jmp - 19, 0) // 255 if jmp - 4 >= 15 else 0
+        best = S * (3 + esc) + cost[i + jmp]
+        if R >= 18 and jmp > 18:
+            a_tr = 3 * S + cost[i + 18]
+            if a_tr < best:             # the 18-byte cut, strictly cheaper
+                cut[i] = True
+                best = a_tr
+        take[i] = best <= lit           # ties go to the match
+        cost[i] = min(best, lit)
+    dev = pk.device
+    cut_t = torch.tensor(cut, device=dev)
+    ml = torch.where(cut_t, ml.clamp(max=18), ml)
+    cap_end = cap_end & ~cut_t
+    st = (ml | torch.where(torch.tensor(take, device=dev), _TAKE_BIT, 0)
+          | torch.where(cap_end, _CAPEND_BIT, 0))
+    return st.to(torch.int32)
+
+
+def _deep_select_one(row: torch.Tensor, pk: torch.Tensor, st: torch.Tensor,
+                     n: int):
+    """Greedy parse over the ``take`` bits, exact extension of the
+    capped chosen ends and the one-pass absorb (jax_block.py:716-743,
+    :748-863).  Returns the chosen positions and, per position, (ml,
+    off, back)."""
+    blk = pk.shape[0]
+    dev = pk.device
+    idx = torch.arange(blk, device=dev)
+    pk, st = pk.long(), st.long()
+    ml = st & _ML_MASK
+    cap_end = (st & _CAPEND_BIT) != 0
+    cand = (pk >> 12) - 1
+    valid = (cand >= 0) & (idx <= n - 13)
+    off = torch.where(valid, idx - cand, 1 << 20)
+    back = pk & 3
+    ml_l = ml.tolist()
+    chosen_l = _greedy((st & _TAKE_BIT) != 0, ml_l)
+    chosen = torch.zeros(blk, dtype=torch.bool, device=dev)
+    chosen[chosen_l] = True
+
+    # exact extension: the first P capped chosen ends by position, up
+    # to 32 bytes each, two rounds of four u32 compares at the match's
+    # own offset; word indices clip to the window (jax_block.py:774-819)
+    P = min(_EXT_POOL * max(blk // 65536, 1), blk)
+    b = torch.where(idx < n, row.long(), 0)
+    bp = torch.nn.functional.pad(b, (0, 3))
+    su = bp[:blk] | (bp[1:blk + 1] << 8) | (bp[2:blk + 2] << 16) \
+        | (bp[3:blk + 3] << 24)
+    i_p = torch.nonzero(chosen & cap_end).flatten()[:P]
+    E_p = i_p + ml[i_p]
+    off_p = off[i_p]
+    cap_p = (n - 5 - E_p).clamp(0, _EXT_BYTES)
+    e_p = torch.zeros_like(i_p)
+    alive = cap_p > 0
+    offs4 = torch.arange(0, 16, 4, device=dev)
+    for _ in range(max(_EXT_BYTES // 16, 1)):
+        base = E_p + e_p
+        ia = (base[:, None] + offs4).clamp(0, blk - 1)
+        ib = ((base - off_p)[:, None] + offs4).clamp(0, blk - 1)
+        x = su[ia] ^ su[ib]
+        eq = x == 0
+        pb = torch.where((x & 0xFF) == 0,
+                         torch.where((x & 0xFFFF) == 0,
+                                     torch.where((x & 0xFFFFFF) == 0,
+                                                 3, 2), 1), 0)
+        adv = torch.zeros_like(i_p)
+        still = torch.ones_like(alive)
+        for w in range(4):
+            adv = adv + torch.where(still, torch.where(eq[:, w], 4,
+                                                       pb[:, w]), 0)
+            still = still & eq[:, w]
+        adv = torch.where(alive, torch.minimum(adv, cap_p - e_p), 0)
+        e_p = e_p + adv
+        alive = alive & still & (e_p < cap_p)
+    ml = ml.clone()
+    ml[i_p] += e_p
+
+    # one-pass absorb: a chosen match that the extended ends before it
+    # cover is dropped, or moved to its trimmed start when 4 bytes or
+    # more remain; only the first P moved matches are re-inserted
+    # (jax_block.py:838-863)
+    Ev = idx + ml
+    fC = torch.cummax(torch.where(chosen, Ev, 0), 0).values
+    prevcov = torch.cat([fC.new_zeros(1), fC[:-1]])
+    keep = chosen & (Ev - torch.maximum(idx, prevcov) >= 4)
+    moved = keep & (prevcov > idx)
+    chosen = keep & ~moved
+    m_i = torch.nonzero(moved).flatten()[:P]
+    tgt, Em, offm = prevcov[m_i], Ev[m_i], off[m_i]
+    off, back = off.clone(), back.clone()
+    chosen[tgt] = True
+    ml[tgt] = Em - tgt
+    off[tgt] = offm
+    back[tgt] = 0
+    return (torch.nonzero(chosen).flatten().tolist(), ml.tolist(),
+            off.tolist(), back.tolist())
 
 
 def _lazy_defer(ml: torch.Tensor, is_match: torch.Tensor) -> torch.Tensor:
@@ -336,13 +594,9 @@ def _emit_one(data: bytes, n: int, start: int, chosen, ml, off,
     return bytes(out)
 
 
-def parse_emit_plain(blocks: torch.Tensor, lens: torch.Tensor,
-                     starts: torch.Tensor, pk: torch.Tensor,
-                     hc: int = 9, accel: int = 1):
-    """Plain version of the ``enc_parse_emit`` kernel: (out
-    uint8[B, compress_bound(blk)], zero past out_len; out_len
-    int32[B])."""
-    W, _probes = _finder(hc, 0, accel)
+def _emit_rows(blocks, lens, starts, select):
+    """Emission of every window: ``select(i, n, start)`` gives the
+    chosen positions and per-position (ml, off, back) of window i."""
     B, blk = blocks.shape
     cap = compress_bound(blk)
     out = torch.zeros((B, cap), dtype=torch.uint8)
@@ -350,8 +604,7 @@ def parse_emit_plain(blocks: torch.Tensor, lens: torch.Tensor,
     rows = blocks.cpu().numpy()
     for i in range(B):
         n, start = int(lens[i]), int(starts[i])
-        chosen, ml, off, back = _parse_one(pk[i], n, start, 4 + 4 * W,
-                                           hc > 0)
+        chosen, ml, off, back = select(i, n, start)
         comp = _emit_one(rows[i].tobytes(), n, start, chosen, ml, off,
                          back)
         if comp:
@@ -359,6 +612,40 @@ def parse_emit_plain(blocks: torch.Tensor, lens: torch.Tensor,
                                                   dtype=torch.uint8)
         out_len[i] = len(comp)
     return out.to(blocks.device), out_len.to(blocks.device)
+
+
+def parse_emit_plain(blocks: torch.Tensor, lens: torch.Tensor,
+                     starts: torch.Tensor, pk: torch.Tensor,
+                     hc: int = 9, accel: int = 1):
+    """Plain version of the ``enc_parse_emit`` kernel (``deep=0``):
+    (out uint8[B, compress_bound(blk)], zero past out_len; out_len
+    int32[B])."""
+    W, _probes = _finder(hc, 0, accel)
+    return _emit_rows(blocks, lens, starts, lambda i, n, start: _parse_one(
+        pk[i], n, start, 4 + 4 * W, hc > 0))
+
+
+def deep_dp_plain(lens: torch.Tensor, starts: torch.Tensor,
+                  pk: torch.Tensor, deep: int) -> torch.Tensor:
+    """Plain version of the ``enc_deep_dp`` kernel: int32[B, blk] state
+    words ``ml | take << 30 | cap_end << 29`` after the chain extension
+    and the price parse."""
+    if not pk.shape[0]:
+        return torch.zeros_like(pk)
+    return torch.stack([
+        _deep_dp_one(pk[i], int(lens[i]), int(starts[i]), 4 + 4 * _W, deep)
+        for i in range(pk.shape[0])])
+
+
+def deep_emit_plain(blocks: torch.Tensor, lens: torch.Tensor,
+                    starts: torch.Tensor, pk: torch.Tensor,
+                    st: torch.Tensor):
+    """Plain version of the ``enc_deep_emit`` kernel: greedy parse over
+    the state words' ``take`` bits, extension, absorb and emission;
+    (out, out_len) as ``parse_emit_plain``."""
+    return _emit_rows(blocks, lens, starts,
+                      lambda i, n, start: _deep_select_one(
+                          blocks[i], pk[i], st[i], n))
 
 
 def encode_blocks_plain(blocks: torch.Tensor, lens: torch.Tensor,
@@ -370,7 +657,10 @@ def encode_blocks_plain(blocks: torch.Tensor, lens: torch.Tensor,
     if starts is None:
         starts = torch.zeros_like(lens)
     _check(blocks, lens, starts)
-    pk = match_candidates_plain(blocks, lens, hc, accel)
+    pk = match_candidates_plain(blocks, lens, hc, accel, deep)
+    if deep:
+        st = deep_dp_plain(lens, starts, pk, deep)
+        return deep_emit_plain(blocks, lens, starts, pk, st)
     return parse_emit_plain(blocks, lens, starts, pk, hc, accel)
 
 
@@ -379,22 +669,86 @@ def encode_blocks_plain(blocks: torch.Tensor, lens: torch.Tensor,
 # ---------------------------------------------------------------------
 
 def match_candidates(blocks: torch.Tensor, lens: torch.Tensor,
-                     hc: int = 9, accel: int = 1) -> torch.Tensor:
+                     hc: int = 9, accel: int = 1,
+                     deep: int = 0) -> torch.Tensor:
     """Packed candidates per position; for CUDA tensors the
-    ``enc_match`` kernel (``hc >= 1``) or the ``enc_match_fast`` kernel
-    (``hc == 0``, with ``fast_params(accel)``), the plain version for
-    CPU tensors."""
+    ``enc_deep_match`` kernel (``deep`` 1..3), the ``enc_match`` kernel
+    (``hc >= 1``) or the ``enc_match_fast`` kernel (``hc == 0``, with
+    ``fast_params(accel)``), the plain version for CPU tensors."""
     if blocks.device.type == "cpu":
-        return match_candidates_plain(blocks, lens, hc, accel)
-    W, probes = _finder(hc, 0, accel)
+        return match_candidates_plain(blocks, lens, hc, accel, deep)
+    W, probes = _finder(hc, deep, accel)
     blocks, lens = blocks.contiguous(), lens.contiguous()
     B, blk = blocks.shape
     pk = torch.empty((B, blk), dtype=torch.int32, device=blocks.device)
-    if B and hc:
+    if B and deep:
+        # the exact ranks reach blk, one past u16, so they live in
+        # device memory beside the window in shared memory: 4 bytes per
+        # position for the 32-byte rank, 4 more at deep=3 for the
+        # 256-byte rank
+        ranks = torch.empty((B, 2 if deep == 3 else 1, blk),
+                            dtype=torch.int32, device=blocks.device)
+        launch("enc_deep_match", blocks, lens, ranks, pk, B, blk, hc, deep)
+    elif B and hc:
         launch("enc_match", blocks, lens, pk, B, blk, hc)
     elif B:
         launch("enc_match_fast", blocks, lens, pk, B, blk, W, probes)
     return pk
+
+
+def _check_pk(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
+    if t.shape != like.shape or t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32[B, blk]")
+    if t.device != like.device:
+        raise ValueError(f"{name} is on {t.device}, not on {like.device}")
+
+
+def deep_dp(lens: torch.Tensor, starts: torch.Tensor, pk: torch.Tensor,
+            deep: int) -> torch.Tensor:
+    """State words ``ml | take << 30 | cap_end << 29`` of the deep
+    parse; the ``enc_deep_dp`` kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if not 1 <= deep <= 3:
+        raise ValueError(f"deep={deep}")
+    if pk.device.type == "cpu":
+        return deep_dp_plain(lens, starts, pk, deep)
+    if pk.dim() != 2 or pk.dtype != torch.int32:
+        raise TypeError("pk must be int32[B, blk]")
+    B, blk = pk.shape
+    if not device_encoder_supports(blk):
+        raise NotImplementedError(f"{blk}-byte windows")
+    lens, starts, pk = (t.contiguous() for t in (lens, starts, pk))
+    st = torch.empty_like(pk)
+    if B:
+        launch("enc_deep_dp", lens, starts, pk, st, B, blk, 4 + 4 * _W, deep)
+    return st
+
+
+def deep_emit(blocks: torch.Tensor, lens: torch.Tensor,
+              starts: torch.Tensor, pk: torch.Tensor, st: torch.Tensor):
+    """Greedy parse over the ``take`` bits, extension, absorb and
+    emission; the ``enc_deep_emit`` kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if blocks.device.type == "cpu":
+        return deep_emit_plain(blocks, lens, starts, pk, st)
+    _check_pk("pk", pk, blocks)
+    _check_pk("st", st, blocks)
+    B, blk = blocks.shape
+    blocks, lens, starts, pk, st = (t.contiguous() for t in
+                                    (blocks, lens, starts, pk, st))
+    cap = compress_bound(blk)
+    dev = blocks.device
+    out = torch.empty((B, cap), dtype=torch.uint8, device=dev)
+    out_len = torch.empty(B, dtype=torch.int32, device=dev)
+    # per window: the chosen rows of the greedy parse (a window has at
+    # most blk // 4 matches) and the literal runs (src, dst, len)
+    chosen = torch.empty((B, blk // 4 + 1), dtype=torch.int32, device=dev)
+    runs = torch.empty((B, 3 * (blk // 4 + 2)), dtype=torch.int32,
+                       device=dev)
+    if B:
+        launch("enc_deep_emit", blocks, lens, starts, pk, st, chosen, runs,
+               out, out_len, B, blk, cap, runs.shape[1], chosen.shape[1])
+    return out, out_len
 
 
 def parse_emit(blocks: torch.Tensor, lens: torch.Tensor,
@@ -406,8 +760,7 @@ def parse_emit(blocks: torch.Tensor, lens: torch.Tensor,
         return parse_emit_plain(blocks, lens, starts, pk, hc, accel)
     W, _probes = _finder(hc, 0, accel)
     B, blk = blocks.shape
-    if pk.shape != (B, blk) or pk.dtype != torch.int32:
-        raise TypeError("pk must be int32[B, blk]")
+    _check_pk("pk", pk, blocks)
     blocks, lens, starts, pk = (t.contiguous() for t in
                                 (blocks, lens, starts, pk))
     cap = compress_bound(blk)
@@ -433,11 +786,14 @@ def encode_blocks(blocks: torch.Tensor, lens: torch.Tensor,
     """Encode uint8[B, blk] windows with valid lengths ``lens`` and
     emission starts ``starts`` (default 0), counterpart of
     ``encode_blocks_jax(..., hc, deep, accel)`` (the defaults here are
-    level 9).  Returns (out uint8[B, compress_bound(blk)], zero past
+    level 9; ``level_params`` maps levels 0-12 to ``(hc, deep)``).  Returns (out uint8[B, compress_bound(blk)], zero past
     out_len; out_len int32[B])."""
     _finder(hc, deep, accel)
     if starts is None:
         starts = torch.zeros_like(lens)
     _check(blocks, lens, starts)
-    pk = match_candidates(blocks, lens, hc, accel)
+    pk = match_candidates(blocks, lens, hc, accel, deep)
+    if deep:
+        st = deep_dp(lens, starts, pk, deep)
+        return deep_emit(blocks, lens, starts, pk, st)
     return parse_emit(blocks, lens, starts, pk, hc, accel)

@@ -1,7 +1,8 @@
-"""T-map rebuilds for the H100, with their plain PyTorch versions.
+"""Block rebuilds for the H100, with their plain PyTorch versions.
 
-Counterpart of the T-map decoders of the JAX reference
-(``ops/jax_decode.py:1033-1149``).
+Counterpart of the T-map decoders (``ops/jax_decode.py:1033-1149``) and
+of the sequence-rebuild decoder (``_decode_block``, ``:120-290``) of
+the JAX reference.
 
 * Independent blocks (``device_tmap_decoder_supports``,
   ``_decode_block_tmap`` and its batched form, ``:1033-1081``): the host
@@ -17,17 +18,32 @@ Counterpart of the T-map decoders of the JAX reference
   ``[history | output]`` become the next window's history, so the
   windows of a frame chain on the device.  The CUDA kernels are in
   ``kernels/csrc/linked_tmap.cu``.
+* Blocks from parsed sequences (``parse_sequences``, ``seqs_to_arrays``,
+  ``decode_blocks``; reference ``:39-117``, ``_decode_block`` and
+  ``decode_blocks_jax``, ``:1395``): the host parses a payload into the
+  table ``(lit_len, lit_src, mlen, off, nseq)`` and the device rebuilds
+  the block from the payload, the table and an optional history window
+  (a dictionary or a streaming prefix).  This route needs no native
+  runtime.  The CUDA kernel is ``kernels/csrc/seq_decode.cu``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..errors import CorruptedData
 from ..kernels import launch
 
 __all__ = ["device_tmap_decoder_supports", "decode_blocks_tmap",
            "decode_blocks_tmap_plain", "linked_tmap_step",
-           "linked_tmap_step_plain"]
+           "linked_tmap_step_plain", "MAX_SEQS", "parse_sequences",
+           "seqs_to_arrays", "device_seq_decoder_supports",
+           "decode_blocks", "decode_blocks_plain"]
+
+#: largest block, and largest history, the sequence-rebuild kernel
+#: takes: the output block lives in one thread block's shared memory
+_SEQ_MAX_BLK = 65536
 
 
 def device_tmap_decoder_supports(blk: int,
@@ -137,3 +153,213 @@ def linked_tmap_step(hist: torch.Tensor, payloads: torch.Tensor,
            payloads.shape[0], nout, total)
     launch("linked_hist_shift", hist, out, new_hist, H, nout, total)
     return out, new_hist
+
+
+# ---------------------------------------------------------------------
+# rebuild from parsed sequences
+# ---------------------------------------------------------------------
+
+def MAX_SEQS(blk: int) -> int:
+    """Worst-case sequence count for decoding a blk-byte block."""
+    return blk // 4 + 2
+
+
+def parse_sequences(comp: bytes, history_len: int = 0):
+    """Host-side token parse: compressed block -> sequence list.
+
+    Returns a list of (lit_len, lit_comp_start, match_len, offset); the
+    tail sequence has match_len == 0.  Validates structure and raises
+    ``CorruptedData`` on corruption.  ``history_len`` extends the
+    reachable window behind the block (streaming prefix or dictionary).
+    This is the cheap serial part of decode; the reconstruction runs on
+    the device (reference: ``jax_decode.py:48-102``).
+    """
+    seqs = []
+    ip, iend = 0, len(comp)
+    op = 0
+    while ip < iend:
+        token = comp[ip]
+        ip += 1
+        lit = token >> 4
+        if lit == 15:
+            while True:
+                if ip >= iend:
+                    raise CorruptedData("truncated literal length")
+                x = comp[ip]
+                ip += 1
+                lit += x
+                if x != 255:
+                    break
+        if ip + lit > iend:
+            raise CorruptedData("literal run overruns input")
+        lit_start = ip
+        ip += lit
+        op += lit
+        if ip >= iend:
+            seqs.append((lit, lit_start, 0, 0))
+            break
+        if ip + 2 > iend:
+            raise CorruptedData("truncated offset")
+        off = comp[ip] | (comp[ip + 1] << 8)
+        ip += 2
+        if off == 0 or off > op + history_len:
+            raise CorruptedData(f"bad offset {off} at output pos {op}")
+        ml = token & 15
+        if ml == 15:
+            while True:
+                if ip >= iend:
+                    raise CorruptedData("truncated match length")
+                x = comp[ip]
+                ip += 1
+                ml += x
+                if x != 255:
+                    break
+        ml += 4
+        op += ml
+        seqs.append((lit, lit_start, ml, off))
+    return seqs
+
+
+def seqs_to_arrays(seqs, nseq_cap: int):
+    """Pack parsed sequences into fixed-shape numpy arrays for the
+    device: (lit_len, lit_src, mlen, off) int32[nseq_cap] and the
+    count (reference: ``jax_decode.py:105-117``)."""
+    ns = len(seqs)
+    if ns > nseq_cap:
+        raise ValueError(f"{ns} sequences exceed capacity {nseq_cap}")
+    lit = np.zeros(nseq_cap, np.int32)
+    lsrc = np.zeros(nseq_cap, np.int32)
+    ml = np.zeros(nseq_cap, np.int32)
+    off = np.ones(nseq_cap, np.int32)
+    for k, (a, b_, c, d) in enumerate(seqs):
+        lit[k], lsrc[k], ml[k], off[k] = a, b_, c, max(d, 1)
+    return lit, lsrc, ml, off, np.int32(ns)
+
+
+def device_seq_decoder_supports(blk: int, hcap: int = 0) -> bool:
+    """True when the sequence-rebuild kernel takes ``blk``-byte blocks
+    behind a ``hcap``-byte history: up to 64 KB each (the reference's
+    packs stop at the same place, ``jax_decode.py:156``)."""
+    return 0 < blk <= _SEQ_MAX_BLK and 0 <= hcap <= _SEQ_MAX_BLK
+
+
+def _check_seq(comp, lit_len, lit_src, mlen, off, nseq, blk, hists):
+    if comp.dtype != torch.uint8 or comp.dim() != 2 or comp.shape[1] < 1:
+        raise TypeError("comp must be uint8[B, ccap]")
+    B = comp.shape[0]
+    for name, t in (("lit_len", lit_len), ("lit_src", lit_src),
+                    ("mlen", mlen), ("off", off)):
+        if (t.dtype != torch.int32 or t.dim() != 2 or t.shape[0] != B
+                or t.shape != lit_len.shape or t.shape[1] < 1):
+            raise TypeError(f"{name} must be int32[B, nseq_cap]")
+    if nseq.dtype != torch.int32 or nseq.shape != (B,):
+        raise TypeError("nseq must be int32[B]")
+    hcap = 0
+    if hists is not None:
+        if hists.dtype != torch.uint8 or hists.dim() not in (1, 2) or (
+                hists.dim() == 2 and hists.shape[0] != B):
+            raise TypeError("hists must be uint8[hcap] or uint8[B, hcap]")
+        hcap = hists.shape[-1]
+    tensors = [comp, lit_len, lit_src, mlen, off, nseq] + (
+        [] if hists is None else [hists])
+    if any(t.device != comp.device for t in tensors):
+        raise ValueError("every tensor must be on one device")
+    if not device_seq_decoder_supports(blk, hcap):
+        raise NotImplementedError(
+            f"{blk}-byte blocks behind {hcap} bytes of history: the "
+            f"sequence-rebuild decoder takes up to {_SEQ_MAX_BLK} bytes of "
+            "each; larger blocks decode through the T-map path "
+            "(decode_blocks_tmap)")
+    return hcap
+
+
+def decode_blocks_plain(comp: torch.Tensor, lit_len: torch.Tensor,
+                        lit_src: torch.Tensor, mlen: torch.Tensor,
+                        off: torch.Tensor, nseq: torch.Tensor, blk: int,
+                        hists: torch.Tensor | None = None):
+    """Plain version of the ``seq_decode`` kernel: (out uint8[B, blk],
+    zero from out_len on; out_len int32[B]; ok int32[B]).  Literal runs
+    are one gather per block; the matches are copied in sequence order,
+    an overlapping one as the repeated ``off`` bytes before it."""
+    hcap = _check_seq(comp, lit_len, lit_src, mlen, off, nseq, blk, hists)
+    B, ccap = comp.shape
+    cap = lit_len.shape[1]
+    dev = comp.device
+    out = torch.zeros((B, blk), dtype=torch.uint8)
+    out_len = torch.zeros(B, dtype=torch.int32)
+    ok = torch.zeros(B, dtype=torch.int32)
+    comp, lit_len, lit_src, mlen, off, nseq = (
+        t.cpu() for t in (comp, lit_len, lit_src, mlen, off, nseq))
+    if hists is not None:
+        hists = hists.cpu()
+    for b in range(B):
+        ns = min(max(int(nseq[b]), 0), cap)
+        ll, ls, ml = (t[b, :ns].long() for t in (lit_len, lit_src, mlen))
+        o = off[b, :ns].long().clamp(min=1)
+        good = ns == int(nseq[b]) and bool((ll >= 0).all()
+                                           and (ml >= 0).all())
+        ll, ml = ll.clamp(0, blk + 1), ml.clamp(0, blk + 1)
+        seg = ll + ml
+        start = torch.cumsum(seg, 0) - seg
+        total = int(seg.sum())
+        out_len[b] = min(total, blk + 1)
+        good = good and total <= blk and bool(
+            ((ll == 0) | ((ls >= 0) & (ls + ll <= ccap))).all()
+            and ((ml == 0) | (start + ll - o >= -hcap)).all())
+        ok[b] = int(good)
+        if not good:
+            continue
+        # literals: byte k of run q goes from comp[ls + k] to start + k
+        q = torch.repeat_interleave(torch.arange(ns), ll)
+        k = torch.arange(q.shape[0]) - (torch.cumsum(ll, 0) - ll)[q]
+        row = torch.zeros(blk, dtype=torch.uint8)
+        row[start[q] + k] = comp[b][ls[q] + k]
+        # matches, in order, over [history | block]
+        hist = b"" if hists is None else bytes(
+            (hists if hists.dim() == 1 else hists[b]).numpy())
+        full = bytearray(hist) + bytearray(row.numpy())
+        for d0, m, oo in zip((start + ll + hcap).tolist(), ml.tolist(),
+                             o.tolist()):
+            if m:
+                pat = full[d0 - oo:d0 - oo + min(oo, m)]
+                full[d0:d0 + m] = (pat * (m // len(pat) + 1))[:m]
+        out[b] = torch.frombuffer(full, dtype=torch.uint8)[hcap:]
+        out[b, total:] = 0
+    return out.to(dev), out_len.to(dev), ok.to(dev)
+
+
+def decode_blocks(comp: torch.Tensor, lit_len: torch.Tensor,
+                  lit_src: torch.Tensor, mlen: torch.Tensor,
+                  off: torch.Tensor, nseq: torch.Tensor, blk: int,
+                  hists: torch.Tensor | None = None):
+    """Rebuild blocks of up to ``blk`` bytes from parsed sequences,
+    counterpart of ``decode_blocks_jax``: ``comp`` uint8[B, ccap] the
+    payloads, ``lit_len``/``lit_src``/``mlen``/``off`` int32[B,
+    nseq_cap] and ``nseq`` int32[B] the tables of ``seqs_to_arrays``,
+    ``hists`` uint8[B, hcap] (or uint8[hcap], shared by every block)
+    the bytes that logically precede each block, right-aligned.
+    Returns (out uint8[B, blk], zero from out_len on; out_len int32[B];
+    ok int32[B]).  ``ok`` is 0, and the row zero, for a table that
+    ``parse_sequences`` would not have produced for a block of at most
+    ``blk`` bytes: sources outside the payload or before the history,
+    or more than ``blk`` bytes of output.  The ``seq_decode`` kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    if comp.device.type == "cpu":
+        return decode_blocks_plain(comp, lit_len, lit_src, mlen, off, nseq,
+                                   blk, hists)
+    hcap = _check_seq(comp, lit_len, lit_src, mlen, off, nseq, blk, hists)
+    B, ccap = comp.shape
+    cap = lit_len.shape[1]
+    dev = comp.device
+    comp, lit_len, lit_src, mlen, off, nseq = (
+        t.contiguous() for t in (comp, lit_len, lit_src, mlen, off, nseq))
+    hists = comp if hists is None else hists.contiguous()   # never read
+    out = torch.empty((B, blk), dtype=torch.uint8, device=dev)
+    out_len = torch.empty(B, dtype=torch.int32, device=dev)
+    ok = torch.empty(B, dtype=torch.int32, device=dev)
+    seg_start = torch.empty((B, cap), dtype=torch.int32, device=dev)
+    if B:
+        launch("seq_decode", comp, hists, lit_len, lit_src, mlen, off, nseq,
+               seg_start, out, out_len, ok, B, ccap, hcap,
+               hcap if hists.dim() == 2 and hcap else 0, cap, blk)
+    return out, out_len, ok

@@ -1,7 +1,8 @@
-"""LZ4 frame codec on one CUDA device: levels 0-9 encode, T-map decode.
+"""LZ4 frame codec on one CUDA device: levels 0-12 encode, T-map and
+sequence-rebuild decode.
 
 Counterpart of ``ShardedFrameCodec`` of the JAX reference
-(``parallel/sharded.py``) for 64 KB blocks at levels 0-9 on the encode
+(``parallel/sharded.py``) for 64 KB blocks at levels 0-12 on the encode
 side, and on the decode side for independent and linked frames of any
 block size, with or without a dictionary.
 
@@ -16,6 +17,9 @@ block size, with or without a dictionary.
                 ``[dictionary | payload]`` and T-maps staged to the
                 device -> the gather kernel (ops/torch_decode) ->
                 ordered gather.  Stored blocks are copied as they are.
+                Without the native runtime the payloads are parsed into
+                sequence tables in Python and rebuilt by the
+                sequence-rebuild kernel (blocks up to 64 KB).
               * linked blocks: windows of blocks, one native
                 ``native_resolve_tmap_linked`` per window -> payloads
                 and the window's T-map staged to the device -> the
@@ -42,18 +46,22 @@ from ..constants import WINDOW_SIZE, compress_bound
 from ..native import native_resolve_tmap, native_resolve_tmap_linked
 from ..ops.torch_block import (device_encoder_supports, encode_blocks,
                                level_params)
-from ..ops.torch_decode import decode_blocks_tmap, linked_tmap_step
+from ..ops.torch_decode import (MAX_SEQS, decode_blocks,
+                                decode_blocks_tmap,
+                                device_seq_decoder_supports,
+                                linked_tmap_step, parse_sequences,
+                                seqs_to_arrays)
 from ..utils.xxhash32 import xxh32, xxh32_stream
 from .device import resolve_device
 
 __all__ = ["ShardedFrameCodec"]
 
 _UNCOMPRESSED_BIT = 0x80000000
-#: highest level the encoder kernels take (ROADMAP Queue 1 item 8 adds
-#: the deep levels 10-12)
-_MAX_LEVEL = 9
-#: windows per encoder launch; the encoder's device scratch is ~12
-#: bytes per window byte, so 1024 64 KB windows hold ~0.8 GB
+#: windows per encoder launch.  Device scratch per window byte: 4 bytes
+#: of candidate words, 4 of parse state, 3 of literal runs and 1 of
+#: output (~0.8 GB for 1024 64 KB windows at levels 0-9); the deep
+#: levels add 4 bytes of 32-byte ranks, 4 more of 256-byte ranks at
+#: level 12, and 1 of chosen rows (~1.4 GB at level 12)
 _ENC_BATCH = 1024
 #: output bytes per decode launch; T is staged at 4 bytes per output
 #: byte, so 64 MB of output stages 256 MB of T
@@ -102,7 +110,7 @@ def _frame_block_error(exc: E.CorruptedData, what: str,
 
 
 def _need_native():
-    return RuntimeError("T-map decode needs the native host runtime "
+    return RuntimeError("linked T-map decode needs the native host runtime "
                         "(zig_lz4_tpu_torch.native), which did not load")
 
 
@@ -131,6 +139,9 @@ class ShardedFrameCodec:
                 "engines are not ported; T-map covers every block "
                 "(ROADMAP Queue 1 item 9)")
         self.level = int(compression_level)
+        # device-encoder quality knobs derived from the level
+        # (reference: sharded.py:173-176)
+        self.hc, self.deep = level_params(self.level)
         self.decode_engine = decode_engine
         self.device = resolve_device(device)
         self.block_size = lz4f.BlockSizeID(block_size_id).to_block_size()
@@ -167,10 +178,6 @@ class ShardedFrameCodec:
     # -- compression ----------------------------------------------------
 
     def _check_encode(self) -> None:
-        if self.level > _MAX_LEVEL:
-            raise NotImplementedError(
-                f"compression level {self.level}: the port encodes levels "
-                f"up to {_MAX_LEVEL} so far (ROADMAP Queue 1 item 8)")
         if self.dcap:
             raise NotImplementedError(
                 "dictionary encode is not ported yet: its windows are "
@@ -187,11 +194,10 @@ class ShardedFrameCodec:
         dev = self.device
         # levels <= 1 run the fast finder at acceleration 1, as the
         # reference's frame codec does (sharded.py:112-121)
-        hc, deep = level_params(self.level)
         out, out_len = encode_blocks(torch.from_numpy(windows).to(dev),
                                      torch.from_numpy(lens).to(dev),
                                      torch.from_numpy(starts).to(dev),
-                                     hc=hc, deep=deep)
+                                     hc=self.hc, deep=self.deep)
         return out.cpu().numpy(), out_len.cpu().numpy()  # ordered gather
 
     def _encode_span(self, span: bytes) -> list[tuple[bytes, bytes]]:
@@ -359,22 +365,81 @@ class ShardedFrameCodec:
     def _decode_records(self, payloads: list, bs: int) -> list:
         """Raw blocks of the (payload, uncompressed) records of an
         independent-mode frame: stored blocks as they are, compressed
-        blocks through the T-map decoder."""
+        blocks through the T-map decoder, or through the
+        sequence-rebuild decoder when the native runtime did not
+        load."""
         results: list[bytes | None] = [None] * len(payloads)
         comp_idx = [k for k, (_, u) in enumerate(payloads) if not u]
         for k, (p, u) in enumerate(payloads):
             if u:
                 results[k] = p
-        if comp_idx:
-            self._decode_tmap(payloads, bs, comp_idx, results)
+        if comp_idx and not self._decode_tmap(payloads, bs, comp_idx,
+                                              results):
+            self._decode_seqs(payloads, bs, comp_idx, results)
         return results
 
-    def _decode_tmap(self, payloads: list, bs: int, comp_idx: list,
+    def _decode_seqs(self, payloads: list, bs: int, comp_idx: list,
                      results: list) -> None:
+        """Sequence-rebuild decode of the compressed records
+        ``comp_idx`` (reference: sharded.py:868-906): each payload is
+        parsed on the host into its sequence table, and the device
+        rebuilds the block from the payload, the table and the
+        dictionary as history.  Fills ``results`` in place."""
+        if not device_seq_decoder_supports(bs, self.dcap):
+            raise NotImplementedError(
+                f"{bs}-byte blocks without the native host runtime: the "
+                "sequence-rebuild decoder takes blocks up to 64 KB, and "
+                "larger ones decode through the T-map path, which needs "
+                "the runtime (zig_lz4_tpu_torch.native)")
+        dev = self.device
+        ccap, nseq_cap = compress_bound(bs), MAX_SEQS(bs)
+        hist = (torch.from_numpy(np.frombuffer(self.dict, np.uint8).copy())
+                .to(dev) if self.dcap else None)
+        batch = max(_DEC_BYTES // bs, 1)
+        for c0 in range(0, len(comp_idx), batch):
+            grp = comp_idx[c0:c0 + batch]
+            bufs = np.zeros((len(grp), ccap), np.uint8)
+            tabs = np.zeros((4, len(grp), nseq_cap), np.int32)
+            nss = np.zeros(len(grp), np.int32)
+            for j, k in enumerate(grp):
+                p = payloads[k][0]
+                if len(p) > ccap:
+                    raise E.CorruptedData(
+                        f"frame block {k}: {len(p)} payload bytes exceed "
+                        f"the bound {ccap} of a {bs}-byte block")
+                try:
+                    seqs = parse_sequences(p, self.dcap)
+                except E.CorruptedData as exc:
+                    raise E.CorruptedData(
+                        f"frame block {k} is corrupt ({exc})") from exc
+                if (len(seqs) > nseq_cap
+                        or sum(a + c for a, _b, c, _d in seqs) > bs):
+                    raise E.CorruptedData(
+                        f"frame block {k} decodes to more than the frame "
+                        f"block size {bs}")
+                bufs[j, :len(p)] = np.frombuffer(p, np.uint8)
+                (tabs[0, j], tabs[1, j], tabs[2, j], tabs[3, j],
+                 nss[j]) = seqs_to_arrays(seqs, nseq_cap)
+            lit, lsrc, ml, off = (torch.from_numpy(t).to(dev) for t in tabs)
+            out, olens, ok = decode_blocks(
+                torch.from_numpy(bufs).to(dev), lit, lsrc, ml, off,
+                torch.from_numpy(nss).to(dev), bs, hists=hist)
+            out, olens, ok = (t.cpu().numpy() for t in (out, olens, ok))
+            if not ok.all():
+                raise E.CorruptedData(
+                    f"frame block {grp[int(np.flatnonzero(ok == 0)[0])]}: "
+                    "the sequence-rebuild decoder rejected its table")
+            for j, k in enumerate(grp):
+                results[k] = out[j, :int(olens[j])].tobytes()
+
+    def _decode_tmap(self, payloads: list, bs: int, comp_idx: list,
+                     results: list) -> bool:
         """T-map decode of the compressed records ``comp_idx``: one
         native resolve of every payload on the host, then the gather
         kernel over batches of blocks, each from its fetch buffer
-        ``[dictionary | payload]``.  Fills ``results`` in place."""
+        ``[dictionary | payload]``.  Fills ``results`` in place and
+        returns True; False, with nothing done, when the native runtime
+        did not load."""
         lens64 = np.array([len(payloads[k][0]) for k in comp_idx], np.int64)
         offs64 = np.zeros_like(lens64)
         offs64[1:] = np.cumsum(lens64)[:-1]
@@ -388,7 +453,7 @@ class ShardedFrameCodec:
             raise _frame_block_error(exc, "T-map resolve",
                                      lambda k: comp_idx[k]) from exc
         if r is None:
-            raise _need_native()
+            return False
         T, olens = r
         over = np.flatnonzero(olens < 0)
         if over.size:
@@ -416,3 +481,4 @@ class ShardedFrameCodec:
             out = out.cpu().numpy()
             for jj, k in enumerate(grp):
                 results[k] = out[jj, :int(glen[jj])].tobytes()
+        return True

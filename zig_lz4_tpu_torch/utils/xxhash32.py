@@ -95,12 +95,10 @@ def xxh32(data, seed: int = 0) -> int:
         data = bytes(data)
     data = bytes(data)
     if len(data) >= 256:
-        try:
-            from ..native import native_xxh32
-            if native_xxh32 is not None:
-                return native_xxh32(data, seed)
-        except ImportError:
-            pass
+        from ..native import native_xxh32
+        h = native_xxh32(data, seed)
+        if h is not None:       # None: the runtime did not load
+            return h
     return xxh32_python(data, seed)
 
 
