@@ -23,7 +23,15 @@ blocks, most of them through ``ShardedFrameCodec``:
   blocks of the level-12 frame; and ``decompress_frame`` of an
   independent frame in a child process that runs without the native
   host runtime (``ZIG_LZ4_TPU_NO_NATIVE=1``), where ``seq_decode``
-  takes the place of the T-map decoder.
+  takes the place of the T-map decoder;
+* the fragment ladder: ``decompress_frame`` under ``decode_engine``
+  "mixed", "win" and "chase" of the level-9 frame and under "mixed" of
+  the level-0 frame (``frag_decode_win``, ``frag_decode_chase``, and
+  ``tmap_gather`` for what the ladder leaves), of a frame of 256 KB
+  blocks under "win" (``frag_decode``), of a frame of 1 MB blocks under
+  "mixed" (the narrow big-block tiers of ``frag_decode_chase``) and of
+  a dictionary frame under "chase"; each path prints its blocks by
+  route.
 
 The plain versions of the deep encoder kernels run Python loops over
 every position, so those kernels are held against them on the edge-case
@@ -85,6 +93,20 @@ EDGE_CONFIGS = [(9, 1), (0, 1), (0, 2), (0, 4), (0, 8), (2, 1), (5, 1),
                 (8, 1)]
 #: timed runs of each path's calls
 REPS = 5
+#: the ladder kernels against their plain versions: (split_max,
+#: round_limit) of the resolve, then the configurations.  ``clears``
+#: marks a configuration that must clear ``ok`` on some block.
+LADDER_FRAGS = ((8, 12), [dict(rounds=2), dict(rounds=12),
+                          dict(rounds=0, clears=True)])
+LADDER_WIN = ((8, 12), [
+    dict(rounds=2, g=16), dict(rounds=8, g=8, fcap=16384),
+    dict(rounds=8, g=8), dict(rounds=8, g=16, fcap=16384),
+    dict(rounds=12, g=16, lit_wins=0, lit_pool=0),
+    dict(rounds=12, g=8, pool=4, clears=True)])
+LADDER_CHASE = ((8, 64), [
+    dict(dense=3, doublings=0, qcap=0), dict(dense=4, doublings=0, qcap=0),
+    dict(dense=5, doublings=1, qcap=4096),
+    dict(dense=0, doublings=1, qcap=0, clears=True)])
 #: published peaks of one H100 SXM: device memory bytes/s, and 32-bit
 #: scalar operations/s outside the tensor cores (the float32 rate; the
 #: kernels' compares and shifts are counted against it)
@@ -732,6 +754,313 @@ def main():
           f"level-12 frame of {len(part12)} bytes ok in {t_child:.1f} s "
           f"(process start and Python parse included); launches "
           f"{ {k: v for k, v in told['launches'].items() if v} }")
+
+
+    # --- phase 7b: the fragment ladder.  First the three kernels against
+    # their plain versions on the same CUDA tensors: edge tables (an
+    # empty block, one byte, periods 1-13, a chain in which every copy
+    # reads the one before) and every 12th corpus block at levels 9 and 0
+    from zig_lz4_tpu_torch.ops import torch_frags as tfr
+    from zig_lz4_tpu_torch.ops.block import compress_fast
+    from zig_lz4_tpu_torch.parallel import sharded as sh
+
+    def chain_block():
+        piece = np.random.default_rng(7).integers(65, 91, 40, np.uint8)
+        out = bytearray(piece.tobytes())
+        while len(out) < BLK:
+            out += out[-37:]
+        return bytes(out[:BLK])
+
+    edge_blocks = [b"", b"\x2a", chain_block()] + [
+        (bytes(range(65, 65 + p)) * (BLK // p + 1))[:BLK]
+        for p in range(1, 14)]
+    ladder_pays = [compress_fast(b) if b else b"\x00" for b in edge_blocks]
+    ladder_want = list(edge_blocks)
+    for fr_l in (frame, frame0):
+        idx_l, recs_l = frame_payloads(fr_l, lz4f)
+        for k, p_ in zip(idx_l, recs_l):
+            if k % PLAIN_STRIDE == 0:
+                ladder_pays.append(p_)
+                ladder_want.append(data[k * BLK:(k + 1) * BLK])
+
+    def ladder_tables(pays, split_max, round_limit, fcap=BLK, bs=BLK):
+        """The resolver's tables of ``pays`` on the card, cut to the
+        largest fragment count: (args of the wrappers, rounds, nfrag)."""
+        ln = np.array([len(p_) for p_ in pays], np.int64)
+        of = np.zeros_like(ln)
+        of[1:] = np.cumsum(ln)[:-1]
+        fd, _fl, fs, fp, fh, nf, rd, ol = native.native_resolve_blocks(
+            b"".join(pays), of, ln, fcap, out_cap=bs, split_max=split_max,
+            round_limit=round_limit, reuse_buffers=False)
+        check((nf >= 0).all(), "a block overflowed the resolver's budget")
+        ncol = max(int(nf.max()), 1)
+        comp_ = np.zeros((len(pays), int(ln.max())), np.uint8)
+        for k, p_ in enumerate(pays):
+            comp_[k, :len(p_)] = np.frombuffer(p_, np.uint8)
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            comp_, fd[:, :ncol], fs[:, :ncol], fp[:, :ncol], fh[:, :ncol],
+            nf, ol.astype(np.int32))]
+        return args, rd, nf
+
+    ladder_err = {"frag_decode": 0, "frag_decode_win": 0,
+                  "frag_decode_chase": 0}
+
+    def ladder_against_plain(kern, fn, fn_plain, spec):
+        (split_max, round_limit), configs = spec
+        args, rd, nf = ladder_tables(ladder_pays, split_max, round_limit)
+        for cfg in configs:
+            cfg = dict(cfg)
+            clears = cfg.pop("clears", None)
+            if kern == "frag_decode_chase":
+                call = lambda f: f(*args, BLK, **cfg)          # noqa: E731
+            else:
+                kw = {k: v for k, v in cfg.items() if k != "rounds"}
+                call = lambda f: f(*args, cfg["rounds"], BLK,  # noqa: E731
+                                   **kw)
+            out_k, ok_k = call(fn)
+            torch.cuda.synchronize()
+            out_p, ok_p = call(fn_plain)
+            err = max(max_abs_err(out_k, out_p), max_abs_err(ok_k, ok_p))
+            ladder_err[kern] = max(ladder_err[kern], err)
+            out_h, ok_h = out_k.cpu().numpy(), ok_k.cpu().numpy()
+            whole = all(out_h[k, :len(w)].tobytes() == w
+                        for k, w in enumerate(ladder_want) if ok_h[k])
+            print(f"[K7] {kern} {cfg} on {len(ladder_pays)} x 64 KB (resolve "
+                  f"split {split_max}, rounds <= {round_limit}: up to "
+                  f"{int(nf.max())} fragments, depth {int(rd.max())}): vs "
+                  f"plain max_abs_err {err} on out and ok; ok set on "
+                  f"{int(ok_h.sum())} blocks, each == input: {whole}")
+            check(err == 0 and whole, f"{kern} differs from plain or input "
+                  f"at {cfg}")
+            check(clears is None or bool(ok_h.all()) != clears,
+                  f"{kern} at {cfg}: ok is {ok_h.tolist()}")
+
+    ladder_against_plain("frag_decode", tfr.decode_blocks_frags,
+                         tfr.decode_blocks_frags_plain, LADDER_FRAGS)
+    ladder_against_plain("frag_decode_win", tfr.decode_blocks_frags_win,
+                         tfr.decode_blocks_frags_win_plain, LADDER_WIN)
+    ladder_against_plain("frag_decode_chase", tfr.decode_blocks_frags_chase,
+                         tfr.decode_blocks_frags_chase_plain, LADDER_CHASE)
+
+    # the ladder paths, counted, then timed.  A probe records what each
+    # path hands to the three wrappers, so that the kernels can be timed
+    # alone at the paths' shapes afterwards.
+    class Probe:
+        names = {"frag_decode": "decode_blocks_frags",
+                 "frag_decode_win": "decode_blocks_frags_win",
+                 "frag_decode_chase": "decode_blocks_frags_chase"}
+
+        def __init__(self):
+            self.calls, self.tier, self.at = [], [], 0
+
+        def __enter__(self):
+            self.real = {k: getattr(sh, v) for k, v in self.names.items()}
+            self.run_tier = sh.ShardedFrameCodec._run_tier
+            for kern, attr in self.names.items():
+                setattr(sh, attr, self.recorder(kern))
+            probe = self
+
+            def run_tier(codec_, payloads, bs, grp, rows, *a):
+                probe.tier, probe.at = [grp[j] for j in rows], 0
+                return probe.run_tier(codec_, payloads, bs, grp, rows, *a)
+            sh.ShardedFrameCodec._run_tier = run_tier
+            return self
+
+        def recorder(self, kern):
+            def call(*a, **k):
+                nblk = a[0].shape[0]        # the tier's next blocks
+                self.calls.append((kern, a, k,
+                                   self.tier[self.at:self.at + nblk]))
+                self.at += nblk
+                return self.real[kern](*a, **k)
+            return call
+
+        def __exit__(self, *exc):
+            for kern, attr in self.names.items():
+                setattr(sh, attr, self.real[kern])
+            sh.ShardedFrameCodec._run_tier = self.run_tier
+
+    probes, ladder_routes, want_of = {}, {}, {}
+
+    def ladder_path(what, cdc, fr, want, expect, reps=3):
+        """``cdc.decompress_frame(fr)``, counted (with the probe on),
+        checked and timed; the kernels ``expect`` must have launched and
+        decoded blocks."""
+        with Probe() as probe:
+            got = counted(what, lambda: cdc.decompress_frame(fr), expect)
+        check(got == want, f"{what}: the content differs from the input")
+        routes, members = dict(cdc.routes), dict(cdc.tier_members)
+        by_kernel = {"frag_decode": "frags ", "frag_decode_win": "win",
+                     "frag_decode_chase": "chase ", "tmap_gather": "tmap"}
+        for kern in expect:
+            nblk = sum(v for k, v in routes.items()
+                       if k.startswith(by_kernel[kern]))
+            check(nblk > 0, f"{what}: {kern} decoded no block ({routes})")
+        check(routes.get("leftover", 0) == routes.get("tmap", 0),
+              f"{what}: leftovers {routes}")
+        t_p = timed(lambda: cdc.decompress_frame(fr), reps)
+        print(f"[ladder] {what}: content == input; blocks by route {routes}; "
+              f"blocks handed to each tier {members}")
+        print(f"[time] {smi}: {what}, median of {reps}: decompress_frame "
+              f"{fmt(t_p)} = {len(want) / (t_p[0] / 1e3) / 1e9:.4f} GB/s of "
+              f"output")
+        probes[what], ladder_routes[what] = probe, routes
+        want_of[what] = want
+        return probe
+
+    def engine_codec(engine, **kw):
+        return ShardedFrameCodec(device="cuda", decode_engine=engine, **kw)
+
+    ladder_path("level-9 frame, mixed", engine_codec("mixed"), frame, data,
+                ("frag_decode_win", "frag_decode_chase"))
+    ladder_path("level-9 frame, win", engine_codec("win"), frame, data,
+                ("frag_decode_win",))
+    ladder_path("level-9 frame, chase", engine_codec("chase"), frame, data,
+                ("frag_decode_chase",))
+    ladder_path("level-0 frame, mixed", engine_codec("mixed"), frame0, data,
+                ("frag_decode_chase",))
+    # big blocks, frames written by the host frame layer: 256 KB blocks
+    # reach the byte-granular decoder (the windowed packs do not cover
+    # them); 1 MB blocks the narrow chase tiers, whose budgets of bs/64
+    # and bs/256 fragments only a highly compressible block meets
+    part256 = data[:16 << 20]
+    frame256 = lz4f.compress_frame(part256, lz4f.Preferences(
+        frame_info=lz4f.FrameInfo(
+            block_size_id=lz4f.BlockSizeID.max256KB,
+            block_mode=lz4f.BlockMode.independent, content_checksum=True),
+        compression_level=9))
+    ladder_path("256 KB blocks, win", engine_codec("win"), frame256, part256,
+                ("frag_decode",))
+    # (the 40,000 bytes at block 300, database-like records, repeat into
+    # about 9,000 fragments a block; text overflows both budgets)
+    part1m = (data[300 * BLK:300 * BLK + 40_000] * 420)[:16 << 20]
+    frame1m = lz4f.compress_frame(part1m, lz4f.Preferences(
+        frame_info=lz4f.FrameInfo(
+            block_size_id=lz4f.BlockSizeID.max1MB,
+            block_mode=lz4f.BlockMode.independent, content_checksum=True)))
+    ladder_path("1 MB blocks, mixed", engine_codec("mixed"), frame1m, part1m,
+                ("frag_decode_chase",))
+    # a dictionary: LIT sources shifted by its length, PER sources not
+    fr_dict = lz4f.compress_frame(part, independent, dictionary=d)
+    cdc_dict = engine_codec("chase", dictionary=d)
+    check(cdc_dict.decompress_frame(fr_dict) == part
+          and sum(cdc_dict.tier_members.values()) > 0,
+          "chase decode of the dictionary frame")
+    print(f"[dict] independent frame of {len(part)} bytes with a {len(d)}-"
+          f"byte dictionary under chase: ok; blocks by route "
+          f"{cdc_dict.routes}")
+
+    # each kernel alone at its path's shape: the launch of most blocks,
+    # against its plain version, with its bound and with tmap_gather on
+    # the same blocks (the other route); then the path by stage
+    def ladder_kernel(kern, what, fr, plain_fn, bs):
+        probe = probes[what]
+        _k, a, kw, blocks = max((c for c in probe.calls if c[0] == kern),
+                                key=lambda c: c[1][0].shape[0])
+        fn = probe.names[kern]
+        k_ms, (out_k, ok_k) = cuda_ms(lambda: getattr(tfr, fn)(*a, **kw), 5)
+        p_ms, (out_p, ok_p) = cuda_ms(lambda: plain_fn(*a, **kw))
+        err = max(max_abs_err(out_k, out_p), max_abs_err(ok_k, ok_p))
+        check(err == 0, f"{kern} differs from plain at the shape of {what}")
+        comp_, nf_, ol_ = a[0], a[5], a[6]
+        B_, live_ = comp_.shape[0], int(ol_.sum())
+        nfr = int(nf_.sum())
+        # fetch rows, four table columns up to nfrag, nfrag and out_len
+        # in; out and ok out; a binary search and a few steps a byte
+        steps = max(int(nf_.max()), 2).bit_length() + 8
+        b_ms, b_by = bound(comp_.numel() + 16 * nfr + 8 * B_ + B_ * bs
+                           + 4 * B_, live_ * steps)
+        # the other route over the same blocks
+        recs_f = dict(zip(*frame_payloads(fr, lz4f)))
+        pays_b = [recs_f[k] for k in blocks]
+        ln = np.array([len(p_) for p_ in pays_b], np.int64)
+        of = np.zeros_like(ln)
+        of[1:] = np.cumsum(ln)[:-1]
+        T_b, ol_b = native.native_resolve_tmap(b"".join(pays_b), of, ln, bs,
+                                               reuse_buffers=False)
+        f_b = np.zeros((len(pays_b), int(ln.max())), np.uint8)
+        for k, p_ in enumerate(pays_b):
+            f_b[k, :len(p_)] = np.frombuffer(p_, np.uint8)
+        tm_in = [torch.from_numpy(x).to(dev)
+                 for x in (f_b, T_b, ol_b.astype(np.int32))]
+        td.decode_blocks_tmap(*tm_in)
+        tm_ms, out_t = cuda_ms(lambda: td.decode_blocks_tmap(*tm_in), 5)
+        okb = ok_k.bool()
+        check(bool(okb.any()) and torch.equal(out_k[okb], out_t[okb]),
+              f"{kern} differs from tmap_gather on the same blocks")
+        staged = sum(t.numel() * t.element_size() for t in a
+                     if isinstance(t, torch.Tensor))
+        results[kern].update(
+            max_abs_err=max(ladder_err[kern], err), ms=k_ms, plain_ms=p_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            tmap_gather_ms=tm_ms, at=what, blocks=B_, block_bytes=bs,
+            fragments=nfr, config=dict(kw, args=[int(x) for x in a[7:]]),
+            staged_bytes=staged,
+            tmap_staged_bytes=int(f_b.nbytes + 4 * ol_b.sum()))
+        print(f"[time] {smi}: {kern} at {B_} x {bs} bytes ({what}; {nfr} "
+              f"fragments, arguments {list(a[7:])} {kw}): {k_ms:.4f} ms (plain {p_ms:.1f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by}, no library call computes it; "
+              f"tmap_gather on the same blocks {tm_ms:.4f} ms); staged "
+              f"{staged} bytes against {f_b.nbytes + 4 * int(ol_b.sum())} "
+              f"of the T-map route")
+
+    ladder_kernel("frag_decode", "256 KB blocks, win", frame256,
+                  tfr.decode_blocks_frags_plain, 262144)
+    ladder_kernel("frag_decode_win", "level-9 frame, win", frame,
+                  tfr.decode_blocks_frags_win_plain, BLK)
+    ladder_kernel("frag_decode_chase", "level-9 frame, chase", frame,
+                  tfr.decode_blocks_frags_chase_plain, BLK)
+
+    def ladder_stages(what, cdc, fr, bs):
+        """The path by stage: the host resolve as the path makes it, the
+        staging of what it staged, every ladder launch again."""
+        probe = probes[what]
+        _idx, recs_f = frame_payloads(fr, lz4f)
+        ln = np.array([len(p_) for p_ in recs_f], np.int64)
+        of = np.zeros_like(ln)
+        of[1:] = np.cumsum(ln)[:-1]
+        tiers_f, rmax_f = cdc._ladder_tiers(bs)
+        fcap_hi = max(f for f, _r, _q in tiers_f)
+        group = max(sh._FRAG_TABLE_BYTES // (20 * fcap_hi), 1)
+        concat_f = b"".join(recs_f)
+        t0_ = time.perf_counter()
+        for g0 in range(0, len(recs_f), group):
+            native.native_resolve_blocks(
+                concat_f, of[g0:g0 + group], ln[g0:g0 + group], fcap_hi,
+                out_cap=bs, split_max=sh._FRAG_SPLIT_MAX,
+                round_limit=rmax_f)
+        t_res_f = (time.perf_counter() - t0_) * 1e3
+        host = [[t.cpu() for t in a if isinstance(t, torch.Tensor)]
+                for _k, a, _kw, _b in probe.calls]
+        nbytes = sum(t.numel() * t.element_size() for h in host for t in h)
+        t_stage_f, _ = cuda_ms(lambda: [[t.to(dev) for t in h]
+                                        for h in host])
+        t_kern, _ = cuda_ms(lambda: [
+            getattr(tfr, probe.names[k])(*a, **kw)
+            for k, a, kw, _b in probe.calls])
+        decoded = sum(int(a[6][probe.real[k](*a, **kw)[1].bool()].sum())
+                      for k, a, kw, _b in probe.calls)
+        left = ladder_routes[what].get("leftover", 0)
+        # what T-map stages for every compressed block of the frame: 4
+        # bytes of T an output byte and the payload rows
+        out_f = len(want_of[what]) - bs * ladder_routes[what].get("stored",
+                                                                  0)
+        tmap_f = 4 * out_f + len(recs_f) * int(ln.max())
+        print(f"[time] {smi}: {what} by stage: host resolve (fcap "
+              f"{fcap_hi}, {-(-len(recs_f) // group)} groups) "
+              f"{t_res_f:.2f} ms, staging {t_stage_f:.2f} ms ({nbytes} "
+              f"bytes, pageable), {len(probe.calls)} ladder launches "
+              f"{t_kern:.3f} ms -> {decoded} bytes decoded = "
+              f"{nbytes / max(decoded, 1):.4f} staged bytes per output byte "
+              f"(T-map over the frame's {len(recs_f)} compressed blocks: "
+              f"{tmap_f} bytes = {tmap_f / out_f:.4f} per output byte); "
+              f"{left} blocks left to T-map")
+
+    ladder_stages("level-9 frame, mixed", engine_codec("mixed"), frame, BLK)
+    ladder_stages("level-9 frame, win", engine_codec("win"), frame, BLK)
+    ladder_stages("level-9 frame, chase", engine_codec("chase"), frame, BLK)
+    ladder_stages("level-0 frame, mixed", engine_codec("mixed"), frame0, BLK)
+    probes.clear()
 
     # --- phase 8: launch counts over the paths
     print(f"[launches] all paths: {counts}")

@@ -37,6 +37,11 @@ The port (zig_lz4_tpu_torch) is compared byte for byte with these:
   decoder) on the level-8 payloads of ``levels4k.npz``: the rows with
   ``start == 0`` without a history, and every row with its history
   right-aligned in a 4 KB window.
+* ``frags4k.npz`` -- the three fragment-ladder decoders
+  (``_decode_block_frags``, ``_decode_block_frags_win``,
+  ``_decode_block_frags_chase``), jitted and vmapped, on the fragment
+  tables of tests/test_torch_frags.py at the configurations that file
+  does not run live: ``out`` and, where the function returns it, ``ok``.
 
 Run once from the repository root (needs JAX):
 
@@ -44,7 +49,8 @@ Run once from the repository root (needs JAX):
 
 or name groups as arguments (``64k``, ``frames4k``, ``levels4k``,
 ``levels64k``, ``levels_frames4k``, ``deep4k``, ``deep64k_l10``,
-``deep64k_l11``, ``deep64k_l12``, ``deep_frames4k``, ``seqdec4k``); the
+``deep64k_l11``, ``deep64k_l12``, ``deep_frames4k``, ``seqdec4k``,
+``frags4k``); the
 groups are independent, so they may run as separate processes side by
 side (``seqdec4k`` reads the ``levels4k`` file).
 """
@@ -86,6 +92,7 @@ DEEP_LEVELS = (10, 11, 12)
 DEEP64K_OUT = os.path.join(HERE, "deep_corpus64k_l{}.npz")
 DEEP_FRAMES_OUT = os.path.join(HERE, "deep_frames4k.npz")
 SEQDEC_OUT = os.path.join(HERE, "seqdec4k.npz")
+FRAGS_OUT = os.path.join(HERE, "frags4k.npz")
 #: the "multi" input: 11 blocks of 4 KB across the text/XML boundary
 MULTI = slice(13 * BLK, 13 * BLK + 45_000)
 
@@ -250,6 +257,20 @@ def seqdec4k() -> None:
     np.savez_compressed(SEQDEC_OUT, **arrays)
 
 
+def frags4k() -> None:
+    import test_torch_frags as ttf      # the tables the test builds
+
+    arrays = {"names": np.array(ttf.NAMES)}
+    for name in ttf.GOLDEN:
+        out, ok = ttf.jax_outputs(name)
+        arrays[f"out_{name}"] = out
+        if ok is not None:
+            arrays[f"ok_{name}"] = ok
+        print(f"{name}: ok {None if ok is None else ok.astype(int).tolist()}",
+              flush=True)
+    np.savez_compressed(FRAGS_OUT, **arrays)
+
+
 def _frames(corpus: bytes, level: int) -> dict:
     """name -> the JAX codec's frame of each codec-test input, at 4 KB
     blocks and windows."""
@@ -293,7 +314,8 @@ def main():
               **{f"deep64k_l{lv}": (lambda lv=lv: deep64k(corpus, lv))
                  for lv in DEEP_LEVELS},
               "deep_frames4k": lambda: deep_frames4k(corpus),
-              "seqdec4k": seqdec4k}
+              "seqdec4k": seqdec4k,
+              "frags4k": frags4k}
     for name in sys.argv[1:] or groups:
         groups[name]()
 

@@ -13,9 +13,14 @@ dictionary frames written by the host frame layer, decoded by both
 codecs; independent frames again with the native runtime taken away,
 through the sequence-rebuild decoder, and single blocks through
 ``CUDACodec``.  The port runs on ``device="cpu"``: the plain versions of its
-kernels.  Tolerance: none; frames and contents are compared byte for
-byte, and errors by the name of the exception class (the two packages
-share no class).
+kernels.  The fragment-ladder engines ("win", "chase", "mixed") decode
+the JAX codec's frames at levels 0 and 9, host frames of 64 KB, 256 KB
+and 1 MB blocks and a dictionary frame; each block's route (tier and
+engine) is held against the tier membership computed with the
+reference's own resolver, predicates and tier tables, as its
+single-device branch computes it.  Tolerance: none; frames and contents
+are compared byte for byte, and errors by the name of the exception
+class (the two packages share no class).
 """
 
 import os
@@ -34,6 +39,7 @@ from zig_lz4_tpu_torch.corpus import make_corpus
 from zig_lz4_tpu_torch.models import CUDACodec
 from zig_lz4_tpu_torch.ops import torch_block as tb
 from zig_lz4_tpu_torch.ops.block import compress_fast, decompress_safe
+from zig_lz4_tpu_torch.parallel.sharded import _scan_blocks
 
 SMALL = 4096
 
@@ -235,8 +241,11 @@ def test_outside_the_slice_raises_not_implemented(port):
     with pytest.raises(NotImplementedError, match="item 5"):
         ShardedFrameCodec(dictionary=b"0123456789" * 10, device="cpu"
                           ).compress_frame(b"dictionary encode")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ShardedFrameCodec(decode_engine="win", device="cpu")
+    # the fragment-ladder engines decode
+    win = ShardedFrameCodec(decode_engine="win", device="cpu")
+    blob, content = _GOLDENS["periodic_match.lz4"]
+    assert win.decompress_frame(blob) == content
+    assert sum(win.tier_members.values()) == 1 and "tmap" not in win.routes
     with pytest.raises(ValueError):
         ShardedFrameCodec(decode_engine="bogus", device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
@@ -451,6 +460,248 @@ def test_errors_without_native(monkeypatch, codecs):
     big = _host_frame(lz4f, _linked_data(300_000), "max256KB", "independent")
     with pytest.raises(NotImplementedError, match="T-map"):
         ShardedFrameCodec(device="cpu").decompress_frame(big)
+
+
+# -- the fragment-ladder engines ---------------------------------------
+
+ENGINES = ("win", "chase", "mixed")
+
+
+def _reference_membership(frame: bytes, engine: str, dictionary=b""):
+    """route -> number of blocks, as the reference's ``_decode_records``
+    assigns the compressed blocks of ``frame`` to its ladder tiers on a
+    one-device mesh (zig_lz4_tpu/parallel/sharded.py:676-810), computed
+    with the reference's resolver, predicates and tier tables."""
+    from zig_lz4_tpu.constants import compress_bound
+    from zig_lz4_tpu.native import native_resolve_blocks
+    from zig_lz4_tpu.ops import jax_decode as jd
+    from zig_lz4_tpu.parallel import sharded as rs
+    info, pos = ref_frame.parse_frame_header(frame)
+    bs = info.block_size_id.to_block_size()
+    pays = []
+    while True:
+        word = int.from_bytes(frame[pos:pos + 4], "little")
+        pos += 4
+        if word == 0:
+            break
+        blen = word & 0x7FFFFFFF
+        if not word & 0x80000000:
+            pays.append(frame[pos:pos + blen])
+        pos += blen + (4 if info.block_checksum else 0)
+    dcap, ccap = len(dictionary), compress_bound(bs)
+    chase, mixed = engine == "chase", engine == "mixed"
+    use = rs._CHASE_TIERS if chase else rs._FRAG_TIERS[:-1]
+    rmax_resolve = rs._CHASE_RMAX if chase else rs._FRAG_RMAX
+
+    def supports(f_, c_, rmax):
+        if chase or (mixed and rmax > 2):
+            return jd.device_chase_decoder_supports(bs, f_, c_)
+        return jd.device_frag_decoder_supports(bs, f_, c_)
+
+    quanta = (bs // 4, bs // 2, ccap)
+
+    def fit(tiers):
+        out = []
+        for div, rmax in tiers:
+            q = next((q for q in reversed(quanta)
+                      if supports(bs // div, dcap + q, rmax)), 0)
+            if q:
+                out.append((bs // div, rmax, q))
+        return out
+
+    tiers = fit(use)
+    if not tiers and mixed:
+        tiers = fit(rs._FRAG_TIERS_BIG)
+    if not tiers or not pays:
+        return {}
+    lens = np.array([len(p) for p in pays], np.int64)
+    offs = np.zeros_like(lens)
+    offs[1:] = np.cumsum(lens)[:-1]
+    _fd, _fl, _fs, _fp, _fh, nfrag, rounds, olens = native_resolve_blocks(
+        b"".join(pays), offs, lens, max(f for f, _r, _q in tiers),
+        out_cap=bs, hist_len=dcap, split_max=rs._FRAG_SPLIT_MAX,
+        round_limit=rmax_resolve, reuse_buffers=False)
+    members, taken = {}, np.zeros(len(pays), bool)
+    for fcap, rmax, q in tiers:
+        fits = (~taken & (nfrag >= 0) & (nfrag <= fcap) & (rounds <= rmax)
+                & (olens <= bs) & (lens <= q))
+        taken |= fits
+        if not fits.any():
+            continue
+        fetch_t = dcap + next(x for x in quanta if x >= lens[fits].max())
+        if chase or (mixed and rmax > 2):
+            name = "chase"
+        elif jd.device_win_decoder_supports(bs, fcap, fetch_t):
+            name = f"win{16 if rmax <= 2 else 8}"
+        else:
+            name = "frags"
+        members[f"{name} fcap={fcap} rounds={rmax}"] = int(fits.sum())
+    return members
+
+
+def _check_routes(codec, frame, engine, dictionary=b""):
+    """The tiers were handed the blocks the reference gives them; a
+    tier accepted no more than it was handed; and what no tier took or
+    finished went through T-map as a counted leftover, nowhere else."""
+    want = _reference_membership(frame, engine, dictionary)
+    assert codec.tier_members == want
+    routes = dict(codec.routes)
+    stored = routes.pop("stored", 0)
+    leftover = routes.pop("leftover", 0)
+    assert routes.pop("tmap", 0) == leftover
+    assert set(routes) <= set(want)
+    assert all(routes[k] <= want[k] for k in routes)
+    info, pos = lz4f.parse_frame_header(frame)
+    n_blocks = len(_scan_blocks(frame, pos, info.block_checksum)[0])
+    assert sum(routes.values()) + leftover + stored == n_blocks
+    return sum(want.values()) - sum(routes.values())    # blocks rejected
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("level", [0, 9])
+@pytest.mark.parametrize("name", CORPUS + ("multi",))
+def test_ladder_engines_decode_reference_frames(name, level, engine, corpus,
+                                                jax_frames,
+                                                jax_level_frames):
+    """The JAX codec's 4 KB-block frames through each ladder engine
+    (tests/test_parallel.py:161-175)."""
+    data = _multi() if name == "multi" else corpus[name]
+    frame = jax_frames[name] if level == 9 else \
+        jax_level_frames[f"l{level}_{name}"]
+    port = ShardedFrameCodec(device="cpu", decode_engine=engine)
+    assert port.decompress_frame(frame) == data
+    rejected = _check_routes(port, frame, engine)
+    assert sum(port.routes.values()) - port.routes.get("leftover", 0) \
+        == -(-len(data) // SMALL)
+    if engine == "chase":       # natural chains, depth 64: every block
+        assert not rejected and "tmap" not in port.routes
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("bsid,level", [("max64KB", 0), ("max64KB", 9),
+                                        ("max256KB", 9), ("max1MB", 0)])
+def test_ladder_engines_decode_host_frames(bsid, level, engine):
+    """Whole blocks of every size: 64 KB blocks reach the windowed and
+    the chase tiers, 256 KB blocks the byte-granular decoder, and what
+    no tier takes is a counted leftover."""
+    data = make_corpus(2)[:1_300_000] if bsid != "max1MB" else \
+        (make_corpus(2)[13 * 65536:13 * 65536 + 40_000] * 30)[:1 << 20]
+    frame = _host_frame(lz4f, data, bsid, "independent", level=level)
+    port = ShardedFrameCodec(device="cpu", decode_engine=engine)
+    assert port.decompress_frame(frame) == data
+    _check_routes(port, frame, engine)
+    if bsid == "max256KB" and engine == "win":
+        assert any(k.startswith("frags ") for k in port.tier_members)
+    if bsid == "max64KB":
+        assert any(k.startswith(("chase ",) if engine == "chase" else
+                                ("win",) if engine == "win" else
+                                ("win", "chase "))
+                   for k in port.tier_members)
+    if bsid == "max1MB" and engine != "win":
+        assert any(k.startswith("chase ") for k in port.tier_members)
+
+
+def test_ladder_chase_with_dictionary():
+    """LIT sources arrive shifted by the dictionary's length, PER
+    sources do not (tests/test_parallel.py:194-204)."""
+    rng = np.random.default_rng(7)
+    d = rng.integers(0, 256, 1024, dtype=np.uint8).tobytes()
+    data = (d * 8)[:6000] + _linked_data(150_000, seed=5)
+    frame = _host_frame(lz4f, data, "max64KB", "independent", d, level=9)
+    port = ShardedFrameCodec(device="cpu", dictionary=d, dict_id=5,
+                             decode_engine="chase")
+    assert port.decompress_frame(frame) == data
+    _check_routes(port, frame, "chase", d)
+    assert sum(port.tier_members.values()) > 0
+    with pytest.raises(E.LZ4Error):
+        ShardedFrameCodec(device="cpu", decode_engine="chase"
+                          ).decompress_frame(frame)
+
+
+def test_ladder_rejected_blocks_go_through_tmap(monkeypatch):
+    """A block whose ``ok`` comes back clear is not accepted: it is
+    decoded again by T-map and counted as a leftover."""
+    from zig_lz4_tpu_torch.parallel import sharded
+    real = sharded.decode_blocks_frags_chase
+
+    def first_block_fails(*a, **k):
+        out, ok = real(*a, **k)
+        ok[0] = 0
+        out[0] = 0
+        return out, ok
+    monkeypatch.setattr(sharded, "decode_blocks_frags_chase",
+                        first_block_fails)
+    data = make_corpus(2)[:300_000]
+    frame = _host_frame(lz4f, data, "max64KB", "independent", level=9)
+    port = ShardedFrameCodec(device="cpu", decode_engine="chase")
+    assert port.decompress_frame(frame) == data
+    launches = len(port.tier_members)
+    assert port.routes["leftover"] == port.routes["tmap"] == launches
+    assert sum(port.tier_members.values()) == \
+        sum(v for k, v in port.routes.items() if k.startswith("chase ")) \
+        + launches
+
+
+def test_ladder_without_native_takes_the_sequence_decoder(monkeypatch, port):
+    from zig_lz4_tpu_torch.parallel import sharded
+    calls = _without_native(monkeypatch)
+    monkeypatch.setattr(sharded, "native_resolve_blocks",
+                        lambda *a, **k: None)
+    blob, content = _GOLDENS["periodic_match.lz4"]
+    mixed = ShardedFrameCodec(device="cpu", decode_engine="mixed")
+    assert mixed.decompress_frame(blob) == content
+    assert len(calls) == 1 and mixed.routes == {"seq": 1}
+
+
+def test_ladder_corrupt_block_names_frame_block():
+    bad = bytes([0x10, ord("A"), 0xFF, 0xFF, 0x00])   # offset past output
+    blob = make_goldens.frame([(b"stored block", True), (bad, False)])
+    for engine in ENGINES:
+        with pytest.raises(E.CorruptedData, match="frame block 1"):
+            ShardedFrameCodec(device="cpu", decode_engine=engine
+                              ).decompress_frame(blob)
+    blob = make_goldens.frame([(compress_fast(b"ab" * 65536), False)])
+    for engine in ENGINES:
+        with pytest.raises(E.CorruptedData, match="frame block 0"):
+            ShardedFrameCodec(device="cpu", decode_engine=engine
+                              ).decompress_frame(blob)
+
+
+@pytest.mark.parametrize("engine", ENGINES + ("tmap",))
+def test_from_reference_carries_decode_engine(engine, jax_codec, jax_frames,
+                                              corpus):
+    ref = jax_codec(compression_level=9, decode_engine=engine)
+    port = ShardedFrameCodec.from_reference(ref, device="cpu")
+    assert port.decode_engine == ref.decode_engine == engine
+    assert port.decompress_frame(jax_frames["lorem"]) == corpus["lorem"]
+    assert bool(port.tier_members) == (engine != "tmap")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ENGINES)
+def test_ladder_kernels_route_like_plain(engine):
+    """On the card the three kernels take the place of the plain
+    versions: the same content and the same routes, block for block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from zig_lz4_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    data = make_corpus(2)
+    d = data[70_000:140_000]
+    for bsid, dictionary in (("max64KB", None), ("max256KB", None),
+                             ("max64KB", d)):
+        frame = _host_frame(lz4f, data, bsid, "independent", dictionary,
+                            level=9)
+        on_cpu = ShardedFrameCodec(device="cpu", decode_engine=engine,
+                                   dictionary=dictionary)
+        on_card = ShardedFrameCodec(device="cuda", decode_engine=engine,
+                                    dictionary=dictionary)
+        reset_launch_counts()
+        assert on_card.decompress_frame(frame) == data
+        assert on_cpu.decompress_frame(frame) == data
+        assert on_card.routes == on_cpu.routes
+        assert on_card.tier_members == on_cpu.tier_members
+        assert sum(LAUNCHES[k] for k in ("frag_decode", "frag_decode_win",
+                                         "frag_decode_chase")) > 0
 
 
 # -- the single-block codec family ------------------------------------

@@ -35,6 +35,7 @@ def test_import_loads_no_jax_and_builds_nothing():
     r = _run("import sys\n"
              "import zig_lz4_tpu_torch, zig_lz4_tpu_torch.corpus\n"
              "from zig_lz4_tpu_torch.ops import torch_block, torch_decode\n"
+             "from zig_lz4_tpu_torch.ops import torch_frags\n"
              "from zig_lz4_tpu_torch import kernels\n"
              "print(sorted(m for m in sys.modules\n"
              "             if m == 'jax' or m.startswith('jax.')))\n"
@@ -55,7 +56,8 @@ def test_sources_name_no_jax():
     assert {os.path.basename(f) for f in files
             if f.endswith((".cu", ".cuh"))} == {
         "encode_block.cu", "encode_common.cuh", "encode_deep.cu",
-        "linked_tmap.cu", "seq_decode.cu", "tmap_gather.cu"}
+        "frag_common.cuh", "frag_decode.cu", "linked_tmap.cu",
+        "seq_decode.cu", "tmap_gather.cu"}
     files += [os.path.join(ROOT, "chip_smoke.py"),
               os.path.join(ROOT, "time_main_path.py")]
     reference = re.compile(r"zig_lz4_tpu(?!_torch)")

@@ -71,6 +71,15 @@ KERNELS = {
     "seq_decode": ("zl4_seq_decode", "seq_decode.cu",
                    [_P] * 11 + [_I] * 6,
                    "ops/jax_decode.py:120"),
+    "frag_decode": ("zl4_frag_decode", "frag_decode.cu",
+                    [_P] * 11 + [_I] * 5,
+                    "ops/jax_decode.py:342"),
+    "frag_decode_win": ("zl4_frag_decode_win", "frag_decode.cu",
+                        [_P] * 12 + [_I] * 10,
+                        "ops/jax_decode.py:461"),
+    "frag_decode_chase": ("zl4_frag_decode_chase", "frag_decode.cu",
+                          [_P] * 12 + [_I] * 7,
+                          "ops/jax_decode.py:798"),
 }
 #: launches per kernel since the last reset_launch_counts()
 LAUNCHES = {name: 0 for name in KERNELS}

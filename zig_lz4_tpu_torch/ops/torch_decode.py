@@ -25,6 +25,9 @@ the JAX reference.
   the block from the payload, the table and an optional history window
   (a dictionary or a streaming prefix).  This route needs no native
   runtime.  The CUDA kernel is ``kernels/csrc/seq_decode.cu``.
+* Blocks from fragment tables (``:292-965``, ``:1152-1340``): the three
+  fragment-ladder decoders live in ``ops/torch_frags.py`` and are
+  re-exported here, where the reference has them.
 """
 
 from __future__ import annotations
@@ -34,12 +37,27 @@ import torch
 
 from ..errors import CorruptedData
 from ..kernels import launch
+from .torch_frags import (decode_blocks_frags,  # noqa: F401  (re-exported)
+                          decode_blocks_frags_chase,
+                          decode_blocks_frags_chase_plain,
+                          decode_blocks_frags_plain, decode_blocks_frags_win,
+                          decode_blocks_frags_win_plain,
+                          device_chase_decoder_supports,
+                          device_frag_decoder_supports,
+                          device_win_decoder_supports, resolve_fragments_py,
+                          win_tier_config)
 
 __all__ = ["device_tmap_decoder_supports", "decode_blocks_tmap",
            "decode_blocks_tmap_plain", "linked_tmap_step",
            "linked_tmap_step_plain", "MAX_SEQS", "parse_sequences",
            "seqs_to_arrays", "device_seq_decoder_supports",
-           "decode_blocks", "decode_blocks_plain"]
+           "decode_blocks", "decode_blocks_plain",
+           "device_frag_decoder_supports", "device_win_decoder_supports",
+           "device_chase_decoder_supports", "win_tier_config",
+           "resolve_fragments_py", "decode_blocks_frags",
+           "decode_blocks_frags_plain", "decode_blocks_frags_win",
+           "decode_blocks_frags_win_plain", "decode_blocks_frags_chase",
+           "decode_blocks_frags_chase_plain"]
 
 #: largest block, and largest history, the sequence-rebuild kernel
 #: takes: the output block lives in one thread block's shared memory

@@ -1,5 +1,5 @@
-"""LZ4 frame codec on one CUDA device: levels 0-12 encode, T-map and
-sequence-rebuild decode.
+"""LZ4 frame codec on one CUDA device: levels 0-12 encode; T-map,
+fragment-ladder and sequence-rebuild decode.
 
 Counterpart of ``ShardedFrameCodec`` of the JAX reference
 (``parallel/sharded.py``) for 64 KB blocks at levels 0-12 on the encode
@@ -17,9 +17,18 @@ block size, with or without a dictionary.
                 ``[dictionary | payload]`` and T-maps staged to the
                 device -> the gather kernel (ops/torch_decode) ->
                 ordered gather.  Stored blocks are copied as they are.
-                Without the native runtime the payloads are parsed into
-                sequence tables in Python and rebuilt by the
-                sequence-rebuild kernel (blocks up to 64 KB).
+                Under ``decode_engine`` "win", "chase" or "mixed" the
+                fragment ladder goes first: one native
+                ``native_resolve_blocks`` per group of blocks -> each
+                block to the first tier (fragment budget, round depth,
+                payload quantum) that fits it -> fetch buffers and the
+                tier's fragment tables, a few thousand entries a block,
+                staged to the device -> the tier's engine
+                (ops/torch_frags) -> the blocks whose ``ok`` is set;
+                what no tier took or finished goes through the T-map
+                path.  Without the native runtime the payloads are
+                parsed into sequence tables in Python and rebuilt by
+                the sequence-rebuild kernel (blocks up to 64 KB).
               * linked blocks: windows of blocks, one native
                 ``native_resolve_tmap_linked`` per window -> payloads
                 and the window's T-map staged to the device -> the
@@ -43,7 +52,8 @@ import torch
 from .. import errors as E
 from .. import frame as lz4f
 from ..constants import WINDOW_SIZE, compress_bound
-from ..native import native_resolve_tmap, native_resolve_tmap_linked
+from ..native import (native_resolve_blocks, native_resolve_tmap,
+                      native_resolve_tmap_linked)
 from ..ops.torch_block import (device_encoder_supports, encode_blocks,
                                level_params)
 from ..ops.torch_decode import (MAX_SEQS, decode_blocks,
@@ -51,6 +61,12 @@ from ..ops.torch_decode import (MAX_SEQS, decode_blocks,
                                 device_seq_decoder_supports,
                                 linked_tmap_step, parse_sequences,
                                 seqs_to_arrays)
+from ..ops.torch_frags import (decode_blocks_frags,
+                               decode_blocks_frags_chase,
+                               decode_blocks_frags_win,
+                               device_chase_decoder_supports,
+                               device_frag_decoder_supports,
+                               device_win_decoder_supports)
 from ..utils.xxhash32 import xxh32, xxh32_stream
 from .device import resolve_device
 
@@ -71,6 +87,36 @@ _DEC_BYTES = 64 << 20
 #: reference (sharded.py:474-476)
 _LINK_NOUT = 1 << 21
 _LINK_PCQ = 1 << 20
+#: fragment-ladder tiers: (fcap divisor of the block size, most rounds).
+#: Most blocks fit the cheap tier; match-dense blocks go to the wider
+#: and deeper ones (reference: sharded.py:48-65).  One device takes the
+#: reference's single-device branch, which leaves the last tier out.
+_FRAG_TIERS = ((8, 2), (4, 8), (1, 12))
+#: narrow ladder for 1 MB and 4 MB blocks, taken when no tier above
+#: fits: at a payload of at most half the block the chase engine covers
+#: budgets of bs/64 and bs/256 fragments
+_FRAG_TIERS_BIG = ((64, 12), (256, 12))
+_FRAG_SPLIT_MAX = 8
+_FRAG_RMAX = _FRAG_TIERS[-1][1]
+#: chase tiers: (fcap divisor, deepest chain).  Pointer doubling reaches
+#: depth 2^(dense + doublings), so the resolver keeps natural chains
+#: (round_limit 64) instead of splitting matches to bound the rounds
+#: (reference: sharded.py:66-78)
+_CHASE_TIERS = ((4, 16), (2, 64), (1, 64), (32, 64))
+_CHASE_RMAX = 64
+#: host bytes of fragment tables per resolve (five int32 arrays of
+#: fcap columns a block); a frame with more resolves in groups of blocks
+_FRAG_TABLE_BYTES = 256 << 20
+
+
+def _chase_config(depth: int) -> tuple[int, int, int]:
+    """(dense, doublings, qcap) with 2^(dense + doublings) >= ``depth``:
+    depths up to 32 run dense rounds alone, deeper ones add rounds over
+    a pool of 4096 (reference: sharded.py:92-109)."""
+    e = max((depth - 1).bit_length(), 1)    # 2^e >= depth
+    dense = min(e, 5)
+    dbl = e - dense
+    return dense, dbl, 4096 if dbl else 0
 
 
 def _scan_blocks(comp: bytes, pos: int, block_checksum: bool):
@@ -133,16 +179,20 @@ class ShardedFrameCodec:
                  decode_engine: str = "tmap"):
         if decode_engine not in ("tmap", "win", "chase", "mixed"):
             raise ValueError(f"unknown decode_engine {decode_engine!r}")
-        if decode_engine != "tmap":
-            raise NotImplementedError(
-                f"decode_engine {decode_engine!r}: the fragment-ladder "
-                "engines are not ported; T-map covers every block "
-                "(ROADMAP Queue 1 item 9)")
         self.level = int(compression_level)
         # device-encoder quality knobs derived from the level
         # (reference: sharded.py:173-176)
         self.hc, self.deep = level_params(self.level)
+        #: "tmap": per-byte source maps and one gather a block, every
+        #: block.  "mixed": the fragment ladder, windowed on the
+        #: 2-round tier and chase deeper; "win" and "chase" force one
+        #: ladder engine everywhere ("chase" also resolves with natural
+        #: chains).  What the ladder leaves goes through T-map.
         self.decode_engine = decode_engine
+        #: blocks of the last ``decompress_frame`` by the route that
+        #: decoded them, and blocks each ladder tier was handed
+        self.routes: dict[str, int] = {}
+        self.tier_members: dict[str, int] = {}
         self.device = resolve_device(device)
         self.block_size = lz4f.BlockSizeID(block_size_id).to_block_size()
         self.dict = bytes(dictionary)[-WINDOW_SIZE:] if dictionary else b""
@@ -254,15 +304,33 @@ class ShardedFrameCodec:
     def decompress_frame(self, comp: bytes) -> bytes:
         """Decode a frame on the device: independent or linked blocks of
         any declared block size, against the codec's dictionary if it
-        has one.  Skippable frames go to the host frame layer."""
+        has one.  Skippable frames go to the host frame layer.
+        ``routes`` then says how many blocks went which way."""
         comp = bytes(comp)
+        self.routes, self.tier_members = {}, {}
+        parts = []
+        while True:                  # concatenated frames (lz4 CLI)
+            content, pos = self._decompress_one(comp)
+            parts.append(content)
+            if pos >= len(comp):
+                return b"".join(parts) if len(parts) > 1 else content
+            comp = comp[pos:]
+
+    def _count(self, route: str, n: int) -> None:
+        if n:
+            self.routes[route] = self.routes.get(route, 0) + n
+
+    def _decompress_one(self, comp: bytes) -> tuple[bytes, int]:
+        """(content of the frame at the start of ``comp``, its end)."""
         info, pos = lz4f.parse_frame_header(comp)
         if info.frame_type == lz4f.FrameType.skippable_frame:
-            return lz4f.decompress_frame(comp, dictionary=self.dict or None)
+            return (lz4f.decompress_frame(comp, dictionary=self.dict or None),
+                    len(comp))
         bs = info.block_size_id.to_block_size()
         records, pos = _scan_blocks(comp, pos, info.block_checksum)
         if info.block_mode == lz4f.BlockMode.linked:
             content = self._decode_linked(records, bs)
+            self._count("linked", len(records))
         else:
             content = b"".join(self._decode_records(records, bs))
 
@@ -276,9 +344,7 @@ class ShardedFrameCodec:
         if info.content_size and len(content) != info.content_size:
             raise E.FrameSizeWrong(
                 f"content size {info.content_size} != {len(content)}")
-        if pos < len(comp):          # concatenated frames (lz4 CLI)
-            return content + self.decompress_frame(comp[pos:])
-        return content
+        return content, pos
 
     def _resolve_linked_windows(self, records: list, bs: int):
         """Cut the records of a linked frame into windows and resolve
@@ -364,19 +430,154 @@ class ShardedFrameCodec:
 
     def _decode_records(self, payloads: list, bs: int) -> list:
         """Raw blocks of the (payload, uncompressed) records of an
-        independent-mode frame: stored blocks as they are, compressed
-        blocks through the T-map decoder, or through the
-        sequence-rebuild decoder when the native runtime did not
-        load."""
+        independent-mode frame: stored blocks as they are; compressed
+        blocks through the fragment ladder when the codec's engine asks
+        for it, then -- every block, or what the ladder left -- through
+        the T-map decoder; through the sequence-rebuild decoder when
+        the native runtime did not load."""
         results: list[bytes | None] = [None] * len(payloads)
         comp_idx = [k for k, (_, u) in enumerate(payloads) if not u]
         for k, (p, u) in enumerate(payloads):
             if u:
                 results[k] = p
-        if comp_idx and not self._decode_tmap(payloads, bs, comp_idx,
-                                              results):
-            self._decode_seqs(payloads, bs, comp_idx, results)
+        self._count("stored", len(payloads) - len(comp_idx))
+        rest = comp_idx
+        if rest and self.decode_engine != "tmap":
+            rest = self._decode_ladder(payloads, bs, comp_idx, results)
+            if rest is not None:
+                self._count("leftover", len(rest))
+            else:                           # no runtime, no ladder
+                rest = comp_idx
+        if rest:
+            if self._decode_tmap(payloads, bs, rest, results):
+                self._count("tmap", len(rest))
+            else:
+                self._decode_seqs(payloads, bs, rest, results)
+                self._count("seq", len(rest))
         return results
+
+    def _ladder_tiers(self, bs: int) -> tuple[list, int]:
+        """The tiers of this codec's engine that fit ``bs``-byte blocks,
+        as (fcap, rounds, largest payload), and the resolver's round
+        limit (reference: sharded.py:676-734).  A tier whose geometry
+        fits only a small fetch quantum restricts itself to payloads
+        that small, which is what gives 1 MB and 4 MB blocks a route."""
+        eng = self.decode_engine
+        mixed = eng == "mixed"
+        if eng == "chase":
+            use, rmax_resolve = _CHASE_TIERS, _CHASE_RMAX
+        else:
+            use, rmax_resolve = _FRAG_TIERS[:-1], _FRAG_RMAX
+
+        def supports(fcap, fetch_cap, rmax):
+            if eng == "chase" or (mixed and rmax > 2):
+                return device_chase_decoder_supports(bs, fcap, fetch_cap)
+            return device_frag_decoder_supports(bs, fcap, fetch_cap)
+
+        quanta = (bs // 4, bs // 2, compress_bound(bs))
+
+        def fit(tiers):
+            out = []
+            for div, rmax in tiers:
+                q = next((q for q in reversed(quanta)
+                          if supports(bs // div, self.dcap + q, rmax)), 0)
+                if q:
+                    out.append((bs // div, rmax, q))
+            return out
+
+        tiers = fit(use)
+        if not tiers and mixed:
+            tiers = fit(_FRAG_TIERS_BIG)
+        return tiers, rmax_resolve
+
+    def _decode_ladder(self, payloads: list, bs: int, comp_idx: list,
+                       results: list) -> list | None:
+        """Fragment-ladder decode of the compressed records ``comp_idx``
+        (reference: sharded.py:707-835): the host resolves each block
+        into a fragment table at the widest fitting budget; a block
+        goes to the first tier whose budget, depth and payload quantum
+        it meets, and is accepted when the tier's engine sets its
+        ``ok``.  Fills ``results`` in place and returns the records
+        that are still open; None, with nothing done, when the native
+        runtime did not load."""
+        tiers, rmax_resolve = self._ladder_tiers(bs)
+        if not tiers or not any(payloads[k][0] for k in comp_idx):
+            return list(comp_idx)
+        fcap_hi = max(f for f, _r, _q in tiers)
+        group = max(_FRAG_TABLE_BYTES // (20 * fcap_hi), 1)
+        for g0 in range(0, len(comp_idx), group):
+            grp = comp_idx[g0:g0 + group]
+            lens64 = np.array([len(payloads[k][0]) for k in grp], np.int64)
+            offs64 = np.zeros_like(lens64)
+            offs64[1:] = np.cumsum(lens64)[:-1]
+            concat = b"".join(payloads[k][0] for k in grp)
+            try:
+                # the tables are views of a buffer that the next resolve
+                # overwrites: each group is staged before the next one
+                r = native_resolve_blocks(
+                    concat, offs64, lens64, fcap_hi, out_cap=bs,
+                    hist_len=self.dcap, split_max=_FRAG_SPLIT_MAX,
+                    round_limit=rmax_resolve)
+            except E.CorruptedData as exc:
+                raise _frame_block_error(exc, "fragment resolve",
+                                         lambda k: grp[k]) from exc
+            if r is None:
+                return None
+            fdst, _flen, fsrc, fper, fph, nfrag, rounds, olens = r
+            taken = np.zeros(len(grp), bool)
+            for fcap, rmax, q in tiers:
+                fits = (~taken & (nfrag >= 0) & (nfrag <= fcap)
+                        & (rounds <= rmax) & (olens <= bs) & (lens64 <= q))
+                taken |= fits
+                self._run_tier(payloads, bs, grp, np.flatnonzero(fits),
+                               (fdst, fsrc, fper, fph, nfrag, olens),
+                               fcap, rmax, results)
+        return [k for k in comp_idx if results[k] is None]
+
+    def _run_tier(self, payloads: list, bs: int, grp: list, rows, tables,
+                  fcap: int, rmax: int, results: list) -> None:
+        """Decode the blocks ``grp[rows]`` with the engine of the tier
+        (``fcap``, ``rmax``), ``_DEC_BYTES`` of output a launch, each
+        launch at the smallest fetch quantum that holds its largest
+        payload, with the tables cut to its largest fragment count."""
+        fdst, fsrc, fper, fph, nfrag, olens = tables
+        dev, dcap, eng = self.device, self.dcap, self.decode_engine
+        quanta = (bs // 4, bs // 2, compress_bound(bs))
+        batch = max(_DEC_BYTES // bs, 1)
+        for c0 in range(0, len(rows), batch):
+            sel = rows[c0:c0 + batch]
+            need = max(len(payloads[grp[j]][0]) for j in sel)
+            fetch_t = dcap + next(q for q in quanta if q >= need)
+            bufs = np.zeros((len(sel), fetch_t), np.uint8)
+            if dcap:
+                bufs[:, :dcap] = np.frombuffer(self.dict, np.uint8)
+            for jj, j in enumerate(sel):
+                p = payloads[grp[j]][0]
+                bufs[jj, dcap:dcap + len(p)] = np.frombuffer(p, np.uint8)
+            ncol = max(int(nfrag[sel].max()), 1)
+            args = [torch.from_numpy(a).to(dev) for a in (
+                bufs, fdst[sel, :ncol], fsrc[sel, :ncol], fper[sel, :ncol],
+                fph[sel, :ncol], nfrag[sel], olens[sel].astype(np.int32))]
+            if eng == "chase" or (eng == "mixed" and rmax > 2):
+                name = "chase"
+                out, ok = decode_blocks_frags_chase(*args, bs,
+                                                    *_chase_config(rmax))
+            elif device_win_decoder_supports(bs, fcap, fetch_t):
+                g = 16 if rmax <= 2 else 8      # wide groups when shallow
+                name = f"win{g}"
+                out, ok = decode_blocks_frags_win(*args, rmax, bs, fcap=fcap,
+                                                  g=g)
+            else:
+                name = "frags"
+                out, ok = decode_blocks_frags(*args, rmax, bs)
+            out, ok = out.cpu().numpy(), ok.cpu().numpy()
+            route = f"{name} fcap={fcap} rounds={rmax}"
+            self.tier_members[route] = (self.tier_members.get(route, 0)
+                                        + len(sel))
+            self._count(route, int((ok != 0).sum()))
+            for jj, j in enumerate(sel):
+                if ok[jj]:
+                    results[grp[j]] = out[jj, :int(olens[j])].tobytes()
 
     def _decode_seqs(self, payloads: list, bs: int, comp_idx: list,
                      results: list) -> None:
