@@ -13,6 +13,14 @@ blocks, most of them through ``ShardedFrameCodec``:
 * linked frames: ``decompress_frame`` of a linked-block frame written
   by the host frame layer (``linked_tmap_step``,
   ``linked_hist_shift``), and dictionary frames of both kinds;
+* windows over 64 KB (``enc_match_wide`` with ``enc_parse_emit``): the
+  two kernels against their plain versions on wide edge windows and
+  corpus sub-span windows, the JAX payloads of
+  ``tests/fixtures/wide_corpus.npz``, then ``compress_frame`` and both
+  decoders of 16 MB with a 70,000-byte dictionary at levels 9 and 0
+  (131,072-byte windows), of 16 MB in 256 KB blocks at level 9, of the
+  corpus in 1 MB blocks at levels 9 and 0 and of 16 MB in 4 MB blocks
+  at level 9 (327,680-byte sub-span windows);
 * levels 10, 11 and 12: ``compress_frame`` through the deep finder, the
   price parse and the extension (``enc_deep_match``, ``enc_deep_dp``,
   ``enc_deep_emit``), each frame decoded by the host decoder and by the
@@ -20,10 +28,12 @@ blocks, most of them through ``ShardedFrameCodec``:
 * the block codec ``get_codec("cuda12")``: ``compress`` then
   ``decompress`` of one block through the sequence-rebuild decoder
   (``seq_decode``); the batched ``decode_blocks`` over the compressed
-  blocks of the level-12 frame; and ``decompress_frame`` of an
-  independent frame in a child process that runs without the native
-  host runtime (``ZIG_LZ4_TPU_NO_NATIVE=1``), where ``seq_decode``
-  takes the place of the T-map decoder;
+  blocks of the level-12 frame, and the serial decoder (``serial_decode``,
+  the counterpart of the Pallas decoder ``experiments/pallas_decode.py``)
+  over the same blocks; and ``decompress_frame`` of an independent frame
+  in a child process that runs without the native host runtime
+  (``ZIG_LZ4_TPU_NO_NATIVE=1``), where ``seq_decode`` takes the place of
+  the T-map decoder;
 * the fragment ladder: ``decompress_frame`` under ``decode_engine``
   "mixed", "win" and "chase" of the level-9 frame and under "mixed" of
   the level-0 frame (``frag_decode_win``, ``frag_decode_chase``, and
@@ -31,17 +41,24 @@ blocks, most of them through ``ShardedFrameCodec``:
   blocks under "win" (``frag_decode``), of a frame of 1 MB blocks under
   "mixed" (the narrow big-block tiers of ``frag_decode_chase``) and of
   a dictionary frame under "chase"; each path prints its blocks by
-  route.
+  route;
+* the bitonic probe (``bitonic_sort2``, the counterpart of the Pallas
+  sort ``experiments/pallas_sort_probe.py``) at 1 and 64 rows of 65,536
+  int32 keys and payloads, against its plain version and
+  ``torch.sort``.
 
 The plain versions of the deep encoder kernels run Python loops over
 every position, so those kernels are held against them on the edge-case
 windows and on every 12th corpus block (64 windows, every content
 type); all 768 windows are held by the level-12 ratio, by the checked-in
-JAX payloads and by the round trips.
+JAX payloads and by the round trips.  The wide kernels meet their plain
+versions on every 12th window of the 1 MB paths as well.
 
 It checks the round trips and the ratios, shows by launch counts that
-each path went through its kernels, times paths and kernels with CUDA
-events, and computes each kernel's bound from this run's inputs.
+each path went through its kernels (the wide paths through
+``enc_match_wide`` and never the 64 KB finders), times paths and kernels
+with CUDA events, and computes each kernel's bound from this run's
+inputs.
 
 Run from the repository root, with one CUDA device:
 
@@ -107,6 +124,18 @@ LADDER_CHASE = ((8, 64), [
     dict(dense=3, doublings=0, qcap=0), dict(dense=4, doublings=0, qcap=0),
     dict(dense=5, doublings=1, qcap=4096),
     dict(dense=0, doublings=1, qcap=0, clears=True)])
+#: windows over 64 KB (enc_match_wide): make_corpus(2) windows and their
+#: JAX payloads; the width of the sub-span windows of 1 MB and 4 MB
+#: blocks; the configurations held against plain on the wide edge
+#: windows: (hc, accel)
+WIDE_GOLDENS = os.path.join("tests", "fixtures", "wide_corpus.npz")
+SUB_WINDOW = 327680
+WIDE_CONFIGS = [(9, 1), (4, 1), (0, 1), (0, 8)]
+#: wide windows of the 1 MB path held against the plain versions (every
+#: 12th of 192)
+WIDE_PLAIN_STRIDE = 12
+#: rows of the bitonic probe (P2), 65,536 int32 keys each
+SORT_BATCHES = (1, 64)
 #: published peaks of one H100 SXM: device memory bytes/s, and 32-bit
 #: scalar operations/s outside the tensor cores (the float32 rate; the
 #: kernels' compares and shifts are counted against it)
@@ -242,6 +271,59 @@ def deep_match_ops(B, blk, hc, deep):
     return B * ops
 
 
+def wide_edge_inputs(np, data):
+    """Windows over 64 KB that the goldens do not cover, 131,072 bytes
+    wide: all zero, random, n == start, n < 4, n % 4 != 0, a match
+    exactly 65,535 bytes back into the history, a history of 10,000
+    bytes, and a corpus block behind the 64 KB before it; then two
+    327,680-byte sub-span windows of the corpus.  Returns ((windows,
+    lens, starts) at 131,072, the same at 327,680)."""
+    blk, h = 2 * BLK, BLK
+    rng = np.random.default_rng(65535)
+    rows = [(np.zeros(blk, np.uint8), blk, h),
+            (rng.integers(0, 256, blk, dtype=np.uint8), blk, h),
+            (rng.integers(0, 256, blk, dtype=np.uint8), h, h),
+            (rng.integers(0, 256, blk, dtype=np.uint8), 3, 0),
+            (rng.integers(0, 4, blk, dtype=np.uint8), 100_003, 0)]
+    far = rng.integers(0, 256, blk, dtype=np.uint8)
+    far[h + 1000:h + 1100] = far[1001:1101]         # offset 65,535
+    rows.append((far, blk, h))
+    short = rng.integers(0, 256, blk, dtype=np.uint8)
+    short[20_000:20_300] = short[500:800]
+    rows.append((short, 70_000, 10_000))
+    rows.append((np.frombuffer(data[40 * BLK:42 * BLK], np.uint8), blk, h))
+    sets = []
+    for width, rows_ in ((blk, rows), (SUB_WINDOW, [
+            (np.frombuffer(data[o:o + SUB_WINDOW], np.uint8), SUB_WINDOW, h)
+            for o in (0, 60 * BLK)])):
+        windows = np.stack([r for r, _n, _s in rows_])
+        assert windows.shape[1] == width
+        sets.append((windows, np.array([n for _r, n, _s in rows_], np.int32),
+                     np.array([s_ for _r, _n, s_ in rows_], np.int32)))
+    return sets
+
+
+class EncodeRecorder:
+    """Records what the frame codec hands to ``encode_blocks`` while a
+    path runs, so that the kernels can be timed alone at the path's
+    shapes afterwards."""
+
+    def __init__(self, sh):
+        self.sh, self.calls = sh, []
+
+    def __enter__(self):
+        self.real = self.sh.encode_blocks
+
+        def call(*a, **k):
+            self.calls.append((a, k))
+            return self.real(*a, **k)
+        self.sh.encode_blocks = call
+        return self
+
+    def __exit__(self, *exc):
+        self.sh.encode_blocks = self.real
+
+
 def decode_without_native():
     """The child process of the no-native check: reads a frame from
     stdin, decodes it on the card with the native host runtime switched
@@ -263,6 +345,7 @@ def decode_without_native():
 
 
 def main():
+    t_run = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("[device] FAIL: torch.cuda.is_available() is false",
@@ -607,6 +690,115 @@ def main():
     print(f"[dict] linked and independent frames of {len(part)} bytes with "
           f"a {len(d)}-byte dictionary: port decode ok")
 
+    # --- phase 5b: windows over 64 KB.  enc_match_wide and enc_parse_emit
+    # against their plain versions, every configuration, on the wide edge
+    # windows and two sub-span windows of the corpus; then the JAX
+    # payloads of the wide goldens
+    from zig_lz4_tpu_torch.parallel import sharded as sh
+    wide_err = {"enc_match_wide": 0, "enc_parse_emit": 0}
+    for windows_w, lens_w, starts_w in wide_edge_inputs(np, data):
+        w_e, l_e, s_e = (torch.from_numpy(a).to(dev)
+                         for a in (windows_w, lens_w, starts_w))
+        width = windows_w.shape[1]
+        for hc, accel in (WIDE_CONFIGS if width < SUB_WINDOW
+                          else [(9, 1), (0, 1)]):
+            pk_e = tb.match_candidates(w_e, l_e, hc, accel)
+            pk_ep = tb.match_candidates_plain(w_e, l_e, hc, accel)
+            out_e, olen_e = tb.parse_emit(w_e, l_e, s_e, pk_e, hc, accel)
+            out_ep, olen_ep = tb.parse_emit_plain(w_e, l_e, s_e, pk_e, hc,
+                                                  accel)
+            err_m = max_abs_err(pk_e, pk_ep)
+            err_p = max(max_abs_err(out_e, out_ep),
+                        max_abs_err(olen_e, olen_ep))
+            wide_err["enc_match_wide"] = max(wide_err["enc_match_wide"],
+                                             err_m)
+            wide_err["enc_parse_emit"] = max(wide_err["enc_parse_emit"],
+                                             err_p)
+            out_h, olen_h = out_e.cpu().numpy(), olen_e.cpu().numpy()
+            for k in range(len(lens_w)):      # the host oracle decodes each
+                n_k, s_k = int(lens_w[k]), int(starts_w[k])
+                got = lz4f_block_decode(out_h[k, :olen_h[k]].tobytes(),
+                                        windows_w[k, :s_k].tobytes(),
+                                        n_k - s_k)
+                check(got == windows_w[k, s_k:n_k].tobytes(),
+                      f"wide payload {k} at {width} bytes, hc={hc} does "
+                      "not decode")
+            print(f"[wide] hc={hc} accel={accel} at {len(lens_w)} x {width} "
+                  f"bytes: enc_match_wide vs plain max_abs_err {err_m}, "
+                  f"enc_parse_emit vs plain max_abs_err {err_p}; out_len "
+                  f"{olen_h.tolist()}; every payload decodes")
+            check(err_m == 0 and err_p == 0,
+                  f"wide kernels differ from plain at {width}, hc={hc}")
+    del w_e, pk_e, pk_ep, out_e, out_ep
+    wg = np.load(WIDE_GOLDENS)
+    corpus_g = make_corpus(int(wg["corpus_mb"]))
+    wide_gold_ok = {}
+    for gname in ("w131k", "w262k", "w327k"):
+        blk_g, start_g = int(wg[f"{gname}_blk"]), int(wg[f"{gname}_start"])
+        lens_g = wg[f"{gname}_lens"]
+        windows_g = np.zeros((len(lens_g), blk_g), np.uint8)
+        for k, (o, n_) in enumerate(zip(wg[f"{gname}_offsets"], lens_g)):
+            windows_g[k, :n_] = np.frombuffer(corpus_g[o:o + n_], np.uint8)
+        w_g = torch.from_numpy(windows_g).to(dev)
+        l_g = torch.from_numpy(lens_g).to(dev)
+        s_g = torch.full_like(l_g, start_g)
+        for hc in wg[f"{gname}_hcs"].tolist():
+            out_g, olen_g = tb.encode_blocks(w_g, l_g, s_g, hc=hc)
+            wide_gold_ok[f"{gname} hc={hc}"] = equals_goldens(
+                out_g.cpu().numpy(), olen_g.cpu().numpy(),
+                wg[f"{gname}_hc{hc}_out_len"], wg[f"{gname}_hc{hc}_payloads"])
+    print(f"[wide] make_corpus(2) windows == JAX goldens: {wide_gold_ok}")
+    check(all(wide_gold_ok.values()), "wide encode differs from JAX goldens")
+
+    # --- phase 5c: frames whose windows are over 64 KB, counted,
+    # round-tripped by the host decoder and by the port, then timed:
+    # dictionary frames (windows of 131,072 bytes), 256 KB blocks, and 1 MB
+    # and 4 MB blocks as 327,680-byte sub-span windows
+    wide_rec, wide_ratio = {}, {}
+
+    def wide_path(what, cdc, part_w, plain_ratio=None):
+        def run():
+            fr_w = cdc.compress_frame(part_w)
+            return fr_w, cdc.decompress_frame(fr_w)
+        with EncodeRecorder(sh) as rec:
+            fr_w, back_w = counted(what, run, ("enc_match_wide",
+                                               "enc_parse_emit", "tmap_gather"))
+        check(paths[what]["enc_match"] == 0
+              and paths[what]["enc_match_fast"] == 0,
+              f"{what}: a window went to the 64 KB finders")
+        check(back_w == part_w, f"{what}: port decode of the port's frame")
+        check(lz4f.decompress_frame(fr_w, dictionary=cdc.dict or None)
+              == part_w, f"{what}: host decode of the port's frame")
+        wide_rec[what] = rec.calls
+        wide_ratio[what] = len(part_w) / len(fr_w)
+        t_w = timed(lambda: cdc.compress_frame(part_w), 3)
+        print(f"[wide] {what}: {len(part_w)} bytes -> frame {len(fr_w)} "
+              f"bytes in {sum(c[0][0].shape[0] for c in rec.calls)} windows "
+              f"of {rec.calls[0][0][0].shape[1]} bytes; host decode ok; port "
+              f"decode ok; n / frame bytes = {wide_ratio[what]:.6f}"
+              + (f" (without the dictionary: {plain_ratio:.6f})"
+                 if plain_ratio else ""))
+        print(f"[time] {smi}: {what}, median of 3: compress_frame "
+              f"{fmt(t_w)}")
+        return fr_w
+
+    part_d = data[5 << 20:21 << 20]
+    for level, cdc_plain in ((9, codec), (0, codec0)):
+        wide_path(f"dictionary, level {level}",
+                  ShardedFrameCodec(device="cuda", dictionary=d,
+                                    compression_level=level), part_d,
+                  len(part_d) / len(cdc_plain.compress_frame(part_d)))
+    wide_path("256 KB blocks, level 9", ShardedFrameCodec(
+        device="cuda", compression_level=9,
+        block_size_id=lz4f.BlockSizeID.max256KB), data[:16 << 20])
+    for level in (9, 0):
+        wide_path(f"1 MB blocks, level {level}", ShardedFrameCodec(
+            device="cuda", compression_level=level,
+            block_size_id=lz4f.BlockSizeID.max1MB), data)
+    wide_path("4 MB blocks, level 9", ShardedFrameCodec(
+        device="cuda", compression_level=9,
+        block_size_id=lz4f.BlockSizeID.max4MB), data[:16 << 20])
+
     # --- phase 6: the deep levels at full width, counted, then timed
     deep_frames, deep_ratio = {}, {}
     for level in DEEP_LEVELS:
@@ -727,7 +919,36 @@ def main():
           f"blocks {k1_same:.4f} ms; host parse {t_parse * 1e3:.2f} ms, "
           f"staging {t_stage_s:.2f} ms); at {sub[0].shape[0]} blocks "
           f"{k_seq_sub:.3f} ms, plain {p_seq:.1f} ms")
-    del seq_in, out_s, sub, kern_s, plain_s
+
+    # P1: the serial decoder over the same 672 blocks, counted; against
+    # seq_decode's out (the other route for the same semantics), and
+    # against its plain version on the same 32 blocks
+    from zig_lz4_tpu_torch.probes import serial_decode as sd
+    out_p1, olen_p1 = counted("serial decode, level-12 frame",
+                              lambda: sd.decode_blocks_serial(*seq_in, BLK),
+                              ("serial_decode",))
+    err_p1_k6 = max(max_abs_err(out_p1, out_s),
+                    max_abs_err(olen_p1, olen_s))
+    k_p1, _ = cuda_ms(lambda: sd.decode_blocks_serial(*seq_in, BLK), 5)
+    p_p1, plain_p1 = cuda_ms(lambda: sd.decode_blocks_serial_plain(*sub,
+                                                                    BLK))
+    _k, kern_p1 = cuda_ms(lambda: sd.decode_blocks_serial(*sub, BLK))
+    err_p1 = max(max_abs_err(a, b) for a, b in zip(kern_p1, plain_p1))
+    print(f"[P1] serial_decode over the {len(recs12)} compressed blocks of "
+          f"the level-12 frame: vs seq_decode's out and out_len max_abs_err "
+          f"{err_p1_k6}; vs plain on {sub[0].shape[0]} blocks max_abs_err "
+          f"{err_p1}")
+    check(err_p1_k6 == 0 and err_p1 == 0,
+          "P1 differs from seq_decode or from plain")
+    results["serial_decode"].update(
+        max_abs_err=max(err_p1, err_p1_k6), ms=k_p1, plain_ms=p_p1,
+        plain_blocks=int(sub[0].shape[0]), bound_ms=b_seq[0],
+        bound_by=b_seq[1], library_ms=None, seq_decode_ms=k_seq)
+    print(f"[time] {smi}: serial_decode at {len(recs12)} x 64 KB "
+          f"{k_p1:.3f} ms (bound {b_seq[0]:.4f} ms by {b_seq[1]}; seq_decode "
+          f"on the same blocks {k_seq:.3f} ms), plain at {sub[0].shape[0]} "
+          f"blocks {p_p1:.1f} ms")
+    del seq_in, out_s, sub, kern_s, plain_s, out_p1, kern_p1, plain_p1
 
     # a frame of every 12th block, decoded by a child process that runs
     # without the native host runtime: seq_decode instead of tmap_gather
@@ -1062,6 +1283,54 @@ def main():
     ladder_stages("level-0 frame, mixed", engine_codec("mixed"), frame0, BLK)
     probes.clear()
 
+    # --- phase 7c: P2, the bitonic probe: bitonic_sort2 at 1 and 64 rows
+    # of 65,536 keys, counted, against its plain version and torch.sort
+    from zig_lz4_tpu_torch.probes import sort_probe as sp
+    gen = torch.Generator().manual_seed(80)
+    sort_in = {}
+    for B_s in SORT_BATCHES:
+        keys_s = torch.randint(0, 1 << 30, (B_s, sp.N), generator=gen,
+                               dtype=torch.int32)
+        keys_s[:, ::3] = keys_s[:, :1]          # ties keep their pairs
+        sort_in[B_s] = (keys_s.to(dev), torch.arange(
+            sp.N, dtype=torch.int32).repeat(B_s, 1).to(dev))
+    sorted_s = counted("bitonic probe, 1 and 64 rows", lambda: {
+        B_s: sp.bitonic_sort2(*a) for B_s, a in sort_in.items()},
+        ("bitonic_sort2",))
+    err_sort = 0
+    for B_s, (ko, vo) in sorted_s.items():
+        kp, vp = sp.bitonic_sort2_plain(*sort_in[B_s])
+        kl, _vl = sp.library_sort2(*sort_in[B_s])
+        err_sort = max(err_sort, max_abs_err(ko, kp), max_abs_err(vo, vp),
+                       max_abs_err(ko, kl))
+        check(torch.equal(torch.gather(sort_in[B_s][0], 1, vo.long()), ko),
+              "P2 payload is not the keys' permutation")
+    check(err_sort == 0, "P2 differs from plain or from torch.sort's keys")
+    sort_ms = {}
+    for B_s, a in sort_in.items():
+        sp.library_sort2(*a)
+        sort_ms[B_s] = (cuda_ms(lambda: sp.bitonic_sort2(*a), 20)[0],
+                        cuda_ms(lambda: sp.bitonic_sort2_plain(*a), 2)[0],
+                        cuda_ms(lambda: sp.library_sort2(*a), 20)[0])
+    B_s = max(SORT_BATCHES)
+    # 16 bytes a pair in and out; 136 stages of N/2 compare-exchanges of a
+    # compare and two selects
+    b_sort = bound(16 * B_s * sp.N, 3 * 136 * (sp.N // 2) * B_s)
+    results["bitonic_sort2"].update(
+        max_abs_err=err_sort, ms=sort_ms[B_s][0], plain_ms=sort_ms[B_s][1],
+        bound_ms=b_sort[0], bound_by=b_sort[1], library_ms=sort_ms[B_s][2],
+        rows=B_s, ms_by_rows={b: v[0] for b, v in sort_ms.items()},
+        library_ms_by_rows={b: v[2] for b, v in sort_ms.items()})
+    print(f"[P2] bitonic_sort2 vs plain and vs torch.sort's keys max_abs_err "
+          f"{err_sort} at {list(SORT_BATCHES)} rows of {sp.N}")
+    for B_s, (k_ms_, p_ms_, l_ms_) in sort_ms.items():
+        print(f"[time] {smi}: bitonic_sort2 at {B_s} x {sp.N} int32 pairs "
+              f"{k_ms_:.4f} ms (plain {p_ms_:.2f} ms, torch.sort with the "
+              f"payload gathered {l_ms_:.4f} ms)"
+              + (f"; bound {b_sort[0]:.5f} ms by {b_sort[1]}"
+                 if B_s == max(SORT_BATCHES) else ""))
+    del sort_in, sorted_s
+
     # --- phase 8: launch counts over the paths
     print(f"[launches] all paths: {counts}")
     check(all(counts[k] > 0 for k in KERNELS),
@@ -1162,6 +1431,58 @@ def main():
               f"{k} {b[0]:.4f} ms by {b[1]}" for k, b in b_deep.items())
           + f"; plain versions at {int(sel.numel())} x 64 KB, level 12: "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in deep_plain_ms[12].items()))
+
+    # the wide kernels at the launches of the 1 MB paths (192 sub-span
+    # windows), against their plain versions on every 12th window
+    wide_ms = {}
+    for level in (9, 0):
+        (w_1m, l_1m, s_1m), kw_1m = wide_rec[f"1 MB blocks, level {level}"][0]
+        hc = kw_1m["hc"]
+        tb.match_candidates(w_1m, l_1m, hc)
+        k_wm, pk_1m = cuda_ms(lambda: tb.match_candidates(w_1m, l_1m, hc), 2)
+        k_we, _o = cuda_ms(
+            lambda: tb.parse_emit(w_1m, l_1m, s_1m, pk_1m, hc), 2)
+        sel_w = torch.arange(0, w_1m.shape[0], WIDE_PLAIN_STRIDE, device=dev)
+        w_s, l_s, s_s, pk_s = w_1m[sel_w], l_1m[sel_w], s_1m[sel_w], \
+            pk_1m[sel_w]
+        p_wm, pk_sp = cuda_ms(lambda: tb.match_candidates_plain(w_s, l_s,
+                                                                hc))
+        p_we, (out_sp, olen_sp) = cuda_ms(
+            lambda: tb.parse_emit_plain(w_s, l_s, s_s, pk_s, hc))
+        out_sk, olen_sk = tb.parse_emit(w_s, l_s, s_s, pk_s, hc)
+        err_wm = max_abs_err(pk_s, pk_sp)
+        err_we = max(max_abs_err(out_sk, out_sp),
+                     max_abs_err(olen_sk, olen_sp))
+        check(err_wm == 0 and err_we == 0,
+              f"wide kernels differ from plain on the 1 MB level-{level} "
+              "windows")
+        wide_err["enc_match_wide"] = max(wide_err["enc_match_wide"], err_wm)
+        wide_err["enc_parse_emit"] = max(wide_err["enc_parse_emit"], err_we)
+        B_w, blk_w = w_1m.shape
+        b_wm = bound(B_w * blk_w + 4 * B_w + 4 * B_w * blk_w,
+                     match_ops(B_w, blk_w, hc, 8, 2))
+        wide_ms[level] = dict(match=k_wm, emit=k_we, plain_match=p_wm,
+                              plain_emit=p_we, bound=b_wm, B=B_w,
+                              plain_windows=int(sel_w.numel()))
+        print(f"[time] {smi}: 1 MB blocks, level {level}: {B_w} x {blk_w} "
+              f"windows: enc_match_wide {k_wm:.2f} ms (plain at "
+              f"{sel_w.numel()} windows {p_wm:.1f} ms; bound "
+              f"{b_wm[0]:.4f} ms by {b_wm[1]}), enc_parse_emit {k_we:.2f} ms "
+              f"(plain at {sel_w.numel()} windows {p_we:.1f} ms); vs plain "
+              f"max_abs_err {err_wm}, {err_we}")
+    del w_1m, pk_1m, _o, wide_rec
+    results["enc_match_wide"].update(
+        max_abs_err=wide_err["enc_match_wide"], ms=wide_ms[9]["match"],
+        ms_level0=wide_ms[0]["match"], plain_ms=wide_ms[9]["plain_match"],
+        plain_windows=wide_ms[9]["plain_windows"], windows=wide_ms[9]["B"],
+        window_bytes=SUB_WINDOW, bound_ms=wide_ms[9]["bound"][0],
+        bound_by=wide_ms[9]["bound"][1], library_ms=None)
+    results["enc_parse_emit"].update(
+        max_abs_err=max(results["enc_parse_emit"]["max_abs_err"],
+                        wide_err["enc_parse_emit"]),
+        wide_ms={lv: v["emit"] for lv, v in wide_ms.items()},
+        wide_plain_ms={lv: v["plain_emit"] for lv, v in wide_ms.items()},
+        wide_max_abs_err=wide_err["enc_parse_emit"])
 
     # decode: every compressed block of the level-9 frame in one launch
     _idx, recs = frame_payloads(frame, lz4f)
@@ -1303,6 +1624,8 @@ def main():
                                    "bound_ms", "bound_by", "library_ms")
                    if key not in entry]
         check(not missing, f"{entry['name']} lacks {missing}")
+    print(f"[total] {time.perf_counter() - t_run:.1f} s, the kernels' build "
+          "included")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

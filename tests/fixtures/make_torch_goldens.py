@@ -50,7 +50,7 @@ Run once from the repository root (needs JAX):
 or name groups as arguments (``64k``, ``frames4k``, ``levels4k``,
 ``levels64k``, ``levels_frames4k``, ``deep4k``, ``deep64k_l10``,
 ``deep64k_l11``, ``deep64k_l12``, ``deep_frames4k``, ``seqdec4k``,
-``frags4k``); the
+``frags4k``, ``wide``, ``sort2``); the
 groups are independent, so they may run as separate processes side by
 side (``seqdec4k`` reads the ``levels4k`` file).
 """
@@ -93,6 +93,35 @@ DEEP64K_OUT = os.path.join(HERE, "deep_corpus64k_l{}.npz")
 DEEP_FRAMES_OUT = os.path.join(HERE, "deep_frames4k.npz")
 SEQDEC_OUT = os.path.join(HERE, "seqdec4k.npz")
 FRAGS_OUT = os.path.join(HERE, "frags4k.npz")
+WIDE_OUT = os.path.join(HERE, "wide_corpus.npz")
+#: wide window goldens: name -> (window bytes, [(corpus offset, valid
+#: length)], emission start, hc values); a length past the corpus's end
+#: is cut to it
+WIDE_SETS = {
+    "w131k": (131072, [(8 * BLK, 131072), (17 * BLK, 131072)], 65536,
+              (9, 0)),
+    "w262k": (262144, [(28 * BLK, 262144)], 0, (9,)),
+    "w327k": (327680, [(15 * BLK, 327680), (0, 65536 + 70_000)], 65536,
+              (9, 0)),
+}
+#: the frame goldens' input, and the dictionary of the dictionary frame
+WIDE_FRAME = slice(0, 1_400_000)
+WIDE_DICT = slice(9 * BLK, 9 * BLK + 70_000)
+#: frame golden name -> (block size name, level, with the dictionary)
+WIDE_FRAMES = {"max1MB_l9": ("max1MB", 9, False),
+               "max4MB_l9": ("max4MB", 9, False),
+               "max256KB_l0": ("max256KB", 0, False),
+               "dict_l9": ("max64KB", 9, True)}
+#: the two short frames of test_torch_codec's
+#: test_outside_the_slice_raises_not_implemented: name -> (data, block
+#: size name, level, dictionary)
+WIDE_SMALL = {"small_dict": (b"dictionary encode", "max64KB", 0,
+                             b"0123456789" * 10),
+              "small_256k": (b"256 KB blocks", "max256KB", 9, None)}
+SORT2_OUT = os.path.join(HERE, "sort2_probe.npz")
+#: keys of the probe golden: 65,536 from [0, SORT2_RANGE), seed 2
+SORT2_RANGE = 64
+SORT2_HEAD = 512
 #: the "multi" input: 11 blocks of 4 KB across the text/XML boundary
 MULTI = slice(13 * BLK, 13 * BLK + 45_000)
 
@@ -271,6 +300,105 @@ def frags4k() -> None:
     np.savez_compressed(FRAGS_OUT, **arrays)
 
 
+def wide_windows(corpus: bytes, name: str):
+    """(windows uint8[W, blk], lens int32[W], starts int32[W]) of one
+    ``WIDE_SETS`` entry."""
+    blk, rows, start, _hcs = WIDE_SETS[name]
+    windows = np.zeros((len(rows), blk), np.uint8)
+    lens = np.zeros(len(rows), np.int32)
+    for k, (off, n) in enumerate(rows):
+        piece = corpus[off:off + min(n, blk)]
+        windows[k, :len(piece)] = np.frombuffer(piece, np.uint8)
+        lens[k] = len(piece)
+    return windows, lens, np.full(len(rows), start, np.int32)
+
+
+def wide_frame_inputs(corpus: bytes):
+    """(data, dictionary) of the wide frame goldens."""
+    return corpus[WIDE_FRAME], corpus[WIDE_DICT]
+
+
+def wide(corpus: bytes) -> None:
+    import hashlib
+
+    from zig_lz4_tpu import frame as ref_frame
+    from zig_lz4_tpu.ops.jax_block import encode_blocks_jax
+    from zig_lz4_tpu.parallel import ShardedFrameCodec
+
+    arrays = {"corpus_mb": np.int64(CORPUS_MB)}
+    for name, (blk, rows, start, hcs) in WIDE_SETS.items():
+        windows, lens, starts = wide_windows(corpus, name)
+        arrays[f"{name}_blk"] = np.int64(blk)
+        arrays[f"{name}_offsets"] = np.array([o for o, _n in rows], np.int64)
+        arrays[f"{name}_lens"] = lens
+        arrays[f"{name}_start"] = np.int64(start)
+        arrays[f"{name}_hcs"] = np.array(hcs, np.int64)
+        for hc in hcs:
+            out_len, payloads = _dense(*encode_blocks_jax(
+                windows, lens, blk=blk, starts=starts, hc=hc))
+            arrays[f"{name}_hc{hc}_out_len"] = out_len
+            arrays[f"{name}_hc{hc}_payloads"] = payloads
+            print(f"{name} hc={hc}: {out_len.tolist()}", flush=True)
+    data, dictionary = wide_frame_inputs(corpus)
+    for name, (bsid, level, with_dict) in WIDE_FRAMES.items():
+        ref = ShardedFrameCodec(
+            compression_level=level,
+            block_size_id=getattr(ref_frame.BlockSizeID, bsid),
+            dictionary=dictionary if with_dict else None)
+        frame = ref.compress_frame(data)
+        assert ref_frame.decompress_frame(
+            frame, dictionary=dictionary if with_dict else None) == data
+        arrays[f"frame_{name}_len"] = np.int64(len(frame))
+        arrays[f"frame_{name}_sha256"] = np.array(
+            hashlib.sha256(frame).hexdigest())
+        print(f"frame {name}: {len(frame)} bytes", flush=True)
+    for name, (small, bsid, level, dct) in WIDE_SMALL.items():
+        ref = ShardedFrameCodec(
+            compression_level=level,
+            block_size_id=getattr(ref_frame.BlockSizeID, bsid),
+            dictionary=dct)
+        # the reference's greedy scan cuts the window into rows of 32
+        # positions (jax_block.py:724-739) and raises on a window of any
+        # other width, such as 100 + 65,536 bytes; the bytes past the
+        # valid length take no part in the encode, so over the window
+        # rounded up to 32 it writes the frame of the window itself
+        ref.window = -(-ref.window // 32) * 32
+        arrays[f"frame_{name}"] = np.frombuffer(ref.compress_frame(small),
+                                                np.uint8)
+    np.savez_compressed(WIDE_OUT, **arrays)
+
+
+def sort2() -> None:
+    import hashlib
+
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    sys.path.insert(0, os.path.join(os.path.dirname(TESTS), "experiments"))
+    import pallas_sort_probe as probe
+
+    keys = np.random.default_rng(2).integers(
+        0, SORT2_RANGE, probe.N).astype(np.int32)
+    vals = np.arange(probe.N, dtype=np.int32)
+    shape = jax.ShapeDtypeStruct((probe.ROWS, probe.LANE), jnp.int32)
+    ko, vo = pl.pallas_call(probe._kernel, out_shape=(shape, shape),
+                            interpret=True)(
+        keys.reshape(probe.ROWS, probe.LANE),
+        vals.reshape(probe.ROWS, probe.LANE))
+    ko = np.asarray(ko).reshape(-1)
+    vo = np.asarray(vo).reshape(-1)
+    assert (ko == np.sort(keys)).all() and (keys[vo] == ko).all()
+    stable = np.argsort(keys, kind="stable")
+    print(f"payload differs from a stable sort at "
+          f"{int((vo != stable).sum())} of {probe.N} places")
+    np.savez_compressed(
+        SORT2_OUT, n=np.int64(probe.N), key_range=np.int64(SORT2_RANGE),
+        sha256=np.array(hashlib.sha256(ko.tobytes() + vo.tobytes())
+                        .hexdigest()),
+        vals_head=vo[:SORT2_HEAD])
+
+
 def _frames(corpus: bytes, level: int) -> dict:
     """name -> the JAX codec's frame of each codec-test input, at 4 KB
     blocks and windows."""
@@ -315,7 +443,9 @@ def main():
                  for lv in DEEP_LEVELS},
               "deep_frames4k": lambda: deep_frames4k(corpus),
               "seqdec4k": seqdec4k,
-              "frags4k": frags4k}
+              "frags4k": frags4k,
+              "wide": lambda: wide(corpus),
+              "sort2": sort2}
     for name in sys.argv[1:] or groups:
         groups[name]()
 

@@ -238,9 +238,20 @@ def test_block_past_frame_block_size_raises(codecs):
 
 
 def test_outside_the_slice_raises_not_implemented(port):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ShardedFrameCodec(dictionary=b"0123456789" * 10, device="cpu"
-                          ).compress_frame(b"dictionary encode")
+    """Dictionary encode and 256 KB blocks encode now, to the JAX
+    codec's frames (``tests/fixtures/wide_corpus.npz``); the deep levels
+    at windows over 64 KB still raise."""
+    with np.load(make_torch_goldens.WIDE_OUT) as z:
+        want = {k: z[f"frame_{k}"].tobytes()
+                for k in make_torch_goldens.WIDE_SMALL}
+    data, _bs, level, dct = make_torch_goldens.WIDE_SMALL["small_dict"]
+    frame = ShardedFrameCodec(dictionary=dct, device="cpu"
+                              ).compress_frame(data)
+    assert level == 0 and frame == want["small_dict"]
+    assert lz4f.decompress_frame(frame, dictionary=dct) == data
+    with pytest.raises(NotImplementedError, match="item 15"):
+        ShardedFrameCodec(dictionary=dct, device="cpu", compression_level=10
+                          ).compress_frame(data)
     # the fragment-ladder engines decode
     win = ShardedFrameCodec(decode_engine="win", device="cpu")
     blob, content = _GOLDENS["periodic_match.lz4"]
@@ -248,10 +259,15 @@ def test_outside_the_slice_raises_not_implemented(port):
     assert sum(win.tier_members.values()) == 1 and "tmap" not in win.routes
     with pytest.raises(ValueError):
         ShardedFrameCodec(decode_engine="bogus", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ShardedFrameCodec(compression_level=9, device="cpu",
+    data, _bs, level, _d = make_torch_goldens.WIDE_SMALL["small_256k"]
+    frame = ShardedFrameCodec(compression_level=level, device="cpu",
+                              block_size_id=lz4f.BlockSizeID.max256KB
+                              ).compress_frame(data)
+    assert frame == want["small_256k"]
+    with pytest.raises(NotImplementedError, match="item 15"):
+        ShardedFrameCodec(compression_level=12, device="cpu",
                           block_size_id=lz4f.BlockSizeID.max256KB
-                          ).compress_frame(b"256 KB blocks")
+                          ).compress_frame(data)
     # what the slices brought in no longer raises
     assert CUDACodec(device="cpu").decompress(b"\x00", 16) == b""
     frame = ShardedFrameCodec(compression_level=12, device="cpu"

@@ -19,6 +19,7 @@ from zig_lz4_tpu_torch.corpus import make_corpus
 from zig_lz4_tpu_torch.ops import torch_block as tb
 from zig_lz4_tpu_torch.ops import torch_decode as td
 from zig_lz4_tpu_torch.parallel import ShardedFrameCodec, resolve_device
+from zig_lz4_tpu_torch.probes import serial_decode, sort_probe
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(zig_lz4_tpu_torch.__file__)
@@ -36,6 +37,7 @@ def test_import_loads_no_jax_and_builds_nothing():
              "import zig_lz4_tpu_torch, zig_lz4_tpu_torch.corpus\n"
              "from zig_lz4_tpu_torch.ops import torch_block, torch_decode\n"
              "from zig_lz4_tpu_torch.ops import torch_frags\n"
+             "from zig_lz4_tpu_torch.probes import serial_decode, sort_probe\n"
              "from zig_lz4_tpu_torch import kernels\n"
              "print(sorted(m for m in sys.modules\n"
              "             if m == 'jax' or m.startswith('jax.')))\n"
@@ -56,8 +58,9 @@ def test_sources_name_no_jax():
     assert {os.path.basename(f) for f in files
             if f.endswith((".cu", ".cuh"))} == {
         "encode_block.cu", "encode_common.cuh", "encode_deep.cu",
-        "frag_common.cuh", "frag_decode.cu", "linked_tmap.cu",
-        "seq_decode.cu", "tmap_gather.cu"}
+        "encode_wide.cu", "frag_common.cuh", "frag_decode.cu",
+        "linked_tmap.cu", "seq_decode.cu", "serial_decode.cu",
+        "sort_global.cuh", "sort_probe.cu", "tmap_gather.cu"}
     files += [os.path.join(ROOT, "chip_smoke.py"),
               os.path.join(ROOT, "time_main_path.py")]
     reference = re.compile(r"zig_lz4_tpu(?!_torch)")
@@ -117,6 +120,13 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     td.decode_blocks_tmap(torch.zeros((1, 4), dtype=torch.uint8),
                           torch.zeros((1, 8), dtype=torch.int32),
                           torch.ones(1, dtype=torch.int32))
+    wide = torch.zeros((1, 65537), dtype=torch.uint8)
+    for hc in (9, 0):
+        tb.encode_blocks(wide, torch.tensor([300], dtype=torch.int32), hc=hc)
+    serial_decode.decode_blocks_serial(
+        comp, *(torch.from_numpy(np.asarray(a)[None]) for a in tabs), 256)
+    sort_probe.bitonic_sort2(torch.zeros((1, 8), dtype=torch.int32),
+                             torch.zeros((1, 8), dtype=torch.int32))
     assert kernels.LAUNCHES == before
 
 
@@ -127,6 +137,11 @@ def test_launch_checks_its_tensors():
                        torch.zeros(1, dtype=torch.int32),
                        torch.zeros(4, dtype=torch.uint8), 1, 4, 4)
     assert set(kernels.LAUNCHES) == set(kernels.KERNELS)
+    # the two Pallas kernels resolve from the repository root
+    assert kernels.reference_path("serial_decode") == \
+        "experiments/pallas_decode.py:127"
+    assert kernels.reference_path("bitonic_sort2") == \
+        "experiments/pallas_sort_probe.py:80"
     for name, (_fn, src, _args, _ref) in kernels.KERNELS.items():
         assert os.path.exists(os.path.join(PKG, "kernels", "csrc", src))
         path, line = kernels.reference_path(name).split(":")

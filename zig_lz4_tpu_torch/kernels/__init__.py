@@ -37,7 +37,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: kernel name -> (C entry point, source file, argument types before
 #: the stream, function of the JAX reference it replaces as
-#: ``file:line`` inside the reference package)
+#: ``file:line`` inside the reference package, or from the repository
+#: root for the reference's retired Pallas probes under ``experiments/``)
 KERNELS = {
     "tmap_gather": ("zl4_tmap_gather", "tmap_gather.cu",
                     [_P, _P, _P, _P, _I, _I, _I],
@@ -48,6 +49,9 @@ KERNELS = {
     "enc_match_fast": ("zl4_enc_match_fast", "encode_block.cu",
                        [_P, _P, _P, _I, _I, _I, _I],
                        "ops/jax_block.py:348"),
+    "enc_match_wide": ("zl4_enc_match_wide", "encode_wide.cu",
+                       [_P] * 5 + [_I] * 7,
+                       "ops/jax_block.py:249"),
     "enc_parse_emit": ("zl4_enc_parse_emit", "encode_block.cu",
                        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I],
@@ -80,6 +84,12 @@ KERNELS = {
     "frag_decode_chase": ("zl4_frag_decode_chase", "frag_decode.cu",
                           [_P] * 12 + [_I] * 7,
                           "ops/jax_decode.py:798"),
+    "serial_decode": ("zl4_serial_decode", "serial_decode.cu",
+                      [_P] * 7 + [_I] * 4,
+                      "experiments/pallas_decode.py:127"),
+    "bitonic_sort2": ("zl4_bitonic_sort2", "sort_probe.cu",
+                      [_P] * 5 + [_I] * 2,
+                      "experiments/pallas_sort_probe.py:80"),
 }
 #: launches per kernel since the last reset_launch_counts()
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -96,9 +106,13 @@ def reset_launch_counts() -> None:
 def reference_path(name: str) -> str:
     """``file:line`` of the reference function kernel ``name``
     replaces, from the repository root: the reference package lies
-    beside this one and has its name without the ``_torch`` suffix."""
+    beside this one and has its name without the ``_torch`` suffix;
+    the retired Pallas probes lie under ``experiments/``."""
+    ref = KERNELS[name][3]
+    if ref.startswith("experiments/"):
+        return ref
     pkg = os.path.basename(os.path.dirname(_HERE)).removesuffix("_torch")
-    return f"{pkg}/{KERNELS[name][3]}"
+    return f"{pkg}/{ref}"
 
 
 def _nvcc() -> str:

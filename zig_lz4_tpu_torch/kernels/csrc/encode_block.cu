@@ -29,7 +29,9 @@
 //   (:433-450), over W carried windows (fast_params, :179-197).  No
 //   fallback pass.  Bound: the one sort, with 4-byte keys.
 //
-// enc_parse_emit (one 256-thread block per window, 8 KB shared memory):
+// enc_parse_emit (one 256-thread block per window, blk / 8 bytes of shared
+// memory: 8 KB at 64 KB, 40 KB at the 327,680-byte windows of
+// encode_wide.cu):
 //   same-offset chain extension (:522-552) as a chunked nearest-boundary
 //   scan, the n-5 clamp (:554-555), two-step lazy deferral (:684-710; HC
 //   only) as a bit mask built with warp ballots, then one thread walks the
@@ -59,29 +61,9 @@ enc_match_kernel(const uint8_t* __restrict__ data,
   const Window W{words, n};
 
   // 12-byte lexicographic order, ties by position
-  bitonic_sort(s, N, [&](int p, int q) {
-    if (p >= blk || q >= blk) return p < q;
-    uint32_t a = W.s0(p), c = W.s0(q);
-    if (a != c) return a < c;
-    a = W.at(p + 4), c = W.at(q + 4);
-    if (a != c) return a < c;
-    a = W.at(p + 8), c = W.at(q + 8);
-    if (a != c) return a < c;
-    return p < q;
-  });
-  for (int t = threadIdx.x; t < blk; t += blockDim.x) {
-    const int p = s[t];
-    Cand best{-1, 0, 0};
-    for (int k = 1; k <= hc; ++k) {
-      for (int side = 0; side < 2; ++side) {
-        const int u = side ? t + k : t - k;
-        if (u < 0 || u >= blk) continue;
-        const Cand c = probe(W, p, s[u], kMaxW);
-        if (c.ml > best.ml || (c.ml == best.ml && c.cand > best.cand)) best = c;
-      }
-    }
-    out[p] = pack(best);
-  }
+  bitonic_sort(s, N, Less12{W, blk});
+  for (int t = threadIdx.x; t < blk; t += blockDim.x)
+    out[s[t]] = pack(nearest_both(W, s, t, blk, hc));
   __syncthreads();
 
   // positional fallback: order by s0 alone, probes +1 and +2
@@ -231,10 +213,19 @@ extern "C" int zl4_enc_parse_emit(const void* data, const void* lens,
                                   int blk, int cap, int runcap, int capped_ml,
                                   int lazy, void* stream) {
   // runcap: ints per window of ``runs``, 3 per literal run; a window has
-  // at most blk / 4 matches, so at most blk / 4 + 1 runs
-  if (B <= 0 || blk <= 0 || blk > 65536 || runcap < 3 * (blk / 4 + 1))
+  // at most blk / 4 matches, so at most blk / 4 + 1 runs.  Windows over
+  // 64 KB (enc_match_wide's) are taken up to the candidate pack's 2^19:
+  // the 20-bit length field (kMlMask) holds any ml < blk, and the match
+  // mask is blk / 32 words, 40 KB at 327,680 bytes.
+  if (B <= 0 || blk <= 0 || blk >= (1 << 19) || runcap < 3 * (blk / 4 + 1))
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)((blk + 31) / 32) * 4;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        enc_parse_emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   enc_parse_emit_kernel<<<B, kParseThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)data, (const int32_t*)lens, (const int32_t*)starts,
       (const int32_t*)pk, (int32_t*)mlw, (int32_t*)runs, (uint8_t*)out,

@@ -111,25 +111,69 @@ __device__ void load_window(const uint8_t* row, int n, uint32_t* words,
 }
 
 // Order by s0 alone, ties by position: within a group of equal 4-byte
-// strings the rows before t are the nearest previous occurrences.
-__device__ void sort_by_s0(const Window& W, uint16_t* s, int N, int blk) {
-  bitonic_sort(s, N, [&](int p, int q) {
+// strings the rows before t are the nearest previous occurrences.  Rows at
+// or past blk are padding and sort last.
+struct LessS0 {
+  Window W;
+  int blk;
+  __device__ __forceinline__ bool operator()(int p, int q) const {
     if (p >= blk || q >= blk) return p < q;
     const uint32_t a = W.s0(p), c = W.s0(q);
     if (a != c) return a < c;
     return p < q;
-  });
+  }
+};
+
+// The 12-byte lexicographic order (s0, su[i+4], su[i+8]), ties by position:
+// the stable 3-key sort of jax_block.py:349-350.
+struct Less12 {
+  Window W;
+  int blk;
+  __device__ __forceinline__ bool operator()(int p, int q) const {
+    if (p >= blk || q >= blk) return p < q;
+    uint32_t a = W.s0(p), c = W.s0(q);
+    if (a != c) return a < c;
+    a = W.at(p + 4), c = W.at(q + 4);
+    if (a != c) return a < c;
+    a = W.at(p + 8), c = W.at(q + 8);
+    if (a != c) return a < c;
+    return p < q;
+  }
+};
+
+__device__ void sort_by_s0(const Window& W, uint16_t* s, int N, int blk) {
+  LessS0 less{W, blk};
+  bitonic_sort(s, N, less);
 }
 
 // Probes +1..+probes of sorted row t; a later probe wins only when
 // strictly longer (jax_block.py:445, :500).
-__device__ __forceinline__ Cand nearest(const Window& W, const uint16_t* s,
-                                        int t, int probes, int nwin) {
+template <class Idx>
+__device__ __forceinline__ Cand nearest(const Window& W, const Idx* s, int t,
+                                        int probes, int nwin) {
   Cand best{-1, 0, 0};
   const int p = s[t];
   for (int k = 1; k <= probes && k <= t; ++k) {
     const Cand c = probe(W, p, s[t - k], nwin);
     if (c.ml > best.ml) best = c;
+  }
+  return best;
+}
+
+// Probes +-1..+-hc of sorted row t over all kMaxW windows; ties on the
+// length go to the larger (nearer) candidate (jax_block.py:432-450).
+template <class Idx>
+__device__ __forceinline__ Cand nearest_both(const Window& W, const Idx* s,
+                                             int t, int blk, int hc) {
+  Cand best{-1, 0, 0};
+  const int p = s[t];
+  for (int k = 1; k <= hc; ++k) {
+    for (int side = 0; side < 2; ++side) {
+      const int u = side ? t + k : t - k;
+      if (u < 0 || u >= blk) continue;
+      const Cand c = probe(W, p, s[u], kMaxW);
+      if (c.ml > best.ml || (c.ml == best.ml && c.cand > best.cand)) best = c;
+    }
   }
   return best;
 }

@@ -19,6 +19,14 @@ and, for the deep levels, ``kernels/csrc/encode_deep.cu``):
   Both write one packed candidate word per position,
   ``((cand + 1) << 12) | (fine ml << 6) | back`` (0 = no candidate),
   the same pack the reference unsorts (``jax_block.py:459-466``).
+  Both hold the window and a u16 order in shared memory, so they take
+  windows up to 64 KB.
+* ``enc_match_wide`` (``kernels/csrc/encode_wide.cu``) -- either finder
+  for the windows over 64 KB that the reference encodes on its device
+  (``device_encoder_supports``): ``[dictionary | block]`` windows, 256 KB
+  blocks and the 327,680-byte sub-span windows of 1 MB and 4 MB blocks.
+  The window words and a u32 order live in device scratch, sorted by a
+  bitonic network that runs its short strides in shared-memory tiles.
 * ``enc_parse_emit`` -- same-offset chain extension, the ``n - 5``
   clamp, two-step lazy deferral (HC only), the greedy parse and the
   emission of the LZ4 sequences.
@@ -37,6 +45,7 @@ and, for the deep levels, ``kernels/csrc/encode_deep.cu``):
   (``jax_block.py:748-863``), then the same emission as
   ``enc_parse_emit``.
 
+The deep levels take windows up to 64 KB (ROADMAP Queue 1 item 15).
 Each kernel has a plain version in this module
 (``match_candidates_plain``, ``parse_emit_plain`` and, for the two
 halves of the deep parse, ``deep_dp_plain`` and ``deep_emit_plain``),
@@ -60,9 +69,13 @@ __all__ = ["level_params", "fast_params", "device_encoder_supports",
 
 #: carried u32 windows (jax_block.py:100) -> fine ml up to 4 + 4*W
 _W = 8
-#: largest window the kernels take: sort indices are u16 and the
-#: window plus its index array must fit one block's shared memory
-_MAX_BLK = 65536
+#: largest window of the shared-memory finders (u16 sort indices; the
+#: window and its order fill 196 KB of shared memory at 64 KB) and of the
+#: deep levels; wider windows go to ``enc_match_wide``
+_MAX_SHARED_BLK = 65536
+#: the candidate pack ((cand + 1) << 12) | ... fits int32 only while
+#: cand + 1 < 2^19 (jax_block.py:458)
+_PACK_LIMIT = 1 << 19
 #: price parse: cost ring size, so jumps are priced at min(ml, 512);
 #: cost scale and the cost of one literal (jax_block.py:136-141, :577)
 _DP_R = 512
@@ -128,21 +141,43 @@ def _finder(hc: int, deep: int, accel: int) -> tuple[int, int]:
     return W, probes
 
 
+def _bits(v: int) -> int:
+    return max(int(v).bit_length(), 1)
+
+
 def device_encoder_supports(blk: int) -> bool:
-    """True when ``blk``-byte windows fit the encoder kernels: u16 sort
-    indices and one window plus its index array in shared memory
-    (65536 * 2 + 65536 + 64 bytes of the 227 KB a block may use)."""
-    return 0 < blk <= _MAX_BLK
+    """True when the reference encodes ``blk``-byte windows on its
+    device, which this port does too: the reference's predicate on its
+    emission packs (``jax_block.py:160-169``), true through the
+    327,680-byte sub-span windows and false at 512 KB.  Within it
+    ``blk < 2^19``, so the candidate pack fits int32."""
+    cap_bits = _bits(compress_bound(blk) + 2)
+    return (blk > 0 and cap_bits + 9 <= 31
+            and cap_bits - 9 <= 31 - _bits(blk)
+            and _bits(max(blk // 255 + 8, 8) + 2) + cap_bits <= 31)
+
+
+def _check_deep_width(blk: int, deep: int) -> None:
+    if deep and blk > _MAX_SHARED_BLK:
+        raise NotImplementedError(
+            f"levels 10-12 at {blk}-byte windows: the deep encoder takes "
+            f"windows up to {_MAX_SHARED_BLK} bytes so far (ROADMAP Queue 1 "
+            "item 15)")
 
 
 def _check(blocks: torch.Tensor, lens: torch.Tensor,
-           starts: torch.Tensor) -> None:
+           starts: torch.Tensor, deep: int = 0) -> None:
     if blocks.dtype != torch.uint8 or blocks.dim() != 2:
         raise TypeError("blocks must be uint8[B, blk]")
-    if not device_encoder_supports(blocks.shape[1]):
+    blk = blocks.shape[1]
+    if not device_encoder_supports(blk):
         raise NotImplementedError(
-            f"{blocks.shape[1]}-byte windows: the encoder takes windows "
-            f"up to {_MAX_BLK} bytes (ROADMAP Queue 1 item 6)")
+            f"{blk}-byte windows: the encoder takes the windows the "
+            "reference encodes on its device (device_encoder_supports); "
+            "frame blocks over 256 KB encode as 327,680-byte sub-span "
+            "windows (parallel/sharded.py)")
+    assert blk < _PACK_LIMIT
+    _check_deep_width(blk, deep)
     for name, t in (("lens", lens), ("starts", starts)):
         if t.dtype != torch.int32 or t.shape != (blocks.shape[0],):
             raise TypeError(f"{name} must be int32[B]")
@@ -182,41 +217,56 @@ def _stable_order(keys) -> torch.Tensor:
     return order
 
 
-def _probe(shift: int, order, s0, wins, wb16, n: int, tiers=()):
+def _sorted_env(order, s0, wins, wb16, tiers=()):
+    """The probe operands in the sorted order ``order``: s0, the carried
+    windows as one [W, blk] tensor, wb16 and the tier operands."""
+    # the window words only meet in XORs and equalities, which int32
+    # keeps bit for bit
+    return (order, s0[order],
+            torch.stack([wk[order] for wk in wins]).to(torch.int32),
+            wb16[order], [(L, op[order]) for L, op in tiers])
+
+
+def _probe(shift: int, env, n: int):
     """cand_at (jax_block.py:379-426) against the sorted row ``shift``
-    places earlier (a negative shift looks later), with no wrap.
-    ``tiers`` = [(L, operand)], nested: a tier counts only while every
-    shallower one matched, and proves ``L`` equal bytes.  Returns
-    (cand, total ml, fine ml, tier, back) per sorted row; cand = -1
-    when rejected."""
+    places earlier (a negative shift looks later), with no wrap, over
+    ``env`` = ``_sorted_env(...)``.  The fine length is 4, plus 4 for
+    each carried window equal from the first on, plus the equal low
+    bytes of the first window that differs.  Tiers are nested: a tier
+    counts only while every shallower one matched, and proves ``L``
+    equal bytes.  Returns (cand, total ml, fine ml, tier, back) per
+    sorted row; cand = -1 when rejected."""
+    order, s0s, ws, wbs, tiers_s = env
     blk = order.shape[0]
     t = torch.arange(blk, device=order.device)
-    u = t - shift
-    edge = (u >= 0) & (u < blk)
-    u = u.clamp(0, blk - 1)
-    p, q = order, order[u]
-    ok = (edge & (p <= n - 4) & (q <= n - 4) & (s0[p] == s0[q])
+    edge = (t >= shift) if shift > 0 else (t < blk + shift)
+
+    def nb(x):              # x at the sorted row ``shift`` places earlier
+        return torch.roll(x, shift, -1)
+
+    p, q = order, nb(order)
+    ok = (edge & (p <= n - 4) & (q <= n - 4) & (s0s == nb(s0s))
           & (q < p) & (p - q <= 65535))
-    ml = torch.full_like(p, 4)
-    still = ok
-    for wk in wins:
-        x = wk[p] ^ wk[q]
-        eq = x == 0
-        pb = torch.where((x & 0xFF) == 0,
-                         torch.where((x & 0xFFFF) == 0,
-                                     torch.where((x & 0xFFFFFF) == 0,
-                                                 3, 2), 1), 0)
-        ml = ml + torch.where(still & eq, 4, 0) \
-            + torch.where(still & ~eq, pb, 0)
-        still = still & eq
+    x = ws ^ nb(ws)
+    still = torch.ones_like(ok)
+    lead = torch.zeros_like(p)          # windows equal from the first on
+    for xk in x:
+        still = still & (xk == 0)
+        lead = lead + still
+    xf = x.gather(0, lead.clamp(max=x.shape[0] - 1)[None])[0]
+    pb = torch.where((xf & 0xFF) == 0,
+                     torch.where((xf & 0xFFFF) == 0,
+                                 torch.where((xf & 0xFFFFFF) == 0, 3, 2), 1),
+                     0)
+    ml = 4 + 4 * lead + torch.where(lead < x.shape[0], pb, 0)
     tier = torch.zeros_like(p)
     dml = torch.zeros_like(p)
     still_t = ok
-    for tk, (L, op) in enumerate(tiers):
-        still_t = still_t & (op[p] == op[q])
+    for tk, (L, op) in enumerate(tiers_s):
+        still_t = still_t & (op == nb(op))
         tier = torch.where(still_t, tk + 1, tier)
         dml = torch.where(still_t, L, dml)
-    bx = wb16[p] ^ wb16[q]
+    bx = wbs ^ nb(wbs)
     bk = torch.where((bx & 0xFF00) != 0, 0, torch.where(bx != 0, 1, 2))
     return (torch.where(ok, q, -1), torch.where(ok, torch.maximum(ml, dml), 0),
             torch.where(ok, ml, 0), tier, torch.where(ok, bk, 0))
@@ -268,9 +318,10 @@ def _nearest(order, s0, wins, wb16, n: int, probes: int):
     group is in position order: the nearest previous occurrences.  A
     later probe wins only when strictly longer (jax_block.py:433-450,
     :498-504).  Returns the packed candidates in position order."""
-    cand, ml, _mf, _t, back = _probe(1, order, s0, wins, wb16, n)
+    env = _sorted_env(order, s0, wins, wb16)
+    cand, ml, _mf, _t, back = _probe(1, env, n)
     for s in range(2, probes + 1):
-        c, m, _mf, _t, k = _probe(s, order, s0, wins, wb16, n)
+        c, m, _mf, _t, k = _probe(s, env, n)
         better = m > ml
         cand = torch.where(better, c, cand)
         ml = torch.where(better, m, ml)
@@ -301,10 +352,10 @@ def _match_one(row: torch.Tensor, n: int, hc: int, W: int,
     # +-1..+-hc probes; ties on the total length go to the larger
     # (nearer) candidate (jax_block.py:432-450)
     shifts = [s for k in range(1, hc + 1) for s in (k, -k)]
-    cand, ml, mlf, tier, back = _probe(shifts[0], order, s0, wins, wb16, n,
-                                       tiers)
+    env = _sorted_env(order, s0, wins, wb16, tiers)
+    cand, ml, mlf, tier, back = _probe(shifts[0], env, n)
     for s in shifts[1:]:
-        c, m, mf, t, k = _probe(s, order, s0, wins, wb16, n, tiers)
+        c, m, mf, t, k = _probe(s, env, n)
         better = (m > ml) | ((m == ml) & (c > cand))
         cand = torch.where(better, c, cand)
         ml = torch.where(better, m, ml)
@@ -656,7 +707,7 @@ def encode_blocks_plain(blocks: torch.Tensor, lens: torch.Tensor,
     _finder(hc, deep, accel)
     if starts is None:
         starts = torch.zeros_like(lens)
-    _check(blocks, lens, starts)
+    _check(blocks, lens, starts, deep)
     pk = match_candidates_plain(blocks, lens, hc, accel, deep)
     if deep:
         st = deep_dp_plain(lens, starts, pk, deep)
@@ -672,23 +723,39 @@ def match_candidates(blocks: torch.Tensor, lens: torch.Tensor,
                      hc: int = 9, accel: int = 1,
                      deep: int = 0) -> torch.Tensor:
     """Packed candidates per position; for CUDA tensors the
-    ``enc_deep_match`` kernel (``deep`` 1..3), the ``enc_match`` kernel
-    (``hc >= 1``) or the ``enc_match_fast`` kernel (``hc == 0``, with
-    ``fast_params(accel)``), the plain version for CPU tensors."""
+    ``enc_deep_match`` kernel (``deep`` 1..3), and for windows up to 64 KB
+    the ``enc_match`` kernel (``hc >= 1``) or the ``enc_match_fast``
+    kernel (``hc == 0``, with ``fast_params(accel)``), for wider ones the
+    ``enc_match_wide`` kernel; the plain version for CPU tensors."""
     if blocks.device.type == "cpu":
         return match_candidates_plain(blocks, lens, hc, accel, deep)
     W, probes = _finder(hc, deep, accel)
     blocks, lens = blocks.contiguous(), lens.contiguous()
     B, blk = blocks.shape
-    pk = torch.empty((B, blk), dtype=torch.int32, device=blocks.device)
+    _check_deep_width(blk, deep)
+    if blk >= _PACK_LIMIT:
+        raise NotImplementedError(f"{blk}-byte windows: the candidate pack "
+                                  f"takes fewer than {_PACK_LIMIT}")
+    dev = blocks.device
+    pk = torch.empty((B, blk), dtype=torch.int32, device=dev)
     if B and deep:
         # the exact ranks reach blk, one past u16, so they live in
         # device memory beside the window in shared memory: 4 bytes per
         # position for the 32-byte rank, 4 more at deep=3 for the
         # 256-byte rank
         ranks = torch.empty((B, 2 if deep == 3 else 1, blk),
-                            dtype=torch.int32, device=blocks.device)
+                            dtype=torch.int32, device=dev)
         launch("enc_deep_match", blocks, lens, ranks, pk, B, blk, hc, deep)
+    elif B and blk > _MAX_SHARED_BLK:
+        # device scratch a window: the u32 order over the power of two
+        # N >= blk rows, and the window as words with 64 zero bytes past
+        # it (2.3 MB at 327,680 bytes)
+        N = 1 << (blk - 1).bit_length()
+        nwords = (blk + 64) // 4 + 1
+        order = torch.empty((B, N), dtype=torch.int32, device=dev)
+        words = torch.empty((B, nwords), dtype=torch.int32, device=dev)
+        launch("enc_match_wide", blocks, lens, order, words, pk, B, blk, N,
+               nwords, hc, W, probes)
     elif B and hc:
         launch("enc_match", blocks, lens, pk, B, blk, hc)
     elif B:
@@ -715,8 +782,7 @@ def deep_dp(lens: torch.Tensor, starts: torch.Tensor, pk: torch.Tensor,
     if pk.dim() != 2 or pk.dtype != torch.int32:
         raise TypeError("pk must be int32[B, blk]")
     B, blk = pk.shape
-    if not device_encoder_supports(blk):
-        raise NotImplementedError(f"{blk}-byte windows")
+    _check_deep_width(blk, deep)
     lens, starts, pk = (t.contiguous() for t in (lens, starts, pk))
     st = torch.empty_like(pk)
     if B:
@@ -734,6 +800,7 @@ def deep_emit(blocks: torch.Tensor, lens: torch.Tensor,
     _check_pk("pk", pk, blocks)
     _check_pk("st", st, blocks)
     B, blk = blocks.shape
+    _check_deep_width(blk, deep=True)
     blocks, lens, starts, pk, st = (t.contiguous() for t in
                                     (blocks, lens, starts, pk, st))
     cap = compress_bound(blk)
@@ -791,7 +858,7 @@ def encode_blocks(blocks: torch.Tensor, lens: torch.Tensor,
     _finder(hc, deep, accel)
     if starts is None:
         starts = torch.zeros_like(lens)
-    _check(blocks, lens, starts)
+    _check(blocks, lens, starts, deep)
     pk = match_candidates(blocks, lens, hc, accel, deep)
     if deep:
         st = deep_dp(lens, starts, pk, deep)

@@ -2,14 +2,18 @@
 fragment-ladder and sequence-rebuild decode.
 
 Counterpart of ``ShardedFrameCodec`` of the JAX reference
-(``parallel/sharded.py``) for 64 KB blocks at levels 0-12 on the encode
-side, and on the decode side for independent and linked frames of any
-block size, with or without a dictionary.
+(``parallel/sharded.py``): on the encode side every block size, with or
+without a dictionary, at levels 0-9, and 64 KB blocks without a
+dictionary at levels 10-12; on the decode side independent and linked
+frames of any block size, with or without a dictionary.
 
-  compress:   frame data -> [B, window] block matrix on the device ->
+  compress:   frame data -> [B, window] matrix of windows
+              ``[dictionary | block]`` on the device (blocks over 256 KB
+              as 256 KB sub-spans behind the 64 KB before each) ->
               encoder kernels (ops/torch_block) -> host gather of
-              (payload, length) -> frame assembly on the host, with
-              the store-uncompressed fallback and xxh32 checksums.
+              (payload, length), sub-span streams joined -> frame
+              assembly on the host, with the store-uncompressed fallback
+              and xxh32 checksums.
 
   decompress: host scan of the frame into block records, then
               * independent blocks: one native ``native_resolve_tmap``
@@ -54,6 +58,7 @@ from .. import frame as lz4f
 from ..constants import WINDOW_SIZE, compress_bound
 from ..native import (native_resolve_blocks, native_resolve_tmap,
                       native_resolve_tmap_linked)
+from ..ops.block import concat_streams
 from ..ops.torch_block import (device_encoder_supports, encode_blocks,
                                level_params)
 from ..ops.torch_decode import (MAX_SEQS, decode_blocks,
@@ -73,12 +78,19 @@ from .device import resolve_device
 __all__ = ["ShardedFrameCodec"]
 
 _UNCOMPRESSED_BIT = 0x80000000
-#: windows per encoder launch.  Device scratch per window byte: 4 bytes
-#: of candidate words, 4 of parse state, 3 of literal runs and 1 of
-#: output (~0.8 GB for 1024 64 KB windows at levels 0-9); the deep
+#: window bytes per encoder launch: 1024 windows of 64 KB.  Device
+#: scratch per window byte: 4 bytes of candidate words, 4 of parse state,
+#: 3 of literal runs and 1 of output (~0.8 GB at levels 0-9); the deep
 #: levels add 4 bytes of 32-byte ranks, 4 more of 256-byte ranks at
-#: level 12, and 1 of chosen rows (~1.4 GB at level 12)
-_ENC_BATCH = 1024
+#: level 12, and 1 of chosen rows (~1.4 GB at level 12); windows over
+#: 64 KB add ~7 bytes of sort order and window words (~1.3 GB)
+_ENC_BYTES = 1024 * 65536
+#: blocks over _SUB bytes encode as _SUB-byte sub-spans, each behind the
+#: _SUBH bytes before it in one window, so that matches reach across the
+#: sub-span bounds (reference: sharded.py:79-89, with the same values:
+#: the bytes depend on them)
+_SUB = 262144
+_SUBH = 65536
 #: output bytes per decode launch; T is staged at 4 bytes per output
 #: byte, so 64 MB of output stages 256 MB of T
 _DEC_BYTES = 64 << 20
@@ -227,51 +239,60 @@ class ShardedFrameCodec:
 
     # -- compression ----------------------------------------------------
 
-    def _check_encode(self) -> None:
-        if self.dcap:
-            raise NotImplementedError(
-                "dictionary encode is not ported yet: its windows are "
-                "wider than the encoder kernels take (ROADMAP Queue 1 "
-                "item 5)")
-        if (self.info.block_size_id != lz4f.BlockSizeID.max64KB
-                or not device_encoder_supports(self.window)):
-            raise NotImplementedError(
-                f"{self.info.block_size_id.name} blocks: the port encodes "
-                "64 KB blocks only so far (ROADMAP Queue 1 item 6)")
-
-    def _encode_batch(self, windows: np.ndarray, lens: np.ndarray,
-                      starts: np.ndarray):
+    def _encode_windows(self, entries: list, width: int) -> list[bytes]:
+        """Payloads of ``entries`` = [(history, span)]: windows
+        ``[history | span]`` of ``width`` bytes that emit from the
+        history's end, ``_ENC_BYTES`` of windows per encoder launch.
+        The payloads do not depend on the batching."""
+        batch = max(_ENC_BYTES // width, 1)
         dev = self.device
-        # levels <= 1 run the fast finder at acceleration 1, as the
-        # reference's frame codec does (sharded.py:112-121)
-        out, out_len = encode_blocks(torch.from_numpy(windows).to(dev),
-                                     torch.from_numpy(lens).to(dev),
-                                     torch.from_numpy(starts).to(dev),
-                                     hc=self.hc, deep=self.deep)
-        return out.cpu().numpy(), out_len.cpu().numpy()  # ordered gather
+        payloads = []
+        for c0 in range(0, len(entries), batch):
+            group = entries[c0:c0 + batch]
+            windows = np.zeros((len(group), width), np.uint8)
+            lens = np.zeros(len(group), np.int32)
+            starts = np.zeros(len(group), np.int32)
+            for k, (hist, span) in enumerate(group):
+                hl = len(hist)
+                windows[k, :hl] = np.frombuffer(hist, np.uint8)
+                windows[k, hl:hl + len(span)] = np.frombuffer(span, np.uint8)
+                lens[k], starts[k] = hl + len(span), hl
+            # levels <= 1 run the fast finder at acceleration 1, as the
+            # reference's frame codec does (sharded.py:112-121)
+            out, out_len = encode_blocks(torch.from_numpy(windows).to(dev),
+                                         torch.from_numpy(lens).to(dev),
+                                         torch.from_numpy(starts).to(dev),
+                                         hc=self.hc, deep=self.deep)
+            out, out_len = out.cpu().numpy(), out_len.cpu().numpy()
+            payloads += [out[k, :int(out_len[k])].tobytes()
+                         for k in range(len(group))]     # ordered gather
+        return payloads
 
     def _encode_span(self, span: bytes) -> list[tuple[bytes, bytes]]:
         """Device encode of a contiguous byte span into per-block (raw,
-        compressed) pairs, ``_ENC_BATCH`` windows per encoder launch."""
-        self._check_encode()
+        compressed) pairs (reference: sharded.py:257-292).  A block's
+        window is ``[dictionary | block]``, emitting from the
+        dictionary's end.  Blocks whose windows the encoder does not take
+        (``device_encoder_supports``: those over 256 KB) encode as
+        ``_SUB``-byte sub-spans, each behind the 64 KB before it (the
+        dictionary for the first), and the sub-span streams join into
+        one block stream (``_encode_raws_big``, sharded.py:209-255)."""
         bs = self.block_size
-        n_blocks = (len(span) + bs - 1) // bs
-        pairs = []
-        for b0 in range(0, n_blocks, _ENC_BATCH):
-            nb = min(_ENC_BATCH, n_blocks - b0)
-            windows = np.zeros((nb, self.window), np.uint8)
-            lens = np.zeros(nb, np.int32)
-            raws = []
-            for k in range(nb):
-                raw = span[(b0 + k) * bs:(b0 + k + 1) * bs]
-                raws.append(raw)
-                windows[k, :len(raw)] = np.frombuffer(raw, np.uint8)
-                lens[k] = len(raw)
-            payloads, plens = self._encode_batch(windows, lens,
-                                                 np.zeros(nb, np.int32))
-            pairs += [(raw, payloads[k, :int(plens[k])].tobytes())
-                      for k, raw in enumerate(raws)]
-        return pairs
+        raws = [span[k:k + bs] for k in range(0, len(span), bs)]
+        if device_encoder_supports(self.window):
+            return list(zip(raws, self._encode_windows(
+                [(self.dict, raw) for raw in raws], self.window)))
+        entries, owner = [], []
+        for bi, raw in enumerate(raws):
+            for s0 in range(0, max(len(raw), 1), _SUB):
+                hist = self.dict if s0 == 0 else raw[max(s0 - _SUBH, 0):s0]
+                entries.append((hist, raw[s0:s0 + _SUB]))
+                owner.append(bi)
+        per_block: list[list[bytes]] = [[] for _ in raws]
+        for bi, p in zip(owner, self._encode_windows(entries,
+                                                      _SUBH + _SUB)):
+            per_block[bi].append(p)
+        return [(raw, concat_streams(ps)) for raw, ps in zip(raws, per_block)]
 
     def compress_frame(self, data: bytes) -> bytes:
         """Compress ``data`` into one LZ4 frame of independent blocks."""
