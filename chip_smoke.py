@@ -21,6 +21,14 @@ blocks, most of them through ``ShardedFrameCodec``:
   (131,072-byte windows), of 16 MB in 256 KB blocks at level 9, of the
   corpus in 1 MB blocks at levels 9 and 0 and of 16 MB in 4 MB blocks
   at level 9 (327,680-byte sub-span windows);
+* levels 10-12 in windows over 64 KB (``enc_deep_match_wide`` with
+  ``enc_deep_dp`` and ``enc_deep_emit``): the three kernels against their
+  plain versions at deep 1, 2 and 3 on wide edge windows and corpus
+  sub-span windows, the JAX payloads of
+  ``tests/fixtures/wide_deep_corpus.npz``, then ``compress_frame`` and
+  both decoders of the corpus in 1 MB blocks at level 12, of 16 MB with
+  the 70,000-byte dictionary at level 10 and of 16 MB in 4 MB blocks at
+  level 11;
 * levels 10, 11 and 12: ``compress_frame`` through the deep finder, the
   price parse and the extension (``enc_deep_match``, ``enc_deep_dp``,
   ``enc_deep_emit``), each frame decoded by the host decoder and by the
@@ -56,7 +64,8 @@ versions on every 12th window of the 1 MB paths as well.
 
 It checks the round trips and the ratios, shows by launch counts that
 each path went through its kernels (the wide paths through
-``enc_match_wide`` and never the 64 KB finders), times paths and kernels
+``enc_match_wide`` or ``enc_deep_match_wide`` and never the 64 KB
+finders), times paths and kernels
 with CUDA events, and computes each kernel's bound from this run's
 inputs.
 
@@ -134,6 +143,18 @@ WIDE_CONFIGS = [(9, 1), (4, 1), (0, 1), (0, 8)]
 #: wide windows of the 1 MB path held against the plain versions (every
 #: 12th of 192)
 WIDE_PLAIN_STRIDE = 12
+#: levels 10-12 in windows over 64 KB (enc_deep_match_wide with
+#: enc_deep_dp and enc_deep_emit): make_corpus(2) windows and their JAX
+#: payloads; deep level -> (131,072-byte edge windows, 327,680-byte corpus
+#: windows) held against the plain versions; the windows of the 1 MB
+#: level-12 path held against them (every 48th of 192)
+WIDE_DEEP_GOLDENS = os.path.join("tests", "fixtures", "wide_deep_corpus.npz")
+WIDE_DEEP_EDGE = {1: ([0, 3, 4], [0]), 2: ([1, 5, 6], [1]),
+                  3: ([0, 1, 2, 3, 4, 5, 6, 7], [0, 1])}
+WIDE_DEEP_PLAIN_STRIDE = 48
+WIDE_KERNELS = ("enc_match_wide", "enc_parse_emit", "tmap_gather")
+WIDE_DEEP_KERNELS = ("enc_deep_match_wide", "enc_deep_dp", "enc_deep_emit",
+                     "tmap_gather")
 #: rows of the bitonic probe (P2), 65,536 int32 keys each
 SORT_BATCHES = (1, 64)
 #: published peaks of one H100 SXM: device memory bytes/s, and 32-bit
@@ -470,12 +491,16 @@ def main():
     # --- phase 2b: the deep kernels against their plain versions, each
     # on the kernel's own inputs, every deep configuration, on the
     # edge-case windows
-    deep_err = {"enc_deep_match": 0, "enc_deep_dp": 0, "enc_deep_emit": 0}
+    deep_err = {"enc_deep_match": 0, "enc_deep_match_wide": 0,
+                "enc_deep_dp": 0, "enc_deep_emit": 0}
 
     def deep_against_plain(what, w, ln, st_, hc, deep):
         """Runs the three deep kernels and their plain versions on
         windows ``w``; returns the kernels' (out, out_len) and the
-        plain versions' milliseconds by kernel."""
+        plain versions' milliseconds by kernel.  Windows over 64 KB
+        take the wide finder."""
+        finder = "enc_deep_match_wide" if w.shape[1] > BLK else \
+            "enc_deep_match"
         pk = tb.match_candidates(w, ln, hc, 1, deep)
         p_m, pk_p = cuda_ms(
             lambda: tb.match_candidates_plain(w, ln, hc, 1, deep))
@@ -484,14 +509,15 @@ def main():
         out, olen = tb.deep_emit(w, ln, st_, pk, st)
         p_e, (out_p, olen_p) = cuda_ms(
             lambda: tb.deep_emit_plain(w, ln, st_, pk, st))
-        errs = {"enc_deep_match": max_abs_err(pk, pk_p),
+        errs = {finder: max_abs_err(pk, pk_p),
                 "enc_deep_dp": max_abs_err(st, st_p),
                 "enc_deep_emit": max(max_abs_err(out, out_p),
                                      max_abs_err(olen, olen_p))}
         tiers = ((pk >> 2) & 15)[pk != 0]
-        print(f"[K4] {what}, hc={hc} deep={deep} at {w.shape[0]} x 64 KB: "
-              f"max_abs_err vs plain {errs}; plain ms: enc_deep_match "
-              f"{p_m:.1f}, enc_deep_dp {p_d:.1f}, enc_deep_emit {p_e:.1f}; "
+        print(f"[K4] {what}, hc={hc} deep={deep} at {w.shape[0]} x "
+              f"{w.shape[1]} bytes: max_abs_err vs plain {errs}; plain ms: "
+              f"{finder} {p_m:.1f}, enc_deep_dp {p_d:.1f}, enc_deep_emit "
+              f"{p_e:.1f}; "
               f"deepest tier {int(tiers.max()) if tiers.numel() else 0}, "
               f"cut rows {int(((st & 0xFFFFF) == 18).sum())}")
         for k, v in errs.items():
@@ -499,7 +525,7 @@ def main():
         check(not any(errs.values()),
               f"deep kernels differ from plain at hc={hc} deep={deep} "
               f"({what}): {errs}")
-        return (out, olen), {"enc_deep_match": p_m, "enc_deep_dp": p_d,
+        return (out, olen), {finder: p_m, "enc_deep_dp": p_d,
                              "enc_deep_emit": p_e}
 
     deep_gold_ok = {}
@@ -732,7 +758,7 @@ def main():
     del w_e, pk_e, pk_ep, out_e, out_ep
     wg = np.load(WIDE_GOLDENS)
     corpus_g = make_corpus(int(wg["corpus_mb"]))
-    wide_gold_ok = {}
+    wide_gold_ok, wide_gold_in = {}, {}
     for gname in ("w131k", "w262k", "w327k"):
         blk_g, start_g = int(wg[f"{gname}_blk"]), int(wg[f"{gname}_start"])
         lens_g = wg[f"{gname}_lens"]
@@ -742,6 +768,7 @@ def main():
         w_g = torch.from_numpy(windows_g).to(dev)
         l_g = torch.from_numpy(lens_g).to(dev)
         s_g = torch.full_like(l_g, start_g)
+        wide_gold_in[gname] = (windows_g, lens_g, start_g)
         for hc in wg[f"{gname}_hcs"].tolist():
             out_g, olen_g = tb.encode_blocks(w_g, l_g, s_g, hc=hc)
             wide_gold_ok[f"{gname} hc={hc}"] = equals_goldens(
@@ -756,16 +783,17 @@ def main():
     # and 4 MB blocks as 327,680-byte sub-span windows
     wide_rec, wide_ratio = {}, {}
 
-    def wide_path(what, cdc, part_w, plain_ratio=None):
+    def wide_path(what, cdc, part_w, plain_ratio=None, expect=WIDE_KERNELS,
+                  forbid=("enc_match", "enc_match_fast")):
+        """``cdc.compress_frame(part_w)`` and its decode, counted: the
+        kernels ``expect`` launched, the kernels ``forbid`` did not."""
         def run():
             fr_w = cdc.compress_frame(part_w)
             return fr_w, cdc.decompress_frame(fr_w)
         with EncodeRecorder(sh) as rec:
-            fr_w, back_w = counted(what, run, ("enc_match_wide",
-                                               "enc_parse_emit", "tmap_gather"))
-        check(paths[what]["enc_match"] == 0
-              and paths[what]["enc_match_fast"] == 0,
-              f"{what}: a window went to the 64 KB finders")
+            fr_w, back_w = counted(what, run, expect)
+        check(not any(paths[what][k] for k in forbid),
+              f"{what}: a window went to one of {forbid}")
         check(back_w == part_w, f"{what}: port decode of the port's frame")
         check(lz4f.decompress_frame(fr_w, dictionary=cdc.dict or None)
               == part_w, f"{what}: host decode of the port's frame")
@@ -798,6 +826,76 @@ def main():
     wide_path("4 MB blocks, level 9", ShardedFrameCodec(
         device="cuda", compression_level=9,
         block_size_id=lz4f.BlockSizeID.max4MB), data[:16 << 20])
+
+    # --- phase 5d: levels 10-12 in windows over 64 KB.  The three deep
+    # kernels against their plain versions at deep 1, 2 and 3 on wide edge
+    # windows and corpus sub-span windows, the JAX payloads of
+    # wide_deep_corpus.npz, then the frames, counted, round-tripped by the
+    # host decoder and by the port, and timed
+    edge_sets = wide_edge_inputs(np, data)
+    for deep, rows_by_set in WIDE_DEEP_EDGE.items():
+        for (windows_w, lens_w, starts_w), rows, what in zip(
+                edge_sets, rows_by_set,
+                ("wide edge windows", "corpus sub-span windows")):
+            w_e, l_e, s_e = (torch.from_numpy(a[rows]).to(dev)
+                             for a in (windows_w, lens_w, starts_w))
+            (out_e, olen_e), _ms = deep_against_plain(what, w_e, l_e, s_e, 8,
+                                                      deep)
+            out_h, olen_h = out_e.cpu().numpy(), olen_e.cpu().numpy()
+            for j, k in enumerate(rows):       # the host oracle decodes each
+                n_k, s_k = int(lens_w[k]), int(starts_w[k])
+                got = lz4f_block_decode(out_h[j, :olen_h[j]].tobytes(),
+                                        windows_w[k, :s_k].tobytes(),
+                                        n_k - s_k)
+                check(got == windows_w[k, s_k:n_k].tobytes(),
+                      f"wide deep payload {k} at {windows_w.shape[1]} "
+                      f"bytes, deep={deep} does not decode")
+    del w_e, out_e
+    wdg = np.load(WIDE_DEEP_GOLDENS)
+    wide_deep_gold_ok = {}
+    for gname, (windows_g, lens_g, start_g) in wide_gold_in.items():
+        for level in DEEP_LEVELS:
+            if f"{gname}_l{level}_lens" not in wdg:
+                continue
+            lens_d = wdg[f"{gname}_l{level}_lens"]
+            starts_d = np.full(len(lens_d), start_g, np.int32)
+            windows_d = np.zeros((len(lens_d), windows_g.shape[1]), np.uint8)
+            windows_d[:len(lens_g)] = windows_g
+            starts_d[len(lens_g):] = 0      # the all-zero window after them
+            hc, deep = tb.level_params(level)
+            out_g, olen_g = tb.encode_blocks(
+                *(torch.from_numpy(a).to(dev)
+                  for a in (windows_d, lens_d, starts_d)), hc=hc, deep=deep)
+            wide_deep_gold_ok[f"{gname} level {level}"] = equals_goldens(
+                out_g.cpu().numpy(), olen_g.cpu().numpy(),
+                wdg[f"{gname}_l{level}_out_len"],
+                wdg[f"{gname}_l{level}_payloads"])
+    print(f"[wide deep] make_corpus(2) windows == JAX goldens: "
+          f"{wide_deep_gold_ok}")
+    check(all(wide_deep_gold_ok.values()),
+          "wide deep encode differs from JAX goldens")
+    no_64k = ("enc_deep_match", "enc_match", "enc_match_fast",
+              "enc_match_wide")
+    wide_path("1 MB blocks, level 12", ShardedFrameCodec(
+        device="cuda", compression_level=12,
+        block_size_id=lz4f.BlockSizeID.max1MB), data,
+        expect=WIDE_DEEP_KERNELS, forbid=no_64k)
+    wide_path("dictionary, level 10",
+              ShardedFrameCodec(device="cuda", dictionary=d,
+                                compression_level=10), part_d,
+              expect=WIDE_DEEP_KERNELS, forbid=no_64k)
+    wide_path("4 MB blocks, level 11", ShardedFrameCodec(
+        device="cuda", compression_level=11,
+        block_size_id=lz4f.BlockSizeID.max4MB), data[:16 << 20],
+        expect=WIDE_DEEP_KERNELS, forbid=no_64k)
+    print("[wide deep] n / frame bytes: "
+          + ", ".join(f"{k} {wide_ratio[k]:.6f}" for k in (
+              "1 MB blocks, level 12", "1 MB blocks, level 9",
+              "dictionary, level 10", "dictionary, level 9",
+              "4 MB blocks, level 11", "4 MB blocks, level 9")))
+    check(wide_ratio["1 MB blocks, level 12"]
+          > wide_ratio["1 MB blocks, level 9"],
+          "level 12 does not beat level 9 on the 1 MB path")
 
     # --- phase 6: the deep levels at full width, counted, then timed
     deep_frames, deep_ratio = {}, {}
@@ -1470,7 +1568,50 @@ def main():
               f"{b_wm[0]:.4f} ms by {b_wm[1]}), enc_parse_emit {k_we:.2f} ms "
               f"(plain at {sel_w.numel()} windows {p_we:.1f} ms); vs plain "
               f"max_abs_err {err_wm}, {err_we}")
-    del w_1m, pk_1m, _o, wide_rec
+    # the deep kernels at the launch of the 1 MB level-12 path (192
+    # sub-span windows), against their plain versions on every 48th window
+    (w_1m, l_1m, s_1m), _kw = wide_rec["1 MB blocks, level 12"][0]
+    tb.match_candidates(w_1m, l_1m, 8, 1, 3)
+    k_wdm, pk_1m = cuda_ms(lambda: tb.match_candidates(w_1m, l_1m, 8, 1, 3),
+                           2)
+    k_wdd, st_1m = cuda_ms(lambda: tb.deep_dp(l_1m, s_1m, pk_1m, 3), 2)
+    k_wde, _o = cuda_ms(
+        lambda: tb.deep_emit(w_1m, l_1m, s_1m, pk_1m, st_1m), 2)
+    sel_w = torch.arange(0, w_1m.shape[0], WIDE_DEEP_PLAIN_STRIDE, device=dev)
+    _out, wide_deep_plain_ms = deep_against_plain(
+        f"every {WIDE_DEEP_PLAIN_STRIDE}th window of the 1 MB level-12 path",
+        w_1m[sel_w], l_1m[sel_w], s_1m[sel_w], 8, 3)
+    B_w, blk_w = w_1m.shape
+    b_wide_deep = {
+        "enc_deep_match_wide": bound(B_w * blk_w + 4 * B_w
+                                     + 4 * B_w * blk_w,
+                                     deep_match_ops(B_w, blk_w, 8, 3)),
+        "enc_deep_dp": bound(8 * B_w * blk_w + 8 * B_w, 30 * B_w * blk_w),
+        "enc_deep_emit": bound(B_w * blk_w + 8 * B_w + 8 * B_w * blk_w
+                               + B_w * compress_bound(blk_w) + 4 * B_w,
+                               8 * B_w * blk_w)}
+    k_wide_deep = {"enc_deep_match_wide": k_wdm, "enc_deep_dp": k_wdd,
+                   "enc_deep_emit": k_wde}
+    print(f"[time] {smi}: 1 MB blocks, level 12: deep kernels at {B_w} x "
+          f"{blk_w} windows: " + ", ".join(
+              f"{k} {v:.2f} ms (plain at {sel_w.numel()} windows "
+              f"{wide_deep_plain_ms[k]:.1f} ms; bound {b_wide_deep[k][0]:.4f} "
+              f"ms by {b_wide_deep[k][1]})" for k, v in k_wide_deep.items()))
+    # the wide deep finder, and the wide launches of the other two; the
+    # error of the other two is the largest over both widths
+    results["enc_deep_match_wide"].update(
+        max_abs_err=deep_err["enc_deep_match_wide"],
+        ms=k_wide_deep["enc_deep_match_wide"],
+        plain_ms=wide_deep_plain_ms["enc_deep_match_wide"],
+        plain_windows=int(sel_w.numel()), windows=B_w, window_bytes=blk_w,
+        bound_ms=b_wide_deep["enc_deep_match_wide"][0],
+        bound_by=b_wide_deep["enc_deep_match_wide"][1], library_ms=None)
+    for k in ("enc_deep_dp", "enc_deep_emit"):
+        results[k].update(
+            wide_ms=k_wide_deep[k], wide_plain_ms=wide_deep_plain_ms[k],
+            wide_bound_ms=b_wide_deep[k][0], wide_bound_by=b_wide_deep[k][1],
+            wide_windows=B_w, wide_window_bytes=blk_w)
+    del w_1m, pk_1m, st_1m, _o, _out, wide_rec
     results["enc_match_wide"].update(
         max_abs_err=wide_err["enc_match_wide"], ms=wide_ms[9]["match"],
         ms_level0=wide_ms[0]["match"], plain_ms=wide_ms[9]["plain_match"],

@@ -37,6 +37,15 @@ The port (zig_lz4_tpu_torch) is compared byte for byte with these:
   decoder) on the level-8 payloads of ``levels4k.npz``: the rows with
   ``start == 0`` without a history, and every row with its history
   right-aligned in a 4 KB window.
+* ``wide_deep_corpus.npz`` -- the deep levels at windows over 64 KB:
+  ``encode_blocks_jax(..., hc=8, deep=d)`` payloads of the ``WIDE_SETS``
+  windows at level 12 at all three widths and at levels 10 and 11 at
+  131,072 bytes, with an all-zero window beside the 131,072-byte rows
+  at levels 10 and 12 (group ``wide_deep``).
+* ``wide_deep_frames.npz`` -- the SHA-256 of the JAX codec's frames of a
+  400,000-byte corpus prefix at levels 12 (1 MB blocks; 64 KB blocks
+  behind the dictionary) and 10 (256 KB blocks), and the short frames of
+  ``WIDE_DEEP_SMALL`` (group ``wide_deep_frames``).
 * ``frags4k.npz`` -- the three fragment-ladder decoders
   (``_decode_block_frags``, ``_decode_block_frags_win``,
   ``_decode_block_frags_chase``), jitted and vmapped, on the fragment
@@ -50,9 +59,9 @@ Run once from the repository root (needs JAX):
 or name groups as arguments (``64k``, ``frames4k``, ``levels4k``,
 ``levels64k``, ``levels_frames4k``, ``deep4k``, ``deep64k_l10``,
 ``deep64k_l11``, ``deep64k_l12``, ``deep_frames4k``, ``seqdec4k``,
-``frags4k``, ``wide``, ``sort2``); the
-groups are independent, so they may run as separate processes side by
-side (``seqdec4k`` reads the ``levels4k`` file).
+``frags4k``, ``wide``, ``wide_deep``, ``wide_deep_frames``, ``sort2``);
+the groups are independent, so they may run as separate processes side
+by side (``seqdec4k`` reads the ``levels4k`` file).
 """
 
 import os
@@ -118,6 +127,30 @@ WIDE_FRAMES = {"max1MB_l9": ("max1MB", 9, False),
 WIDE_SMALL = {"small_dict": (b"dictionary encode", "max64KB", 0,
                              b"0123456789" * 10),
               "small_256k": (b"256 KB blocks", "max256KB", 9, None)}
+#: the deep levels at windows over 64 KB: WIDE_SETS name -> levels
+WIDE_DEEP_OUT = os.path.join(HERE, "wide_deep_corpus.npz")
+WIDE_DEEP_LEVELS = {"w131k": (10, 11, 12), "w262k": (12,), "w327k": (12,)}
+#: level -> valid length of an all-zero 131,072-byte window that emits
+#: from 0, appended to the w131k rows at that level
+WIDE_DEEP_ZERO = {10: 1000, 12: 0}
+WIDE_DEEP_FRAMES_OUT = os.path.join(HERE, "wide_deep_frames.npz")
+#: the deep frame goldens' input: short enough for the plain versions
+WIDE_DEEP_FRAME = slice(0, 400_000)
+WIDE_DEEP_FRAMES = {"max1MB_l12": ("max1MB", 12, False),
+                    "dict_l12": ("max64KB", 12, True),
+                    "max256KB_l10": ("max256KB", 10, False)}
+#: short deep frames, laid out as WIDE_SMALL: a dictionary of 100 bytes
+#: (a window of 65,636 bytes, not a multiple of 32) at levels 10 and 12,
+#: 256 KB blocks at level 12, and 9 bytes behind a dictionary and in
+#: 4 MB blocks at level 12
+WIDE_DEEP_SMALL = {
+    "small_dict_l10": (b"dictionary encode", "max64KB", 10,
+                       b"0123456789" * 10),
+    "small_dict_l12": (b"dictionary encode", "max64KB", 12,
+                       b"0123456789" * 10),
+    "small_256k_l12": (b"256 KB blocks", "max256KB", 12, None),
+    "deep_wide_dict_l12": (b"deep wide", "max64KB", 12, b"d" * 100),
+    "deep_wide_4m_l12": (b"deep wide", "max4MB", 12, None)}
 SORT2_OUT = os.path.join(HERE, "sort2_probe.npz")
 #: keys of the probe golden: 65,536 from [0, SORT2_RANGE), seed 2
 SORT2_RANGE = 64
@@ -352,20 +385,89 @@ def wide(corpus: bytes) -> None:
         arrays[f"frame_{name}_sha256"] = np.array(
             hashlib.sha256(frame).hexdigest())
         print(f"frame {name}: {len(frame)} bytes", flush=True)
-    for name, (small, bsid, level, dct) in WIDE_SMALL.items():
+    arrays.update(_small_frames(WIDE_SMALL))
+    np.savez_compressed(WIDE_OUT, **arrays)
+
+
+def _small_frames(entries: dict) -> dict:
+    """frame_<name> -> the JAX codec's frame of each ``WIDE_SMALL``-like
+    entry (data, block size name, level, dictionary)."""
+    from zig_lz4_tpu import frame as ref_frame
+    from zig_lz4_tpu.parallel import ShardedFrameCodec
+
+    arrays = {}
+    for name, (small, bsid, level, dct) in entries.items():
         ref = ShardedFrameCodec(
             compression_level=level,
             block_size_id=getattr(ref_frame.BlockSizeID, bsid),
             dictionary=dct)
-        # the reference's greedy scan cuts the window into rows of 32
-        # positions (jax_block.py:724-739) and raises on a window of any
+        # the reference's greedy scan (and at the deep levels its price
+        # scan) cuts the window into rows of 32 positions
+        # (jax_block.py:579-581, :724-739) and raises on a window of any
         # other width, such as 100 + 65,536 bytes; the bytes past the
         # valid length take no part in the encode, so over the window
         # rounded up to 32 it writes the frame of the window itself
         ref.window = -(-ref.window // 32) * 32
-        arrays[f"frame_{name}"] = np.frombuffer(ref.compress_frame(small),
-                                                np.uint8)
-    np.savez_compressed(WIDE_OUT, **arrays)
+        frame = ref.compress_frame(small)
+        assert ref_frame.decompress_frame(frame, dictionary=dct) == small
+        arrays[f"frame_{name}"] = np.frombuffer(frame, np.uint8)
+        print(f"small frame {name}: {len(frame)} bytes", flush=True)
+    return arrays
+
+
+def wide_deep_windows(corpus: bytes, name: str, level: int):
+    """(windows, lens, starts) of the deep goldens of ``WIDE_SETS`` entry
+    ``name`` at ``level``: its windows, and at the levels of
+    ``WIDE_DEEP_ZERO`` the all-zero 131,072-byte window after them."""
+    windows, lens, starts = wide_windows(corpus, name)
+    if name == "w131k" and level in WIDE_DEEP_ZERO:
+        windows = np.concatenate([windows, np.zeros_like(windows[:1])])
+        lens = np.append(lens, np.int32(WIDE_DEEP_ZERO[level]))
+        starts = np.append(starts, np.int32(0))
+    return windows, lens, starts
+
+
+def wide_deep(corpus: bytes) -> None:
+    from zig_lz4_tpu.ops.jax_block import encode_blocks_jax, level_params
+
+    arrays = {}
+    for name, levels in WIDE_DEEP_LEVELS.items():
+        blk = WIDE_SETS[name][0]
+        for level in levels:
+            hc, deep = level_params(level)
+            windows, lens, starts = wide_deep_windows(corpus, name, level)
+            out_len, payloads = _dense(*encode_blocks_jax(
+                windows, lens, blk=blk, starts=starts, hc=hc, deep=deep))
+            arrays[f"{name}_l{level}_lens"] = lens
+            arrays[f"{name}_l{level}_out_len"] = out_len
+            arrays[f"{name}_l{level}_payloads"] = payloads
+            print(f"{name} level {level}: {out_len.tolist()}", flush=True)
+    np.savez_compressed(WIDE_DEEP_OUT, **arrays)
+
+
+def wide_deep_frames(corpus: bytes) -> None:
+    import hashlib
+
+    from zig_lz4_tpu import frame as ref_frame
+    from zig_lz4_tpu.parallel import ShardedFrameCodec
+
+    data = corpus[WIDE_DEEP_FRAME]
+    dictionary = corpus[WIDE_DICT]
+    arrays = {}
+    for name, (bsid, level, with_dict) in WIDE_DEEP_FRAMES.items():
+        dct = dictionary if with_dict else None
+        ref = ShardedFrameCodec(
+            compression_level=level,
+            block_size_id=getattr(ref_frame.BlockSizeID, bsid),
+            dictionary=dct)
+        frame = ref.compress_frame(data)
+        assert ref_frame.decompress_frame(frame, dictionary=dct) == data
+        arrays[f"frame_{name}_len"] = np.int64(len(frame))
+        arrays[f"frame_{name}_sha256"] = np.array(
+            hashlib.sha256(frame).hexdigest())
+        print(f"frame {name}: {len(frame)} bytes", flush=True)
+    arrays.update(_small_frames(WIDE_DEEP_SMALL))
+    np.savez_compressed(WIDE_DEEP_FRAMES_OUT, **arrays)
 
 
 def sort2() -> None:
@@ -445,6 +547,8 @@ def main():
               "seqdec4k": seqdec4k,
               "frags4k": frags4k,
               "wide": lambda: wide(corpus),
+              "wide_deep": lambda: wide_deep(corpus),
+              "wide_deep_frames": lambda: wide_deep_frames(corpus),
               "sort2": sort2}
     for name in sys.argv[1:] or groups:
         groups[name]()

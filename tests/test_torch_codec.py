@@ -239,19 +239,23 @@ def test_block_past_frame_block_size_raises(codecs):
 
 def test_outside_the_slice_raises_not_implemented(port):
     """Dictionary encode and 256 KB blocks encode now, to the JAX
-    codec's frames (``tests/fixtures/wide_corpus.npz``); the deep levels
-    at windows over 64 KB still raise."""
+    codec's frames (``tests/fixtures/wide_corpus.npz``), and so do the
+    deep levels at windows over 64 KB (``wide_deep_frames.npz``)."""
     with np.load(make_torch_goldens.WIDE_OUT) as z:
         want = {k: z[f"frame_{k}"].tobytes()
                 for k in make_torch_goldens.WIDE_SMALL}
+    with np.load(make_torch_goldens.WIDE_DEEP_FRAMES_OUT) as z:
+        want.update({k: z[f"frame_{k}"].tobytes()
+                     for k in ("small_dict_l10", "small_256k_l12")})
     data, _bs, level, dct = make_torch_goldens.WIDE_SMALL["small_dict"]
     frame = ShardedFrameCodec(dictionary=dct, device="cpu"
                               ).compress_frame(data)
     assert level == 0 and frame == want["small_dict"]
     assert lz4f.decompress_frame(frame, dictionary=dct) == data
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ShardedFrameCodec(dictionary=dct, device="cpu", compression_level=10
-                          ).compress_frame(data)
+    frame = ShardedFrameCodec(dictionary=dct, device="cpu",
+                              compression_level=10).compress_frame(data)
+    assert frame == want["small_dict_l10"]
+    assert lz4f.decompress_frame(frame, dictionary=dct) == data
     # the fragment-ladder engines decode
     win = ShardedFrameCodec(decode_engine="win", device="cpu")
     blob, content = _GOLDENS["periodic_match.lz4"]
@@ -264,10 +268,11 @@ def test_outside_the_slice_raises_not_implemented(port):
                               block_size_id=lz4f.BlockSizeID.max256KB
                               ).compress_frame(data)
     assert frame == want["small_256k"]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ShardedFrameCodec(compression_level=12, device="cpu",
-                          block_size_id=lz4f.BlockSizeID.max256KB
-                          ).compress_frame(data)
+    frame = ShardedFrameCodec(compression_level=12, device="cpu",
+                              block_size_id=lz4f.BlockSizeID.max256KB
+                              ).compress_frame(data)
+    assert frame == want["small_256k_l12"]
+    assert lz4f.decompress_frame(frame) == data
     # what the slices brought in no longer raises
     assert CUDACodec(device="cpu").decompress(b"\x00", 16) == b""
     frame = ShardedFrameCodec(compression_level=12, device="cpu"
@@ -410,10 +415,20 @@ def _without_native(monkeypatch):
 
 
 def test_linked_decode_needs_the_native_runtime(monkeypatch, port):
+    """Without the native runtime a linked frame goes to the host frame
+    layer, as the reference's decompress_frame sends it
+    (tests/test_parallel.py's test_sharded_linked_frame_falls_back)."""
     calls = _without_native(monkeypatch)
-    with pytest.raises(RuntimeError, match="native host runtime"):
-        port.decompress_frame(_GOLDENS["linked_blocks.lz4"][0])
+    blob, content = _GOLDENS["linked_blocks.lz4"]
+    assert port.decompress_frame(blob) == content
     assert not calls
+    assert set(port.routes) == {"host"}
+    data = make_corpus(make_torch_goldens.CORPUS_MB)[:20_000]
+    prefs = lz4f.Preferences(frame_info=lz4f.FrameInfo(
+        block_size_id=lz4f.BlockSizeID.max64KB,
+        block_mode=lz4f.BlockMode.linked))
+    assert port.decompress_frame(lz4f.compress_frame(data, prefs)) == data
+    assert not calls and set(port.routes) == {"host"}
     # an independent frame no longer needs it
     blob, content = _GOLDENS["periodic_match.lz4"]
     assert port.decompress_frame(blob) == content
@@ -426,13 +441,10 @@ def test_linked_decode_needs_the_native_runtime(monkeypatch, port):
                                             "block4m.lz4")))
 def test_golden_fixtures_decode_without_native(name, monkeypatch, port):
     """Every golden frame of blocks up to 64 KB through the
-    sequence-rebuild decoder (linked frames still need the runtime)."""
+    sequence-rebuild decoder, and linked frames through the host frame
+    layer."""
     blob, content = _GOLDENS[name]
     _without_native(monkeypatch)
-    if name == "linked_blocks.lz4":
-        with pytest.raises(RuntimeError, match="native host runtime"):
-            port.decompress_frame(blob)
-        return
     assert port.decompress_frame(blob) == content
 
 

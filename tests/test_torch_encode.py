@@ -484,19 +484,24 @@ def test_tier_lengths_and_stages_compose(static_batch):
 
 
 def test_encoder_rejects_what_it_does_not_take():
-    """Windows over 64 KB encode at levels 0-9 up to the reference's
-    predicate (tests/test_torch_wide.py); wider ones, and the deep
-    levels over 64 KB, raise."""
+    """Windows over 64 KB encode at every level up to the reference's
+    predicate (tests/test_torch_wide.py, tests/test_torch_wide_deep.py);
+    wider ones raise.  An empty 131,072-byte window at level 12 encodes
+    to the JAX reference's payload (``wide_deep_corpus.npz``)."""
     assert tb.device_encoder_supports(65536)
     assert tb.device_encoder_supports(65537)
     assert tb.device_encoder_supports(327680)
     assert not tb.device_encoder_supports(524288)
     w = torch.zeros((1, 524288), dtype=torch.uint8)
     n = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="device_encoder_supports"):
-        tb.encode_blocks(w, n)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tb.encode_blocks(w[:, :2 * 65536], n, hc=8, deep=3)
+    for hc, deep in ((9, 0), (8, 1), (8, 3)):
+        with pytest.raises(NotImplementedError,
+                           match="device_encoder_supports"):
+            tb.encode_blocks(w, n, hc=hc, deep=deep)
+    with np.load(os.path.join(_FIXDIR, "wide_deep_corpus.npz")) as z:
+        want = int(z["w131k_l12_out_len"][-1])      # the empty window
+    out, out_len = tb.encode_blocks(w[:, :2 * 65536], n, hc=8, deep=3)
+    assert int(out_len[0]) == want and not out.any()
     with pytest.raises(TypeError):
         tb.encode_blocks(torch.zeros((1, 16), dtype=torch.int32), n)
     with pytest.raises(TypeError):

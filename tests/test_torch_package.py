@@ -58,6 +58,7 @@ def test_sources_name_no_jax():
     assert {os.path.basename(f) for f in files
             if f.endswith((".cu", ".cuh"))} == {
         "encode_block.cu", "encode_common.cuh", "encode_deep.cu",
+        "encode_deep.cuh", "encode_deep_wide.cu",
         "encode_wide.cu", "frag_common.cuh", "frag_decode.cu",
         "linked_tmap.cu", "seq_decode.cu", "serial_decode.cu",
         "sort_global.cuh", "sort_probe.cu", "tmap_gather.cu"}

@@ -172,16 +172,28 @@ def test_wide_edge_windows_decode():
 
 
 def test_deep_levels_at_wide_windows_raise():
+    """The inputs on which the deep levels at windows over 64 KB raised
+    before they were ported now encode to the JAX reference's bytes
+    (``wide_deep_corpus.npz``, ``wide_deep_frames.npz``; the other deep
+    cases are in tests/test_torch_wide_deep.py)."""
     w = torch.zeros((1, 131072), dtype=torch.uint8)
-    n = torch.full((1,), 1000, dtype=torch.int32)
+    n = torch.full((1,), mtg.WIDE_DEEP_ZERO[10], dtype=torch.int32)
+    with np.load(mtg.WIDE_DEEP_OUT) as z:
+        want = z["w131k_l10_payloads"][-int(z["w131k_l10_out_len"][-1]):]
     for fn in (tb.encode_blocks, tb.encode_blocks_plain):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-            fn(w, n, hc=8, deep=1)
-    for kw in (dict(dictionary=b"d" * 100),
-               dict(block_size_id=lz4f.BlockSizeID.max4MB)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-            ShardedFrameCodec(device="cpu", compression_level=12,
-                              **kw).compress_frame(b"deep wide")
+        out, out_len = fn(w, n, hc=8, deep=1)
+        assert out[0, :int(out_len[0])].numpy().tobytes() == want.tobytes()
+    with np.load(mtg.WIDE_DEEP_FRAMES_OUT) as z:
+        frames = {k: z[f"frame_{k}"].tobytes()
+                  for k in ("deep_wide_dict_l12", "deep_wide_4m_l12")}
+    for name, want in frames.items():
+        data, bsid, level, dct = mtg.WIDE_DEEP_SMALL[name]
+        frame = ShardedFrameCodec(
+            device="cpu", compression_level=level, dictionary=dct,
+            block_size_id=getattr(lz4f.BlockSizeID, bsid)
+        ).compress_frame(data)
+        assert frame == want
+        assert lz4f.decompress_frame(frame, dictionary=dct) == data
 
 
 @pytest.fixture

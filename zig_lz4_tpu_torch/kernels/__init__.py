@@ -59,6 +59,9 @@ KERNELS = {
     "enc_deep_match": ("zl4_enc_deep_match", "encode_deep.cu",
                        [_P, _P, _P, _P, _I, _I, _I, _I],
                        "ops/jax_block.py:274"),
+    "enc_deep_match_wide": ("zl4_enc_deep_match_wide", "encode_deep_wide.cu",
+                            [_P] * 6 + [_I] * 6,
+                            "ops/jax_block.py:274"),
     "enc_deep_dp": ("zl4_enc_deep_dp", "encode_deep.cu",
                     [_P, _P, _P, _P, _I, _I, _I, _I],
                     "ops/jax_block.py:556"),

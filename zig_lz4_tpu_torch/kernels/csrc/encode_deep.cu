@@ -8,27 +8,14 @@
 // chunks with one-hot reads, and repairs the parse with pooled gathers and
 // scatter.  Here the same bytes come from three kernels:
 //
-// enc_deep_match (one 1024-thread block per window; the window and the u16
-//   sort order in shared memory as in enc_match, the ranks in global memory):
-//   * the 32-byte rank r (:285-306): a bitonic sort of the positions by the
-//     eight u32 words (s0, su[i+4], ..., su[i+28], i) -- compared as
-//     unsigned little-endian words, s0 poisoned past n - 4 -- then one block
-//     scan that numbers the classes in sorted order, scattered back to the
-//     position.  Ranks reach blk = 65536, one past u16, so they are int32 in
-//     global memory: 256 KB per window, which the L2 holds.
-//   * at deep = 3 the 256-byte rank r2 (:316-321) the same way, over the
-//     eight keys r[i], r[i+32], ..., r[i+224] (-1 past the end, as shl fills).
-//   * the grand grouping sort (:322, :341-346): by the last NK tier operands
-//     and the position: r[i+32k], k < 4 at deep 1; k < 8 at deep 2;
-//     r2[i+256k], k < 4 at deep 3.  The tier operands are shifts of r and
-//     r2, so none is materialised.
-//   * the +-1..+-hc probes (:379-450) with the nested tier chain (:412-419):
-//     tier t holds while operands 0..t-1 are equal on both rows, and proves
-//     tier_len(t) bytes; the longest total ml wins, ties to the larger
-//     candidate.  Output: ((cand + 1) << 12) | (fine ml << 6) | (tier << 2)
-//     | back, stored at the position (the unsort, :455-469).
-//   * the positional fallback (:471-516) as in enc_match; it wins when its
-//     fine ml beats the total ml, and then the tier is 0.
+// enc_deep_match (one 1024-thread block per window of up to 64 KB; the window
+//   and the u16 sort order in shared memory as in enc_match, the ranks in
+//   global memory, 256 KB a window at 64 KB, which the L2 holds): the deep
+//   finder of encode_deep.cuh -- the 32-byte rank, at deep = 3 the 256-byte
+//   rank, the grand grouping sort, the +-1..+-hc probes with the nested tier
+//   chain, the positional fallback.  Wider windows go to enc_deep_match_wide
+//   (encode_deep_wide.cu), which runs the same routine over a u32 order in
+//   device scratch.
 //   Bound: the four sorts (136 bitonic stages each); two of them read their
 //   keys from global memory (L2), not shared memory.
 //
@@ -40,22 +27,27 @@
 //                   768 + cost[i + 18] where ml > 18)
 //   with cost = 0 past the window; one thread runs that recurrence backwards
 //   over a 1024-entry cost ring in shared memory, the block staging 4096
-//   positions at a time through shared memory.  Output per position:
-//   ml (cut to 18 where the 18-byte cut won) | take << 30 | cap_end << 29.
-//   Bound: the one thread's dependent chain, 65536 steps a window.
+//   positions at a time through shared memory, so any window below 2^19
+//   bytes fits.  Costs stay below 256 * blk < 2^27, under the reference's
+//   INF_D = 2^28 (:582).  Output per position: ml (cut to 18 where the
+//   18-byte cut won) | take << 30 | cap_end << 29.
+//   Bound: the one thread's dependent chain, blk steps a window.
 //
 // enc_deep_emit (one 256-thread block per window):
 //   the greedy parse over the take bits (:716-743) by one thread, which lists
-//   the chosen rows and pools the first 512 whose end is capped; the pool's
-//   rows measure their exact extension in parallel, two rounds of four u32
-//   compares at the match's own offset, word indices clipped to the window
-//   (:774-819); then one thread walks the chosen list with the running
-//   maximum of the extended ends (the absorb, :838-863): a covered match is
-//   dropped, one with >= 4 bytes left moves to its trimmed start with back =
-//   0 -- only the first 512 moved matches, as the reference's pool -- and
-//   every kept selection goes to the same emitter as enc_parse_emit.
+//   the chosen rows and pools the first P whose end is capped, with P = 512
+//   per 64 KB of window (min(512 * max(blk / 65536, 1), blk), :774); the
+//   pool's rows measure their exact extension in parallel, two rounds of
+//   four u32 compares at the match's own offset, word indices clipped to the
+//   window (:774-819); then one thread walks the chosen list with the
+//   running maximum of the extended ends (the absorb, :838-863): a covered
+//   match is dropped, one with >= 4 bytes left moves to its trimmed start
+//   with back = 0 -- only the first P moved matches, as the reference's pool
+//   (:857) -- and every kept selection goes to the same emitter as
+//   enc_parse_emit.  The take mask and the pool live in dynamic shared
+//   memory: 61,440 bytes at 327,680, past the default 48 KB.
 
-#include "encode_common.cuh"
+#include "encode_deep.cuh"
 
 namespace {
 
@@ -65,68 +57,22 @@ constexpr int kDpChunk = 4096;   // positions staged per round
 constexpr int kExtPool = 512;    // pooled rows per 64 KB of window
 constexpr int kExtBytes = 32;
 
-// x[p + k], -1 past the end (shl, jax_block.py:277-283)
-__device__ __forceinline__ int shl_at(const int32_t* x, int p, int k,
-                                      int blk) {
-  const int q = p + k;
-  return q < blk ? x[q] : -1;
+// Extension pool rows of a blk-byte window: 512 per 64 KB (jax_block.py:774)
+__host__ __device__ __forceinline__ int ext_pool(int blk) {
+  const int P = kExtPool * (blk / 65536 > 1 ? blk / 65536 : 1);
+  return P < blk ? P : blk;
 }
 
-// The tier operands of a deep configuration, read from the ranks.
-struct Tiers {
-  const int32_t* r;   // 32-byte rank
-  const int32_t* r2;  // 256-byte rank (deep == 3)
-  int blk, deep;
-
-  __device__ __forceinline__ int count() const {
-    return deep == 1 ? 4 : deep == 2 ? 8 : 11;
+// The position order of a window up to 64 KB: u16 in shared memory.
+struct SharedOrder {
+  uint16_t* s;
+  int N;
+  template <class Less>
+  __device__ void operator()(Less less) const {
+    bitonic_sort(s, N, less);
   }
-  __device__ __forceinline__ int op(int tk, int p) const {
-    if (deep == 3 && tk >= 7) return shl_at(r2, p, 256 * (tk - 7), blk);
-    return shl_at(r, p, 32 * tk, blk);
-  }
+  __device__ void identity() const { identity_order(s, N); }
 };
-
-// Number the classes of the sorted order s[0..blk) -- rows t - 1 and t are
-// in one class when same(s[t - 1], s[t]) -- from 1 in sorted order, and
-// store each row's number at its position (ranksN, jax_block.py:285-296).
-template <class Same>
-__device__ void assign_ranks(const uint16_t* s, int blk, Same same,
-                             int32_t* rank, int* part /* shared, 1024 */) {
-  const int tid = threadIdx.x, T = blockDim.x;
-  const int chunk = (blk + T - 1) / T;
-  const int lo = min(tid * chunk, blk), hi = min(lo + chunk, blk);
-  int cnt = 0;
-  for (int t = lo; t < hi; ++t)
-    if (t == 0 || !same(s[t - 1], s[t])) ++cnt;
-  part[tid] = cnt;
-  __syncthreads();
-  for (int d = 1; d < T; d <<= 1) {  // inclusive scan of the chunk counts
-    const int v = tid >= d ? part[tid - d] : 0;
-    __syncthreads();
-    part[tid] += v;
-    __syncthreads();
-  }
-  int run = part[tid] - cnt;
-  for (int t = lo; t < hi; ++t) {
-    if (t == 0 || !same(s[t - 1], s[t])) ++run;
-    rank[s[t]] = run;
-  }
-  __syncthreads();
-}
-
-// Sort the positions by nk keys x[p + step * k], k < nk, ties by position.
-__device__ void sort_by_ranks(const int32_t* x, int step, int nk, uint16_t* s,
-                              int N, int blk) {
-  bitonic_sort(s, N, [&](int p, int q) {
-    if (p >= blk || q >= blk) return p < q;
-    for (int k = 0; k < nk; ++k) {
-      const int a = shl_at(x, p, step * k, blk), c = shl_at(x, q, step * k, blk);
-      if (a != c) return a < c;
-    }
-    return p < q;
-  });
-}
 
 __global__ void __launch_bounds__(kMatchThreads)
 enc_deep_match_kernel(const uint8_t* __restrict__ data,
@@ -139,87 +85,10 @@ enc_deep_match_kernel(const uint8_t* __restrict__ data,
   uint16_t* s = reinterpret_cast<uint16_t*>(smem + nwords);
   const int b = blockIdx.x;
   const int n = min(max(lens[b], 0), blk);
-  int32_t* out = pk + (size_t)b * blk;
   int32_t* r = ranks + (size_t)b * (deep == 3 ? 2 : 1) * blk;
-  int32_t* r2 = r + blk;
   load_window(data + (size_t)b * blk, n, words, nwords, s, N);
-  const Window W{words, n};
-
-  // 32-byte rank: order by (s0, su[i+4], ..., su[i+28]), then number
-  bitonic_sort(s, N, [&](int p, int q) {
-    if (p >= blk || q >= blk) return p < q;
-    uint32_t a = W.s0(p), c = W.s0(q);
-    if (a != c) return a < c;
-    for (int k = 1; k < 8; ++k) {
-      a = W.at(p + 4 * k), c = W.at(q + 4 * k);
-      if (a != c) return a < c;
-    }
-    return p < q;
-  });
-  assign_ranks(s, blk, [&](int p, int q) {
-    if (W.s0(p) != W.s0(q)) return false;
-    for (int k = 1; k < 8; ++k)
-      if (W.at(p + 4 * k) != W.at(q + 4 * k)) return false;
-    return true;
-  }, r, part);
-
-  if (deep == 3) {  // 256-byte rank over r[i], r[i+32], ..., r[i+224]
-    identity_order(s, N);
-    sort_by_ranks(r, 32, 8, s, N, blk);
-    assign_ranks(s, blk, [&](int p, int q) {
-      for (int k = 0; k < 8; ++k)
-        if (shl_at(r, p, 32 * k, blk) != shl_at(r, q, 32 * k, blk))
-          return false;
-      return true;
-    }, r2, part);
-  }
-
-  // grand order by the last NK tier operands, ties by position
-  identity_order(s, N);
-  if (deep == 3) sort_by_ranks(r2, 256, 4, s, N, blk);
-  else sort_by_ranks(r, 32, deep == 2 ? 8 : 4, s, N, blk);
-
-  const Tiers T{r, r2, blk, deep};
-  const int nt = T.count();
-  for (int t = threadIdx.x; t < blk; t += blockDim.x) {
-    const int p = s[t];
-    int b_cand = -1, b_ml = 0, b_mlf = 0, b_tier = 0, b_back = 0;
-    for (int k = 1; k <= hc; ++k) {
-      for (int side = 0; side < 2; ++side) {
-        const int u = side ? t + k : t - k;
-        if (u < 0 || u >= blk) continue;
-        const int q = s[u];
-        const Cand c = probe(W, p, q, kMaxW);
-        if (c.cand < 0) continue;
-        int tier = 0;
-        while (tier < nt && T.op(tier, p) == T.op(tier, q)) ++tier;
-        const int ml = max(c.ml, tier_len(tier, deep));
-        if (ml > b_ml || (ml == b_ml && c.cand > b_cand)) {
-          b_cand = c.cand;
-          b_ml = ml;
-          b_mlf = c.ml;
-          b_tier = tier;
-          b_back = c.back;
-        }
-      }
-    }
-    out[p] = b_cand >= 0 ? ((b_cand + 1) << 12) | (b_mlf << 6) | (b_tier << 2) |
-                               b_back
-                         : 0;
-  }
-  __syncthreads();
-
-  // positional fallback: order by s0 alone, probes +1 and +2; it must beat
-  // the total ml, and clears the tier
-  identity_order(s, N);
-  sort_by_s0(W, s, N, blk);
-  for (int t = threadIdx.x; t < blk; t += blockDim.x) {
-    const int p = s[t];
-    const Cand c = nearest(W, s, t, 2, kMaxW);
-    const int v = out[p];
-    const int ml = v ? max((v >> 6) & 63, tier_len((v >> 2) & 15, deep)) : 0;
-    if (c.ml > ml) out[p] = pack(c);
-  }
+  deep_match(Window{words, n}, SharedOrder{s, N}, s, blk, hc, deep, r,
+             r + blk, pk + (size_t)b * blk, part);
 }
 
 __global__ void __launch_bounds__(kParseThreads)
@@ -287,8 +156,7 @@ enc_deep_emit_kernel(const uint8_t* __restrict__ data,
                      int32_t* __restrict__ chosen, int32_t* __restrict__ runs,
                      uint8_t* __restrict__ out, int32_t* __restrict__ out_len,
                      int blk, int cap, int runcap, int chcap) {
-  extern __shared__ uint32_t imask[];
-  __shared__ int pool_i[kExtPool], pool_e[kExtPool];
+  extern __shared__ uint32_t imask[];  // then pool_i[P], pool_e[P]
   __shared__ int s_nch, s_npool, s_nruns, s_olen;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -300,8 +168,9 @@ enc_deep_emit_kernel(const uint8_t* __restrict__ data,
   int32_t* C = chosen + (size_t)b * chcap;
   int32_t* R = runs + (size_t)b * runcap;
   uint8_t* o = out + (size_t)b * cap;
-  // the pool is 512 rows per 64 KB of window; windows here are <= 64 KB
-  const int P = min(kExtPool, blk);
+  const int P = ext_pool(blk);
+  int* pool_i = reinterpret_cast<int*>(imask + ((blk + 31) >> 5));
+  int* pool_e = pool_i + P;
 
   // --- the take bits as a mask
   const int lane = tid & 31, warp = tid >> 5;
@@ -421,7 +290,7 @@ extern "C" int zl4_enc_deep_match(const void* data, const void* lens,
 extern "C" int zl4_enc_deep_dp(const void* lens, const void* starts,
                                const void* pk, void* st, int B, int blk,
                                int capped_ml, int deep, void* stream) {
-  if (B <= 0 || blk <= 0 || blk > 65536 || deep < 1 || deep > 3)
+  if (B <= 0 || blk <= 0 || blk >= (1 << 19) || deep < 1 || deep > 3)
     return (int)cudaErrorInvalidValue;
   enc_deep_dp_kernel<<<B, kParseThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)lens, (const int32_t*)starts, (const int32_t*)pk,
@@ -437,10 +306,15 @@ extern "C" int zl4_enc_deep_emit(const void* data, const void* lens,
                                  void* stream) {
   // chosen: int32[B, chcap] scratch, one entry per selected match (at most
   // blk / 4); runs as in zl4_enc_parse_emit
-  if (B <= 0 || blk <= 0 || blk > 65536 || runcap < 3 * (blk / 4 + 1) ||
+  if (B <= 0 || blk <= 0 || blk >= (1 << 19) || runcap < 3 * (blk / 4 + 1) ||
       chcap < blk / 4 + 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)((blk + 31) / 32) * 4;
+  // the take mask, then the extension pool's rows and extensions
+  const size_t smem = ((size_t)((blk + 31) / 32) + 2 * ext_pool(blk)) * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      enc_deep_emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
   enc_deep_emit_kernel<<<B, kParseThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)data, (const int32_t*)lens, (const int32_t*)starts,
       (const int32_t*)pk, (const int32_t*)st, (int32_t*)chosen, (int32_t*)runs,

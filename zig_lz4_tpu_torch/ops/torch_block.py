@@ -36,16 +36,20 @@ and, for the deep levels, ``kernels/csrc/encode_deep.cu``):
   nested tier lengths, then the positional fallback.  The pack gains a
   4-bit tier field: ``((cand + 1) << 12) | (fine ml << 6) | (tier << 2)
   | back`` (``jax_block.py:459-461``).
+* ``enc_deep_match_wide`` (``kernels/csrc/encode_deep_wide.cu``) -- the
+  same finder for the windows over 64 KB, with its state in device
+  scratch as ``enc_match_wide`` keeps it; both run one routine
+  (``kernels/csrc/encode_deep.cuh``).
 * ``enc_deep_dp`` -- chain extension with the tier lengths, then the
   backward price parse over a 512-entry cost ring with the 18-byte cut
   (``run_dp``, ``jax_block.py:556-683``): per position the final
   length, the ``take`` bit and the capped-end bit.
 * ``enc_deep_emit`` -- the greedy parse over ``take``, the pooled exact
   extension of capped chosen ends and the one-pass absorb
-  (``jax_block.py:748-863``), then the same emission as
-  ``enc_parse_emit``.
+  (``jax_block.py:748-863``; 512 pooled rows per 64 KB of window), then
+  the same emission as ``enc_parse_emit``.
 
-The deep levels take windows up to 64 KB (ROADMAP Queue 1 item 15).
+Every level takes every window that ``device_encoder_supports`` takes.
 Each kernel has a plain version in this module
 (``match_candidates_plain``, ``parse_emit_plain`` and, for the two
 halves of the deep parse, ``deep_dp_plain`` and ``deep_emit_plain``),
@@ -70,8 +74,8 @@ __all__ = ["level_params", "fast_params", "device_encoder_supports",
 #: carried u32 windows (jax_block.py:100) -> fine ml up to 4 + 4*W
 _W = 8
 #: largest window of the shared-memory finders (u16 sort indices; the
-#: window and its order fill 196 KB of shared memory at 64 KB) and of the
-#: deep levels; wider windows go to ``enc_match_wide``
+#: window and its order fill 196 KB of shared memory at 64 KB); wider
+#: windows go to ``enc_match_wide`` and ``enc_deep_match_wide``
 _MAX_SHARED_BLK = 65536
 #: the candidate pack ((cand + 1) << 12) | ... fits int32 only while
 #: cand + 1 < 2^19 (jax_block.py:458)
@@ -157,16 +161,14 @@ def device_encoder_supports(blk: int) -> bool:
             and _bits(max(blk // 255 + 8, 8) + 2) + cap_bits <= 31)
 
 
-def _check_deep_width(blk: int, deep: int) -> None:
-    if deep and blk > _MAX_SHARED_BLK:
-        raise NotImplementedError(
-            f"levels 10-12 at {blk}-byte windows: the deep encoder takes "
-            f"windows up to {_MAX_SHARED_BLK} bytes so far (ROADMAP Queue 1 "
-            "item 15)")
+def _check_pack_width(blk: int) -> None:
+    if blk >= _PACK_LIMIT:
+        raise NotImplementedError(f"{blk}-byte windows: the candidate pack "
+                                  f"takes fewer than {_PACK_LIMIT}")
 
 
 def _check(blocks: torch.Tensor, lens: torch.Tensor,
-           starts: torch.Tensor, deep: int = 0) -> None:
+           starts: torch.Tensor) -> None:
     if blocks.dtype != torch.uint8 or blocks.dim() != 2:
         raise TypeError("blocks must be uint8[B, blk]")
     blk = blocks.shape[1]
@@ -177,7 +179,6 @@ def _check(blocks: torch.Tensor, lens: torch.Tensor,
             "frame blocks over 256 KB encode as 327,680-byte sub-span "
             "windows (parallel/sharded.py)")
     assert blk < _PACK_LIMIT
-    _check_deep_width(blk, deep)
     for name, t in (("lens", lens), ("starts", starts)):
         if t.dtype != torch.int32 or t.shape != (blocks.shape[0],):
             raise TypeError(f"{name} must be int32[B]")
@@ -707,7 +708,7 @@ def encode_blocks_plain(blocks: torch.Tensor, lens: torch.Tensor,
     _finder(hc, deep, accel)
     if starts is None:
         starts = torch.zeros_like(lens)
-    _check(blocks, lens, starts, deep)
+    _check(blocks, lens, starts)
     pk = match_candidates_plain(blocks, lens, hc, accel, deep)
     if deep:
         st = deep_dp_plain(lens, starts, pk, deep)
@@ -722,31 +723,27 @@ def encode_blocks_plain(blocks: torch.Tensor, lens: torch.Tensor,
 def match_candidates(blocks: torch.Tensor, lens: torch.Tensor,
                      hc: int = 9, accel: int = 1,
                      deep: int = 0) -> torch.Tensor:
-    """Packed candidates per position; for CUDA tensors the
-    ``enc_deep_match`` kernel (``deep`` 1..3), and for windows up to 64 KB
-    the ``enc_match`` kernel (``hc >= 1``) or the ``enc_match_fast``
-    kernel (``hc == 0``, with ``fast_params(accel)``), for wider ones the
-    ``enc_match_wide`` kernel; the plain version for CPU tensors."""
+    """Packed candidates per position; for CUDA tensors, at windows up to
+    64 KB the ``enc_deep_match`` kernel (``deep`` 1..3), the ``enc_match``
+    kernel (``hc >= 1``) or the ``enc_match_fast`` kernel (``hc == 0``,
+    with ``fast_params(accel)``), at wider ones the ``enc_deep_match_wide``
+    kernel (``deep`` 1..3) or the ``enc_match_wide`` kernel; the plain
+    version for CPU tensors."""
     if blocks.device.type == "cpu":
         return match_candidates_plain(blocks, lens, hc, accel, deep)
     W, probes = _finder(hc, deep, accel)
     blocks, lens = blocks.contiguous(), lens.contiguous()
     B, blk = blocks.shape
-    _check_deep_width(blk, deep)
-    if blk >= _PACK_LIMIT:
-        raise NotImplementedError(f"{blk}-byte windows: the candidate pack "
-                                  f"takes fewer than {_PACK_LIMIT}")
+    _check_pack_width(blk)
     dev = blocks.device
     pk = torch.empty((B, blk), dtype=torch.int32, device=dev)
     if B and deep:
-        # the exact ranks reach blk, one past u16, so they live in
-        # device memory beside the window in shared memory: 4 bytes per
-        # position for the 32-byte rank, 4 more at deep=3 for the
-        # 256-byte rank
+        # the exact ranks reach blk, past u16, so they live in device
+        # memory: 4 bytes per position for the 32-byte rank, 4 more at
+        # deep=3 for the 256-byte rank
         ranks = torch.empty((B, 2 if deep == 3 else 1, blk),
                             dtype=torch.int32, device=dev)
-        launch("enc_deep_match", blocks, lens, ranks, pk, B, blk, hc, deep)
-    elif B and blk > _MAX_SHARED_BLK:
+    if B and blk > _MAX_SHARED_BLK:
         # device scratch a window: the u32 order over the power of two
         # N >= blk rows, and the window as words with 64 zero bytes past
         # it (2.3 MB at 327,680 bytes)
@@ -754,8 +751,14 @@ def match_candidates(blocks: torch.Tensor, lens: torch.Tensor,
         nwords = (blk + 64) // 4 + 1
         order = torch.empty((B, N), dtype=torch.int32, device=dev)
         words = torch.empty((B, nwords), dtype=torch.int32, device=dev)
-        launch("enc_match_wide", blocks, lens, order, words, pk, B, blk, N,
-               nwords, hc, W, probes)
+        if deep:
+            launch("enc_deep_match_wide", blocks, lens, order, words, ranks,
+                   pk, B, blk, N, nwords, hc, deep)
+        else:
+            launch("enc_match_wide", blocks, lens, order, words, pk, B, blk,
+                   N, nwords, hc, W, probes)
+    elif B and deep:
+        launch("enc_deep_match", blocks, lens, ranks, pk, B, blk, hc, deep)
     elif B and hc:
         launch("enc_match", blocks, lens, pk, B, blk, hc)
     elif B:
@@ -782,7 +785,7 @@ def deep_dp(lens: torch.Tensor, starts: torch.Tensor, pk: torch.Tensor,
     if pk.dim() != 2 or pk.dtype != torch.int32:
         raise TypeError("pk must be int32[B, blk]")
     B, blk = pk.shape
-    _check_deep_width(blk, deep)
+    _check_pack_width(blk)
     lens, starts, pk = (t.contiguous() for t in (lens, starts, pk))
     st = torch.empty_like(pk)
     if B:
@@ -800,7 +803,7 @@ def deep_emit(blocks: torch.Tensor, lens: torch.Tensor,
     _check_pk("pk", pk, blocks)
     _check_pk("st", st, blocks)
     B, blk = blocks.shape
-    _check_deep_width(blk, deep=True)
+    _check_pack_width(blk)
     blocks, lens, starts, pk, st = (t.contiguous() for t in
                                     (blocks, lens, starts, pk, st))
     cap = compress_bound(blk)
@@ -858,7 +861,7 @@ def encode_blocks(blocks: torch.Tensor, lens: torch.Tensor,
     _finder(hc, deep, accel)
     if starts is None:
         starts = torch.zeros_like(lens)
-    _check(blocks, lens, starts, deep)
+    _check(blocks, lens, starts)
     pk = match_candidates(blocks, lens, hc, accel, deep)
     if deep:
         st = deep_dp(lens, starts, pk, deep)

@@ -10,7 +10,8 @@ the JAX reference.
   fetch-buffer byte it equals, so a block is rebuilt by one gather:
   ``out[b, j] = fetch[b, clip(T[b, j], 0, F - 1)]`` for
   ``j < out_len[b]``, else 0.  The CUDA kernel is
-  ``kernels/csrc/tmap_gather.cu``.
+  ``kernels/csrc/tmap_gather.cu``.  ``resolve_tmap_py`` is the
+  reference's pure-Python mirror of that resolver (``:968-1030``).
 * Linked frames (``_linked_tmap_step`` over ``_decode_flat_fetch``,
   ``:1084-1143``): a window of blocks is rebuilt by one flat gather
   from ``[history | payloads]`` by the global T-map of
@@ -47,7 +48,8 @@ from .torch_frags import (decode_blocks_frags,  # noqa: F401  (re-exported)
                           device_win_decoder_supports, resolve_fragments_py,
                           win_tier_config)
 
-__all__ = ["device_tmap_decoder_supports", "decode_blocks_tmap",
+__all__ = ["device_tmap_decoder_supports", "resolve_tmap_py",
+           "decode_blocks_tmap",
            "decode_blocks_tmap_plain", "linked_tmap_step",
            "linked_tmap_step_plain", "MAX_SEQS", "parse_sequences",
            "seqs_to_arrays", "device_seq_decoder_supports",
@@ -72,6 +74,71 @@ def device_tmap_decoder_supports(blk: int,
     and grid rows, so every frame block size qualifies."""
     return 0 < blk < 2 ** 31 and (fetch_cap is None
                                   or 0 < fetch_cap < 2 ** 31)
+
+
+def resolve_tmap_py(comp: bytes, out_cap: int, hist_len: int = 0):
+    """Pure-Python mirror of the native per-byte literal-source map
+    resolver (``native_resolve_tmap``): T[p] is the fetch coordinate in
+    ``[history | payload]`` whose byte equals output byte p, with every
+    match chain path-compressed on the host.  Returns (T int32[out_cap],
+    out_len), or None when the block decodes past ``out_cap``; raises
+    ``CorruptedData`` on a malformed payload (reference:
+    ``jax_decode.resolve_tmap_py``, ``ops/jax_decode.py:968-1030``)."""
+    T = np.zeros(out_cap, np.int32)
+    ip, n, op = 0, len(comp), 0
+
+    def length(v: int, what: str) -> int:
+        nonlocal ip
+        if v == 15:             # 255-escaped continuation bytes
+            while True:
+                if ip >= n:
+                    raise CorruptedData(f"truncated {what} length")
+                x = comp[ip]
+                ip += 1
+                v += x
+                if x != 255:
+                    break
+        return v
+
+    while ip < n:
+        token = comp[ip]
+        ip += 1
+        lit = length(token >> 4, "literal")
+        if ip + lit > n:
+            raise CorruptedData("literal overrun")
+        if lit:
+            if op + lit > out_cap:
+                return None
+            T[op:op + lit] = hist_len + np.arange(ip, ip + lit)
+            op += lit
+            ip += lit
+        if ip >= n:
+            break
+        if ip + 2 > n:
+            raise CorruptedData("truncated offset")
+        off = comp[ip] | (comp[ip + 1] << 8)
+        ip += 2
+        if off == 0 or off > op + hist_len:
+            raise CorruptedData(f"bad offset {off} at {op}")
+        ml = length(token & 15, "match") + 4
+        if op + ml > out_cap:
+            return None
+        take = min(ml, off)
+        s = op - off
+        if s >= 0:
+            T[op:op + take] = T[s:s + take]
+        else:                   # the head reaches into the history
+            hb = min(-s, take)
+            T[op:op + hb] = hist_len + s + np.arange(hb)
+            if take > hb:
+                T[op + hb:op + take] = T[:take - hb]
+        done = take
+        while done < ml:        # period-doubling tail
+            c = min(done, ml - done)
+            T[op + done:op + done + c] = T[op:op + c]
+            done += c
+        op += ml
+    return T, op
 
 
 def _check(fetch, T, out_len) -> None:

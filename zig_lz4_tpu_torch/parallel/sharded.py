@@ -3,9 +3,8 @@ fragment-ladder and sequence-rebuild decode.
 
 Counterpart of ``ShardedFrameCodec`` of the JAX reference
 (``parallel/sharded.py``): on the encode side every block size, with or
-without a dictionary, at levels 0-9, and 64 KB blocks without a
-dictionary at levels 10-12; on the decode side independent and linked
-frames of any block size, with or without a dictionary.
+without a dictionary, at levels 0-12; on the decode side independent and
+linked frames of any block size, with or without a dictionary.
 
   compress:   frame data -> [B, window] matrix of windows
               ``[dictionary | block]`` on the device (blocks over 256 KB
@@ -38,16 +37,18 @@ frames of any block size, with or without a dictionary.
                 and the window's T-map staged to the device -> the
                 linked step kernels, which carry the 64 KB history on
                 the device from window to window -> one copy back at
-                the end.
+                the end.  Without the native runtime the frame goes to
+                the host frame layer, as the reference's does.
               Checksums are verified on the host.
 
-What the port leaves out raises ``NotImplementedError`` naming its
-``ROADMAP.md`` Queue 1 item.
+Without the native runtime, independent blocks over 64 KB raise
+``NotImplementedError``: the sequence-rebuild decoder does not take them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import re
 
 import numpy as np
@@ -165,11 +166,6 @@ def _frame_block_error(exc: E.CorruptedData, what: str,
     where = (f"frame block {frame_index(int(m.group(1)))}" if m
              else "a frame block")
     return E.CorruptedData(f"{what}: {where} is corrupt ({exc})")
-
-
-def _need_native():
-    return RuntimeError("linked T-map decode needs the native host runtime "
-                        "(zig_lz4_tpu_torch.native), which did not load")
 
 
 class ShardedFrameCodec:
@@ -351,6 +347,15 @@ class ShardedFrameCodec:
         records, pos = _scan_blocks(comp, pos, info.block_checksum)
         if info.block_mode == lz4f.BlockMode.linked:
             content = self._decode_linked(records, bs)
+            if content is None:
+                # no native runtime: the host frame layer decodes the
+                # frame, as the reference's decompress_frame does
+                # (sharded.py:395-399); it verifies the checksum
+                end = pos + 4 * bool(info.content_checksum)
+                self._count("host", len(records))
+                return (lz4f.decompress_frame(comp[:end],
+                                              dictionary=self.dict or None),
+                        end)
             self._count("linked", len(records))
         else:
             content = b"".join(self._decode_records(records, bs))
@@ -375,7 +380,8 @@ class ShardedFrameCodec:
         (reference: sharded.py:469-555).  Resolution is structural --
         the native linked resolver path-compresses every
         history-reaching match through earlier entries without decoded
-        bytes -- so it runs ahead of the device."""
+        bytes -- so it runs ahead of the device.  Yields None alone when
+        the native runtime did not load."""
         H = WINDOW_SIZE
         nout = max(bs, _LINK_NOUT)
         pcq = compress_bound(bs) if bs >= (1 << 20) else _LINK_PCQ
@@ -409,8 +415,9 @@ class ShardedFrameCodec:
             except E.CorruptedData as exc:
                 raise _frame_block_error(exc, "linked T-map resolve",
                                          lambda k: b0 + k) from exc
-            if r is None:
-                raise _need_native()
+            if r is None:           # the runtime loads before the first
+                yield None          # window or never
+                return
             T, _olens, total = r
             yield pay, T, total
             dlen = min(H, dlen + total)     # the history stays
@@ -424,18 +431,24 @@ class ShardedFrameCodec:
             hist[-self.dcap:] = np.frombuffer(self.dict, np.uint8)
         return hist
 
-    def _decode_linked(self, records: list, bs: int) -> bytes:
+    def _decode_linked(self, records: list, bs: int) -> bytes | None:
         """Content of a linked-mode frame via windowed T-maps
         (reference: ``_decompress_linked_device``, sharded.py:445-576).
         Linked blocks form a 64 KB dependency chain; only each
         window's fetch data ``[entry history | payloads]`` needs bytes,
         and the entry history is the previous window's output tail, so
         the steps chain on the device and the host copies the output
-        back once."""
+        back once.  None, with nothing staged, when the native runtime
+        did not load."""
+        windows = self._resolve_linked_windows(records, bs)
+        first = next(windows, ())   # resolved before anything is staged
+        if first is None:
+            return None
         dev = self.device
         hist = torch.from_numpy(self._linked_history()).to(dev)
         outs = []
-        for pay, T, total in self._resolve_linked_windows(records, bs):
+        for pay, T, total in itertools.chain([first] if first else [],
+                                             windows):
             if not total:
                 continue
             # T rows at or past ``total`` are uninitialized: only the
