@@ -11,8 +11,9 @@ blocks, most of them through ``ShardedFrameCodec``:
 * level 0: the same with the fast finder (``enc_match_fast``), and the
   acceleration ratios and a level-4 round trip;
 * linked frames: ``decompress_frame`` of a linked-block frame written
-  by the host frame layer (``linked_tmap_step``,
-  ``linked_hist_shift``), and dictionary frames of both kinds;
+  by the host frame layer (``linked_tmap_step``, one launch per
+  non-empty window for both the window and the new history), and
+  dictionary frames of both kinds;
 * windows over 64 KB (``enc_match_wide`` with ``enc_parse_emit``): the
   two kernels against their plain versions on wide edge windows and
   corpus sub-span windows, the JAX payloads of
@@ -51,9 +52,9 @@ blocks, most of them through ``ShardedFrameCodec``:
   a dictionary frame under "chase"; each path prints its blocks by
   route;
 * the bitonic probe (``bitonic_sort2``, the counterpart of the Pallas
-  sort ``experiments/pallas_sort_probe.py``) at 1 and 64 rows of 65,536
-  int32 keys and payloads, against its plain version and
-  ``torch.sort``.
+  sort ``experiments/pallas_sort_probe.py``; one thread-block cluster a
+  row) at 1 and 64 rows of 65,536 int32 keys and payloads, against its
+  plain version and ``torch.sort``.
 
 The plain versions of the deep encoder kernels run Python loops over
 every position, so those kernels are held against them on the edge-case
@@ -67,7 +68,13 @@ each path went through its kernels (the wide paths through
 ``enc_match_wide`` or ``enc_deep_match_wide`` and never the 64 KB
 finders), times paths and kernels
 with CUDA events, and computes each kernel's bound from this run's
-inputs.
+inputs.  Kernels small enough for the launch to matter (the linked step,
+the bitonic probe) and their library calls get two times: "launch ms",
+20 calls through their wrappers between CUDA events, host work inside;
+and "device ms", 20 launches captured in one CUDA graph and replayed
+between CUDA events, on tensors allocated before the capture.  It also
+prints the host microseconds a call of ``kernels.launch`` costs, beside
+those of the parent commit's wrapper (``parent_launch`` below).
 
 Run from the repository root, with one CUDA device:
 
@@ -194,6 +201,79 @@ def cuda_ms(fn, reps=1):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps, res
+
+
+def graph_ms(fn, reps=20):
+    """Mean device milliseconds of ``fn()``: ``reps`` calls captured in
+    one CUDA graph, replayed between CUDA events.  ``fn`` must allocate
+    nothing that outlives the capture."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def parent_launch(name, *args):
+    """``kernels.launch`` as the parent commit had it, kept to time the
+    wrapper's host cost against: the device guard, the stream object and
+    the function's lookup on every call."""
+    import torch
+    from zig_lz4_tpu_torch import kernels
+    fn, _src, argtypes, _ref = kernels.KERNELS[name]
+    dev = None
+    cargs = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if a.device.type != "cuda" or not a.is_contiguous():
+                raise ValueError(f"{name}: tensors must be contiguous "
+                                 f"CUDA tensors, got {a.device}")
+            if dev is not None and a.device != dev:
+                raise ValueError(f"{name}: tensors on {dev} and {a.device}")
+            dev = a.device
+            cargs.append(a.data_ptr())
+        else:
+            cargs.append(int(a))
+    if len(cargs) != len(argtypes):
+        raise TypeError(f"{name}: {len(argtypes)} arguments, got "
+                        f"{len(cargs)}")
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, fn)(*cargs, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    kernels.LAUNCHES[name] += 1
+
+
+def host_us(fn, calls=1000):
+    """Host microseconds a call of ``fn``, after 50 warm-up calls; the
+    device drains before and after."""
+    import torch
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return t
 
 
 def max_abs_err(a, b):
@@ -674,7 +754,7 @@ def main():
     check(lz4f.parse_frame_header(linked_frame)[0].block_mode
           == lz4f.BlockMode.linked, "the host frame is not linked")
     back_l = counted("linked", lambda: codec.decompress_frame(linked_frame),
-                     ("linked_tmap_step", "linked_hist_shift"))
+                     ("linked_tmap_step",))
     check(back_l == data, "port decode of the linked frame")
     t_decl = timed(lambda: codec.decompress_frame(linked_frame))
     print(f"[time] {smi}: linked frame ({len(linked_frame)} bytes), median "
@@ -688,6 +768,12 @@ def main():
     at_w = windows_l[0][2]                      # where window 1 starts
     check(at_w >= BLK and total_w >= BLK,
           f"linked windows of {at_w} and {total_w} bytes")
+    # one launch per non-empty window, and no other kernel
+    live_w = sum(1 for w in windows_l if w[2])
+    check(paths["linked"]["linked_tmap_step"] == live_w
+          and sum(paths["linked"].values()) == live_w,
+          f"the linked path launched {paths['linked']} for {live_w} "
+          "non-empty windows")
     hist_w = np.frombuffer(data[at_w - BLK:at_w], np.uint8)
     h_d = torch.from_numpy(hist_w.copy()).to(dev)
     p_d = torch.from_numpy(np.frombuffer(pay_w, np.uint8).copy()).to(dev)
@@ -695,14 +781,13 @@ def main():
     td.linked_tmap_step(h_d, p_d, Tw_d, total_w)
     out_w, hist_n = td.linked_tmap_step(h_d, p_d, Tw_d, total_w)
     out_wp, hist_np = td.linked_tmap_step_plain(h_d, p_d, Tw_d, total_w)
-    err_lg, err_lh = max_abs_err(out_w, out_wp), max_abs_err(hist_n, hist_np)
+    err_lg = max(max_abs_err(out_w, out_wp), max_abs_err(hist_n, hist_np))
     same_w = out_w.cpu().numpy().tobytes() == data[at_w:at_w + total_w]
     print(f"[K5] window 1 of {len(windows_l)} (payloads {len(pay_w)} bytes, "
-          f"output {total_w}): linked_tmap_step vs plain max_abs_err "
-          f"{err_lg}; linked_hist_shift vs plain max_abs_err {err_lh}; "
-          f"window == input: {same_w}")
-    check(err_lg == 0 and err_lh == 0 and same_w,
-          "K5 differs from plain or input")
+          f"output {total_w}): linked_tmap_step (one launch per window, "
+          f"{live_w} on the path) vs plain max_abs_err {err_lg} over the "
+          f"window and the new history; window == input: {same_w}")
+    check(err_lg == 0 and same_w, "K5 differs from plain or input")
     # dictionary frames of both kinds, a few MB each
     part = data[5 << 20:9 << 20]
     d = data[(5 << 20) - 70_000:5 << 20]
@@ -1404,27 +1489,54 @@ def main():
         check(torch.equal(torch.gather(sort_in[B_s][0], 1, vo.long()), ko),
               "P2 payload is not the keys' permutation")
     check(err_sort == 0, "P2 differs from plain or from torch.sort's keys")
-    sort_ms = {}
+    sort_ms, shapes = {}, {}
     for B_s, a in sort_in.items():
+        shapes[B_s] = sp.cluster_shape(B_s, sp.N)
+        check(shapes[B_s]["cluster"] >= 2
+              and shapes[B_s]["max_active_clusters"] > 0,
+              f"bitonic_sort2's launch shape {shapes[B_s]} at {B_s} rows")
+        # outputs made ahead, for the graphs
+        ko_, vo_, ks_, vs_ = (torch.empty_like(a[0]) for _ in range(4))
+        idx_ = torch.empty(a[0].shape, dtype=torch.long, device=dev)
+
+        def k_sort():
+            launch("bitonic_sort2", a[0], a[1], ko_, vo_, B_s, sp.N)
+
+        def lib_sort():
+            torch.sort(a[0], dim=-1, out=(ks_, idx_))
+            torch.gather(a[1], 1, idx_, out=vs_)
         sp.library_sort2(*a)
-        sort_ms[B_s] = (cuda_ms(lambda: sp.bitonic_sort2(*a), 20)[0],
-                        cuda_ms(lambda: sp.bitonic_sort2_plain(*a), 2)[0],
-                        cuda_ms(lambda: sp.library_sort2(*a), 20)[0])
+        sort_ms[B_s] = dict(
+            ms=cuda_ms(lambda: sp.bitonic_sort2(*a), 20)[0],
+            device_ms=graph_ms(k_sort),
+            plain_ms=cuda_ms(lambda: sp.bitonic_sort2_plain(*a), 2)[0],
+            library_ms=cuda_ms(lambda: sp.library_sort2(*a), 20)[0],
+            library_device_ms=graph_ms(lib_sort))
+        check(torch.equal(ko_, sorted_s[B_s][0])
+              and torch.equal(vo_, sorted_s[B_s][1])
+              and torch.equal(ks_, sorted_s[B_s][0]),
+              "P2 replayed from a graph differs")
     B_s = max(SORT_BATCHES)
     # 16 bytes a pair in and out; 136 stages of N/2 compare-exchanges of a
     # compare and two selects
     b_sort = bound(16 * B_s * sp.N, 3 * 136 * (sp.N // 2) * B_s)
     results["bitonic_sort2"].update(
-        max_abs_err=err_sort, ms=sort_ms[B_s][0], plain_ms=sort_ms[B_s][1],
-        bound_ms=b_sort[0], bound_by=b_sort[1], library_ms=sort_ms[B_s][2],
-        rows=B_s, ms_by_rows={b: v[0] for b, v in sort_ms.items()},
-        library_ms_by_rows={b: v[2] for b, v in sort_ms.items()})
+        max_abs_err=err_sort, bound_ms=b_sort[0], bound_by=b_sort[1],
+        rows=B_s, **sort_ms[B_s],
+        **{f"{key}_by_rows": {b: v[key] for b, v in sort_ms.items()}
+           for key in ("ms", "device_ms", "library_ms",
+                       "library_device_ms")},
+        shape_by_rows=shapes)
     print(f"[P2] bitonic_sort2 vs plain and vs torch.sort's keys max_abs_err "
-          f"{err_sort} at {list(SORT_BATCHES)} rows of {sp.N}")
-    for B_s, (k_ms_, p_ms_, l_ms_) in sort_ms.items():
-        print(f"[time] {smi}: bitonic_sort2 at {B_s} x {sp.N} int32 pairs "
-              f"{k_ms_:.4f} ms (plain {p_ms_:.2f} ms, torch.sort with the "
-              f"payload gathered {l_ms_:.4f} ms)"
+          f"{err_sort} at {list(SORT_BATCHES)} rows of {sp.N}; launch shape "
+          f"by rows (CTAs a cluster, threads and shared bytes a CTA, "
+          f"clusters the card holds at once): {shapes}")
+    for B_s, t_ in sort_ms.items():
+        print(f"[time] {smi}: bitonic_sort2 at {B_s} x {sp.N} int32 pairs: "
+              f"device {t_['device_ms']:.4f} ms, launch {t_['ms']:.4f} ms "
+              f"(plain {t_['plain_ms']:.2f} ms; torch.sort with the payload "
+              f"gathered: device {t_['library_device_ms']:.4f} ms, launch "
+              f"{t_['library_ms']:.4f} ms)"
               + (f"; bound {b_sort[0]:.5f} ms by {b_sort[1]}"
                  if B_s == max(SORT_BATCHES) else ""))
     del sort_in, sorted_s
@@ -1663,42 +1775,47 @@ def main():
         max_abs_err=max(err_k1, err_k1_all), ms=k_dec, plain_ms=p_dec,
         bound_ms=b_dec[0], bound_by=b_dec[1], library_ms=lib_dec)
 
-    # linked step: window 1 of the linked frame (tensors from phase 5)
-    k_both, _ = cuda_ms(
+    # linked step: window 1 of the linked frame (tensors from phase 5),
+    # through its wrapper, and through launch on outputs made ahead
+    k_step, _ = cuda_ms(
         lambda: td.linked_tmap_step(h_d, p_d, Tw_d, total_w), 20)
-    # the two kernels apart: the gather alone, then the shift alone
     out_s, new_s = torch.empty_like(out_w), torch.empty_like(h_d)
     H, PCQ = h_d.shape[0], p_d.shape[0]
-    k_gather, _ = cuda_ms(lambda: launch(
-        "linked_tmap_step", h_d, p_d, Tw_d, out_s, H, PCQ, total_w,
-        total_w), 20)
-    k_shift, _ = cuda_ms(lambda: launch(
-        "linked_hist_shift", h_d, out_s, new_s, H, total_w, total_w), 20)
+    step_args = (h_d, p_d, Tw_d, out_s, new_s, H, PCQ, total_w, total_w)
+    k_launch, _ = cuda_ms(lambda: launch("linked_tmap_step", *step_args), 20)
+    d_step = graph_ms(lambda: launch("linked_tmap_step", *step_args))
     check(torch.equal(out_s, out_w) and torch.equal(new_s, hist_n),
           "K5 launched apart differs")
     p_link, _ = cuda_ms(
         lambda: td.linked_tmap_step_plain(h_d, p_d, Tw_d, total_w), 5)
+    # the library pair: one torch.gather over an int64 index made ahead,
+    # then the new history as a slice copy
     fetch_cat = torch.cat([h_d, p_d])
     idx_w = Tw_d.long().clamp_(0, fetch_cat.shape[0] - 1)
-    torch.gather(fetch_cat, 0, idx_w)
-    lib_gather, out_lib = cuda_ms(lambda: torch.gather(fetch_cat, 0, idx_w),
-                                  20)
-    lib_shift, hist_lib = cuda_ms(
-        lambda: out_w[total_w - H:total_w].clone(), 20)
+    out_lib, hist_lib = torch.empty_like(out_w), torch.empty_like(h_d)
+
+    def lib_step():
+        torch.gather(fetch_cat, 0, idx_w, out=out_lib)
+        hist_lib.copy_(out_lib[total_w - H:total_w])
+    lib_step()
     check(torch.equal(out_lib, out_w) and torch.equal(hist_lib, hist_n),
           "K5 differs from the library calls")
-    b_lg = bound(H + PCQ + 4 * total_w + total_w, total_w)
-    b_ls = bound(2 * H, H)
+    lib_launch, _ = cuda_ms(lib_step, 20)
+    lib_dev = graph_ms(lib_step)
+    # the host cost of a launch: the parent's wrapper and this one, in turns
+    us = {"parent": [], "launch": []}
+    for tag, fn in (("parent", parent_launch), ("launch", launch),
+                    ("launch", launch), ("parent", parent_launch)):
+        us[tag].append(host_us(lambda: fn("linked_tmap_step", *step_args)))
+    # H bytes of history and PCQ of payloads read, 4 of T a live byte,
+    # the window and the new history written; one fetch an output byte
+    b_lg = bound(2 * H + PCQ + 5 * total_w, total_w + H)
     results["linked_tmap_step"].update(
-        max_abs_err=err_lg, ms=k_gather, plain_ms=p_link, bound_ms=b_lg[0],
-        bound_by=b_lg[1], library_ms=lib_gather)
-    # the plain version computes both results in one function; its
-    # history part is the cat and slice, timed here
-    p_shift, _ = cuda_ms(
-        lambda: torch.cat([h_d, out_w])[total_w:total_w + H], 20)
-    results["linked_hist_shift"].update(
-        max_abs_err=err_lh, ms=k_shift, plain_ms=p_shift, bound_ms=b_ls[0],
-        bound_by=b_ls[1], library_ms=lib_shift)
+        max_abs_err=err_lg, ms=k_launch, device_ms=d_step,
+        wrapper_ms=k_step, plain_ms=p_link, bound_ms=b_lg[0],
+        bound_by=b_lg[1], library_ms=lib_launch, library_device_ms=lib_dev,
+        host_us_per_launch=us["launch"],
+        parent_host_us_per_launch=us["parent"])
 
     # linked decode by stage: resolve on the host, staging, the kernels
     t_r0 = time.perf_counter()
@@ -1735,13 +1852,15 @@ def main():
           f"(plain {p_dec:.4f} ms, torch.gather {lib_dec:.4f} ms, bound "
           f"{b_dec[0]:.4f} ms by {b_dec[1]})")
     print(f"[time] {smi}: linked window (H {H}, payloads {PCQ}, output "
-          f"{total_w}): both kernels {k_both:.4f} ms, linked_tmap_step "
-          f"{k_gather:.4f} ms (plain of both {p_link:.4f} ms, torch.gather "
-          f"{lib_gather:.4f} ms, bound {b_lg[0]:.5f} ms by {b_lg[1]}), "
-          f"linked_hist_shift {k_shift:.4f} ms (plain {p_shift:.4f} ms, "
-          f"slice copy {lib_shift:.4f} ms, bound {b_ls[0]:.6f} ms by "
-          f"{b_ls[1]}); staging of its T {t_stage_w:.2f} ms "
-          f"({4 * total_w} bytes)")
+          f"{total_w}): linked_tmap_step device {d_step:.5f} ms, launch "
+          f"{k_launch:.5f} ms, through its wrapper {k_step:.5f} ms (plain "
+          f"{p_link:.4f} ms; torch.gather + slice copy: device "
+          f"{lib_dev:.5f} ms, launch {lib_launch:.5f} ms; bound "
+          f"{b_lg[0]:.5f} ms by {b_lg[1]}); staging of its T "
+          f"{t_stage_w:.2f} ms ({4 * total_w} bytes)")
+    print(f"[time] {smi}: host us a call of kernels.launch "
+          f"(linked_tmap_step, 1000 calls, two turns each): this commit "
+          f"{us['launch']}, the parent's wrapper {us['parent']}")
     print(f"[time] {smi}: linked decode by stage, {len(wins)} windows: host "
           f"resolve {t_resolve_l * 1e3:.2f} ms, staging {t_stage_l:.2f} ms "
           f"({staged_bytes} bytes, pageable), kernels {k_chain:.3f} ms, "

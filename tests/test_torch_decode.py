@@ -496,12 +496,16 @@ def test_seq_kernel_64k_blocks_with_history(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", LINKED_SHAPES + [(65536, 70_001, 1 << 18)],
+@pytest.mark.parametrize("shape", LINKED_SHAPES + [(65536, 70_001, 1 << 18),
+                                                   (65536, 4096, 40_000)],
                          ids=str)
 def test_linked_kernels_match_plain(cuda, shape):
+    """The fused step's two outputs; besides ``_totals``, a total below
+    H, whose new history starts in ``hist`` and ends in ``out``, and
+    one at NOUT, whose history is out's tail."""
     H, PCQ, NOUT = shape
     hist, pay, T = _linked_inputs(H, PCQ, NOUT, seed=5)
-    for total in _totals(NOUT):
+    for total in _totals(NOUT) + [max(1, min(H, NOUT) // 3), NOUT]:
         got = _linked(hist, pay, T, total, device=cuda)
         want = _linked(hist, pay, T, total)
         assert np.array_equal(got[0], want[0]), total

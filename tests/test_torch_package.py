@@ -61,7 +61,8 @@ def test_sources_name_no_jax():
         "encode_deep.cuh", "encode_deep_wide.cu",
         "encode_wide.cu", "frag_common.cuh", "frag_decode.cu",
         "linked_tmap.cu", "seq_decode.cu", "serial_decode.cu",
-        "sort_global.cuh", "sort_probe.cu", "tmap_gather.cu"}
+        "sort_cluster.cuh", "sort_global.cuh", "sort_probe.cu",
+        "tmap_gather.cu"}
     files += [os.path.join(ROOT, "chip_smoke.py"),
               os.path.join(ROOT, "time_main_path.py")]
     reference = re.compile(r"zig_lz4_tpu(?!_torch)")
@@ -137,6 +138,27 @@ def test_launch_checks_its_tensors():
                        torch.zeros(4, dtype=torch.int32),
                        torch.zeros(1, dtype=torch.int32),
                        torch.zeros(4, dtype=torch.uint8), 1, 4, 4)
+    # every check holds on every call, though the bound function and the
+    # device are cached after the first launch: a CPU tensor, a
+    # non-contiguous one, a wrong argument count
+    hist, pay, T = (torch.zeros(8, dtype=torch.uint8),
+                    torch.zeros(8, dtype=torch.uint8),
+                    torch.zeros(8, dtype=torch.int32))
+    args = (hist, pay, T, torch.zeros(8, dtype=torch.uint8),
+            torch.zeros(8, dtype=torch.uint8), 8, 8, 8, 8)
+    before = kernels.LAUNCHES["linked_tmap_step"]
+    for _ in range(2):
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.launch("linked_tmap_step", *args)
+        with pytest.raises(ValueError, match="contiguous"):
+            kernels.launch("linked_tmap_step",
+                           torch.zeros((8, 2), dtype=torch.uint8)[:, 0],
+                           *args[1:])
+        with pytest.raises(TypeError, match="9 arguments, got 8"):
+            kernels.launch("linked_tmap_step", *args[:-1])
+        with pytest.raises(TypeError, match="6 arguments, got 7"):
+            kernels.launch("bitonic_sort2", 1, 2, 3, 4, 5, 6, 7)
+    assert kernels.LAUNCHES["linked_tmap_step"] == before
     assert set(kernels.LAUNCHES) == set(kernels.KERNELS)
     # the two Pallas kernels resolve from the repository root
     assert kernels.reference_path("serial_decode") == \
@@ -149,6 +171,20 @@ def test_launch_checks_its_tensors():
         assert os.path.exists(os.path.join(ROOT, path)) and int(line) > 0
         with open(os.path.join(ROOT, path)) as f:
             assert len(f.readlines()) >= int(line)
+
+
+def test_linked_step_is_one_kernel():
+    """The linked window step is one kernel, which replaces the whole
+    of the reference's ``_linked_tmap_step``: the history shift is no
+    kernel of its own."""
+    assert "linked_hist_shift" not in kernels.KERNELS
+    assert "linked_hist_shift" not in kernels.LAUNCHES
+    ref = kernels.reference_path("linked_tmap_step")
+    assert ref == "zig_lz4_tpu/ops/jax_decode.py:1123"
+    path, line = ref.split(":")
+    with open(os.path.join(ROOT, path)) as f:
+        assert f.readlines()[int(line) - 1].startswith(
+            "def _linked_tmap_step(")
 
 
 def test_corpus_equals_bench_corpus():

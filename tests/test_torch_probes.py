@@ -188,9 +188,18 @@ def test_serial_kernel_matches_plain(cuda, blocks, tables):
                                                         want_len)
 
 
+#: rows on each side of every level of the kernel's layout: registers
+#: (16 pairs a thread), warp shuffles (512 a warp), one CTA (8,192), a
+#: cluster (65,536) and past it; key ranges of 3 and 64 make ties dense
+SORT2_LEVELS = [(B, n, r) for n in (8, 16, 32, 512, 8192, 16384, 65536,
+                                    131072)
+                for B, r in ((2, 3), (1, 64))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n,key_range", [(1, sp.N, 64), (5, sp.N, 1 << 30),
-                                           (3, 4096, 3), (2, 2, 2)])
+                                           (3, 4096, 3), (2, 2, 2)]
+                         + SORT2_LEVELS)
 def test_sort2_kernel_matches_plain(cuda, B, n, key_range):
     rng = np.random.default_rng(B)
     keys = torch.from_numpy(rng.integers(0, key_range, (B, n))

@@ -25,8 +25,8 @@ import time
 
 import torch
 
-__all__ = ["LAUNCHES", "KERNELS", "build", "launch", "reference_path",
-           "reset_launch_counts"]
+__all__ = ["LAUNCHES", "KERNELS", "build", "launch", "library",
+           "reference_path", "reset_launch_counts"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -69,12 +69,9 @@ KERNELS = {
                       [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I],
                       "ops/jax_block.py:748"),
-    "linked_tmap_step": ("zl4_linked_gather", "linked_tmap.cu",
-                         [_P, _P, _P, _P, _I, _I, _I, _I],
-                         "ops/jax_decode.py:1084"),
-    "linked_hist_shift": ("zl4_linked_hist_shift", "linked_tmap.cu",
-                          [_P, _P, _P, _I, _I, _I],
-                          "ops/jax_decode.py:1123"),
+    "linked_tmap_step": ("zl4_linked_tmap_step", "linked_tmap.cu",
+                         [_P] * 5 + [_I] * 4,
+                         "ops/jax_decode.py:1123"),
     "seq_decode": ("zl4_seq_decode", "seq_decode.cu",
                    [_P] * 11 + [_I] * 6,
                    "ops/jax_decode.py:120"),
@@ -91,7 +88,7 @@ KERNELS = {
                       [_P] * 7 + [_I] * 4,
                       "experiments/pallas_decode.py:127"),
     "bitonic_sort2": ("zl4_bitonic_sort2", "sort_probe.cu",
-                      [_P] * 5 + [_I] * 2,
+                      [_P] * 4 + [_I] * 2,
                       "experiments/pallas_sort_probe.py:80"),
 }
 #: launches per kernel since the last reset_launch_counts()
@@ -99,6 +96,8 @@ LAUNCHES = {name: 0 for name in KERNELS}
 
 _lib = None
 _lock = threading.Lock()
+#: kernel name -> its bound ctypes function, filled at first launch
+_BOUND: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -195,31 +194,53 @@ def _load():
     return _lib
 
 
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built at first use: for the C
+    entry points that launch nothing (a launch shape, an occupancy)."""
+    return _load()
+
+
+def _bind(name: str):
+    fn = getattr(_load(), KERNELS[name][0])
+    _BOUND[name] = fn
+    return fn
+
+
 def launch(name: str, *args) -> None:
     """Launch kernel ``name`` on the current CUDA stream.  Tensor
     arguments must be contiguous CUDA tensors on one device; ints pass
-    as C ints."""
-    fn, _src, argtypes, _ref = KERNELS[name]
-    dev = None
+    as C ints.  The bound C function is looked up once per name, the
+    stream is read as the raw handle PyTorch's own kernel launchers read
+    (``torch._C._cuda_getCurrentRawStream``), and the device is made
+    current only when it is not."""
+    nargs = len(KERNELS[name][2])
+    if len(args) != nargs:
+        raise TypeError(f"{name}: {nargs} arguments, got {len(args)}")
+    dev = -1
     cargs = []
     for a in args:
         if isinstance(a, torch.Tensor):
-            if a.device.type != "cuda" or not a.is_contiguous():
-                raise ValueError(f"{name}: tensors must be contiguous "
-                                 f"CUDA tensors, got {a.device}")
-            if dev is not None and a.device != dev:
-                raise ValueError(f"{name}: tensors on {dev} and {a.device}")
-            dev = a.device
+            if not a.is_contiguous():
+                raise ValueError(f"{name}: tensors must be contiguous")
+            if not a.is_cuda:
+                raise ValueError(f"{name}: tensors must be CUDA tensors, "
+                                 f"got {a.device}")
+            d = a.get_device()
+            if dev >= 0 and d != dev:
+                raise ValueError(f"{name}: tensors on cuda:{dev} and "
+                                 f"cuda:{d}")
+            dev = d
             cargs.append(a.data_ptr())
         else:
             cargs.append(int(a))
-    if len(cargs) != len(argtypes):
-        raise TypeError(f"{name}: {len(argtypes)} arguments, got "
-                        f"{len(cargs)}")
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fn)(*cargs, stream)
+    if dev < 0:
+        raise ValueError(f"{name}: no tensor argument names the device")
+    fn = _BOUND.get(name) or _bind(name)
+    if dev == torch._C._cuda_getDevice():
+        err = fn(*cargs, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*cargs, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     LAUNCHES[name] += 1

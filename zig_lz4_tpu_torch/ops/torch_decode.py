@@ -202,9 +202,8 @@ def _check_linked(hist, payloads, T, total: int) -> None:
 
 def linked_tmap_step_plain(hist: torch.Tensor, payloads: torch.Tensor,
                            T: torch.Tensor, total: int):
-    """Plain version of the ``linked_tmap_step`` and
-    ``linked_hist_shift`` kernels: (out uint8[NOUT], new_hist
-    uint8[H])."""
+    """Plain version of the ``linked_tmap_step`` kernel: (out
+    uint8[NOUT], new_hist uint8[H])."""
     _check_linked(hist, payloads, T, total)
     H, nout = hist.shape[0], T.shape[0]
     fetch = torch.cat([hist, payloads])
@@ -223,9 +222,10 @@ def linked_tmap_step(hist: torch.Tensor, payloads: torch.Tensor,
     ``[hist | payloads]``; ``total`` its live output length.  Returns
     (out uint8[NOUT], zero from ``total`` on; new_hist uint8[H], the H
     bytes of ``[hist | out]`` from ``clip(total, 0, NOUT)`` on -- a new
-    tensor, ``hist`` is left as it was).  The ``linked_tmap_step`` and
-    ``linked_hist_shift`` kernels for CUDA tensors, the plain version
-    for CPU tensors.  Rows of T at or past ``total`` are never read."""
+    tensor, ``hist`` is left as it was).  The ``linked_tmap_step``
+    kernel, one launch for both outputs, for CUDA tensors, the plain
+    version for CPU tensors.  Rows of T at or past ``total`` are never
+    read."""
     if hist.device.type == "cpu":
         return linked_tmap_step_plain(hist, payloads, T, total)
     _check_linked(hist, payloads, T, total)
@@ -234,9 +234,8 @@ def linked_tmap_step(hist: torch.Tensor, payloads: torch.Tensor,
     H, nout = hist.shape[0], T.shape[0]
     out = torch.empty(nout, dtype=torch.uint8, device=T.device)
     new_hist = torch.empty_like(hist)
-    launch("linked_tmap_step", hist, payloads, T, out, H,
+    launch("linked_tmap_step", hist, payloads, T, out, new_hist, H,
            payloads.shape[0], nout, total)
-    launch("linked_hist_shift", hist, out, new_hist, H, nout, total)
     return out, new_hist
 
 

@@ -9,8 +9,9 @@ ascending; a row takes its partner's pair only when the partner's key is
 strictly smaller (where the row keeps the minimum) or strictly larger, so
 equal keys keep their pairs and the result is not a stable sort's
 (``:60-74``).  The kernel (``kernels/csrc/sort_probe.cu``,
-``bitonic_sort2``) sorts a batch of rows in one launch, one thread block a
-row, and gives the probe's pairs, ties included.
+``bitonic_sort2``; network in ``sort_cluster.cuh``) sorts a batch of rows
+in one launch, one thread-block cluster a row (16 CTAs of 4,096 pairs at
+65,536), and gives the probe's pairs, ties included.
 
 The probe asked whether such a sort, held in fast memory, beats the
 library's batched sort.  ``main`` asks it on the card: the kernel against
@@ -21,14 +22,16 @@ library's batched sort.  ``main`` asks it on the card: the kernel against
 
 from __future__ import annotations
 
+import ctypes
 import subprocess
 import sys
 
 import torch
 
-from ..kernels import launch
+from ..kernels import launch, library
 
-__all__ = ["N", "bitonic_sort2", "bitonic_sort2_plain", "main"]
+__all__ = ["N", "bitonic_sort2", "bitonic_sort2_plain", "cluster_shape",
+           "main"]
 
 #: keys per row of the probe (``ROWS * LANE``, ``:34-36``)
 N = 65536
@@ -88,9 +91,25 @@ def bitonic_sort2(keys: torch.Tensor, vals: torch.Tensor):
     B, n = keys.shape
     kout, vout = torch.empty_like(keys), torch.empty_like(vals)
     if B:
-        pairs = torch.empty((B, n, 2), dtype=torch.int32, device=keys.device)
-        launch("bitonic_sort2", keys, vals, pairs, kout, vout, B, n)
+        launch("bitonic_sort2", keys, vals, kout, vout, B, n)
     return kout, vout
+
+
+def cluster_shape(B: int, n: int) -> dict:
+    """How ``bitonic_sort2`` lays out B rows of n keys on the current
+    CUDA device: CTAs a cluster, threads and shared-memory bytes a CTA,
+    and how many such clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``; 0: the shape cannot run)."""
+    lib = library()
+    out = (ctypes.c_int * 4)()
+    fn = lib.zl4_bitonic_sort2_shape
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(B, n, out)
+    if err != 0:
+        raise RuntimeError(f"bitonic_sort2 shape: CUDA error {err}")
+    return dict(cluster=out[0], threads=out[1], smem=out[2],
+                max_active_clusters=out[3])
 
 
 def library_sort2(keys: torch.Tensor, vals: torch.Tensor):
