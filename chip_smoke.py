@@ -63,6 +63,16 @@ type); all 768 windows are held by the level-12 ratio, by the checked-in
 JAX payloads and by the round trips.  The wide kernels meet their plain
 versions on every 12th window of the 1 MB paths as well.
 
+``enc_match`` and ``enc_parse_emit`` meet their plain versions on 22
+edge windows (eight of them dense in ties), on every window of the 64 KB
+paths at levels 9, 4 and 0, and ``enc_parse_emit`` on every window of
+the wide paths at levels 0-9.  Both are timed phase by phase: the
+smoke builds ``encode_block.cu`` four more times with ``-DZL4_STOP=k``,
+which stops each kernel after its k-th phase, and times every cut on
+the same inputs; ``enc_match``'s 12-byte order is held against a
+batched stable ``torch.sort`` of its three words, which is timed beside
+it as a yardstick for that sort alone.
+
 It checks the round trips and the ratios, shows by launch counts that
 each path went through its kernels (the wide paths through
 ``enc_match_wide`` or ``enc_deep_match_wide`` and never the 64 KB
@@ -79,6 +89,10 @@ those of the parent commit's wrapper (``parent_launch`` below).
 Run from the repository root, with one CUDA device:
 
     python3 chip_smoke.py
+
+To compare the 64 KB path's encoder kernels of two checkouts in one
+call, run ``python3 /path/to/chip_smoke.py --time-encoder-kernels`` from
+each checkout's root in turns (``time_encoder_kernels`` below).
 
 Exits non-zero on any failed check.  Imports no JAX.  The last two
 lines of stdout are the card's name and power limit as nvidia-smi
@@ -115,6 +129,9 @@ PLAIN_STRIDE = 12
 #: host runtime (every 12th: parsing and checksums run in Python there),
 #: and blocks of the level-12 frame that meet the plain sequence decoder
 CHILD_FLAG = "--decode-without-native"
+#: the mode that times the 64 KB path's encoder kernels alone, with the
+#: package of the current directory (time_encoder_kernels)
+ENCODER_FLAG = "--time-encoder-kernels"
 DEEP_KERNELS = ("enc_deep_match", "enc_deep_dp", "enc_deep_emit")
 SEQ_PLAIN_BLOCKS = 32
 #: make_corpus(2) blocks (one per content type) with their JAX payloads
@@ -276,6 +293,114 @@ def host_us(fn, calls=1000):
     return t
 
 
+def start_phase_builds(kernels):
+    """Start one nvcc a phase cut of encode_block.cu (-DZL4_STOP=k, k =
+    1..4), each into a library of its own under the kernels' build
+    directory, all at once; returns [(k, library path, process)]."""
+    src = os.path.join(os.path.dirname(kernels.__file__), "csrc",
+                       "encode_block.cu")
+    out = os.path.join(os.path.dirname(os.path.dirname(kernels.__file__)),
+                       "_build")
+    os.makedirs(out, exist_ok=True)
+    jobs = []
+    for k in range(1, 5):
+        so = os.path.join(out, f"encode_block_stop{k}.so")
+        cmd = [kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared",
+               f"-DZL4_STOP={k}", "-o", so, src]
+        jobs.append((k, so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    return jobs
+
+
+def phase_split(jobs, w, l, s, pk, hc, capped_ml):
+    """Milliseconds of each phase cut of ``enc_match`` (at ``hc``) and of
+    ``enc_parse_emit`` (on ``pk``, HC parse) at the windows ``w``, from
+    the libraries of ``start_phase_builds``, called through ctypes (not
+    counted as launches), and what the ZL4_STOP=2 cut of ``enc_match``
+    leaves: each window's order after its 12-byte sort.  Returns ({k:
+    match ms}, {k: emit ms}, order)."""
+    import ctypes
+
+    import torch
+    from zig_lz4_tpu_torch.constants import compress_bound
+    B, blk = w.shape
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    cap = compress_bound(blk)
+    cut = torch.empty_like(pk)
+    mlw = torch.empty_like(pk)
+    runs = torch.empty((B, (blk // 4 + 1) + 3 * (blk // 4 + 2)),
+                       dtype=torch.int32, device=w.device)
+    out = torch.empty((B, cap), dtype=torch.uint8, device=w.device)
+    olen = torch.empty(B, dtype=torch.int32, device=w.device)
+    m_ms, e_ms, order = {}, {}, None
+    for k, so, proc in jobs:
+        log = proc.communicate()[0]
+        check(proc.returncode == 0, f"nvcc -DZL4_STOP={k} failed:\n{log}")
+        lib = ctypes.CDLL(so)
+        fm, fe = lib.zl4_enc_match, lib.zl4_enc_parse_emit
+        fm.argtypes, fm.restype = [P] * 3 + [I] * 3 + [P], I
+        fe.argtypes, fe.restype = [P] * 8 + [I] * 6 + [P], I
+
+        def match():
+            check(fm(w.data_ptr(), l.data_ptr(), cut.data_ptr(), B, blk, hc,
+                     stream) == 0, f"enc_match cut {k} did not launch")
+
+        def emit():
+            check(fe(w.data_ptr(), l.data_ptr(), s.data_ptr(), pk.data_ptr(),
+                     mlw.data_ptr(), runs.data_ptr(), out.data_ptr(),
+                     olen.data_ptr(), B, blk, cap, runs.shape[1], capped_ml,
+                     1, stream) == 0, f"enc_parse_emit cut {k} did not "
+                  "launch")
+        match()
+        emit()
+        m_ms[k] = cuda_ms(match, 2)[0]
+        e_ms[k] = cuda_ms(emit, 2)[0]
+        if k == 2:
+            order = cut.clone()
+    return m_ms, e_ms, order
+
+
+def less12_torch_sort(torch, w, l):
+    """The batched stable torch.sort of the three words of the 12-byte
+    order, least significant first (_stable_order of the plain version,
+    over every window at once): the windows' position orders, and a
+    function that sorts again from the same keys (for timing the sorts
+    alone)."""
+    B, blk = w.shape
+    idx = torch.arange(blk, device=w.device)
+    b = torch.where(idx < l[:, None], w.long(), 0)
+    bp = torch.nn.functional.pad(b, (0, 16))
+    su = (bp[:, :blk + 8] | (bp[:, 1:blk + 9] << 8)
+          | (bp[:, 2:blk + 10] << 16) | (bp[:, 3:blk + 11] << 24))
+    s0 = torch.where(idx > l[:, None] - 4, 0xFFFFFFFF, su[:, :blk])
+    keys = (s0, su[:, 4:4 + blk], su[:, 8:8 + blk])
+
+    def sort():
+        order = idx.expand(B, blk)
+        for k in reversed(keys):
+            order = order.gather(1, torch.sort(k.gather(1, order), dim=1,
+                                               stable=True).indices)
+        return order
+    return sort(), sort
+
+
+def ptxas_lines(log, names):
+    """name -> ptxas's "registers" and "spill" lines for the entry
+    function whose mangled name holds ``name``, from an nvcc build log
+    written with -Xptxas -v."""
+    found, fn = {}, None
+    for ln in open(log):
+        if "Compiling entry function" in ln:
+            fn = next((k for k in names if f"{len(k)}{k}" in ln), None)
+        elif fn and ("registers" in ln or "spill" in ln):
+            found.setdefault(fn, []).append(
+                ln.split("info    : ")[-1].strip())
+    return found
+
+
 def max_abs_err(a, b):
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
@@ -302,30 +427,43 @@ def match_ops(B, blk, hc, W, probes):
     return B * ops
 
 
+def tie_dense(np, blk, seed=0):
+    """Windows dense in ties for the finders' sorts, as bytes: all 0x00,
+    all 0xFF, periods 1, 2, 3, 4 and 7, and random bytes over {0, 1}
+    (the recipe of tests/test_torch_encode.py's tie_dense)."""
+    rng = np.random.default_rng(seed)
+    rows = [np.zeros(blk, np.uint8), np.full(blk, 0xFF, np.uint8)]
+    for per in (1, 2, 3, 4, 7):
+        rows.append(np.resize(rng.integers(0, 256, per, dtype=np.uint8),
+                              blk))
+    rows.append(rng.integers(0, 2, blk, dtype=np.uint8))
+    return [r.tobytes() for r in rows]
+
+
 def edge_inputs(make_corpus, np):
     """8 corpus blocks (one per content type), a 1-byte, an empty and
-    an incompressible block, as 64 KB windows; then, for the deep
-    levels, a byte run, a period-300 block and a 50,000-byte text
-    window whose emission starts at 20,000.  Returns (windows, lens,
-    starts, goldens, number of windows before the deep ones)."""
+    an incompressible block, as 64 KB windows; then a byte run, a
+    period-300 block and a 50,000-byte text window whose emission starts
+    at 20,000; then the 8 tie-dense windows.  Returns (windows, lens,
+    starts, goldens); the goldens cover the first 8."""
     gold = np.load(GOLDENS)
     corpus = make_corpus(2)
     rows = [corpus[i * BLK:(i + 1) * BLK] for i in gold["blocks"]]
     rows += [b"\x2a", b"",
              np.random.default_rng(7).integers(0, 256, BLK, np.uint8)
              .tobytes()]
-    n_plain = len(rows)
     period = np.random.default_rng(300).integers(0, 256, 300, np.uint8)
     rows += [b"\x61" * BLK, (period.tobytes() * (BLK // 300 + 1))[:BLK],
              corpus[9 * BLK:9 * BLK + 50_000]]
+    rows += tie_dense(np, BLK)
     windows = np.zeros((len(rows), BLK), np.uint8)
     lens = np.zeros(len(rows), np.int32)
     for k, r in enumerate(rows):
         windows[k, :len(r)] = np.frombuffer(r, np.uint8)
         lens[k] = len(r)
     starts = np.zeros(len(rows), np.int32)
-    starts[-1] = 20_000
-    return windows, lens, starts, gold, n_plain
+    starts[13] = 20_000
+    return windows, lens, starts, gold
 
 
 def equals_goldens(out_h, olen_h, out_len, payloads):
@@ -445,6 +583,48 @@ def decode_without_native():
     return 0
 
 
+def time_encoder_kernels():
+    """``python3 /path/to/chip_smoke.py --time-encoder-kernels``: times
+    ``enc_match`` (hc 9 and 4) and ``enc_parse_emit`` (levels 9 and 0) at
+    the main path's shapes, 768 x 64 KB windows of the bench corpus,
+    with the package of the current directory first on the module path,
+    as time_main_path.py does, so that two checkouts (one unpacked from
+    the parent commit with ``git archive``) can be compared in turns in
+    one call.  It uses only what every version of the port has:
+    ``torch_block.match_candidates``, ``parse_emit`` and
+    ``corpus.make_corpus``.  Each time is the median of 5 calls between
+    CUDA events, after one warm-up call; it prints one line."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    if not torch.cuda.is_available():
+        print("[device] FAIL: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    from zig_lz4_tpu_torch.corpus import make_corpus
+    from zig_lz4_tpu_torch.ops import torch_block as tb
+    smi = nvidia_smi()
+    data = make_corpus(48)
+    nb = len(data) // (BLK * BENCH_BATCH) * BENCH_BATCH
+    w = torch.frombuffer(bytearray(data[:nb * BLK]), dtype=torch.uint8) \
+        .view(nb, BLK).cuda()
+    n = torch.full((nb,), BLK, dtype=torch.int32, device=w.device)
+    st = torch.zeros_like(n)
+    pk9, pk0 = tb.match_candidates(w, n, 9), tb.match_candidates(w, n, 0)
+    calls = {"enc_match hc=9": lambda: tb.match_candidates(w, n, 9),
+             "enc_match hc=4": lambda: tb.match_candidates(w, n, 4),
+             "enc_parse_emit level 9": lambda: tb.parse_emit(w, n, st, pk9),
+             "enc_parse_emit level 0": lambda: tb.parse_emit(w, n, st, pk0,
+                                                             0)}
+    ms = {}
+    for k, fn in calls.items():
+        fn()
+        ms[k] = statistics.median(cuda_ms(fn)[0] for _ in range(5))
+    print(f"[encoder kernels] {smi}: {nb} x 64 KB, package "
+          f"{os.path.dirname(tb.__file__)}: " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in ms.items()), flush=True)
+    return 0
+
+
 def main():
     t_run = time.perf_counter()
     import torch
@@ -456,6 +636,7 @@ def main():
 
     from zig_lz4_tpu_torch import ShardedFrameCodec, get_codec, native
     from zig_lz4_tpu_torch import frame as lz4f
+    from zig_lz4_tpu_torch import kernels as kernels_mod
     from zig_lz4_tpu_torch.constants import compress_bound
     from zig_lz4_tpu_torch.corpus import make_corpus
     from zig_lz4_tpu_torch.kernels import (KERNELS, LAUNCHES, build, launch,
@@ -482,6 +663,7 @@ def main():
     t_native = time.perf_counter() - t0
     check(os.path.dirname(native._SO).endswith("_build"),
           f"native runtime loaded from {native._SO}")
+    phase_jobs = start_phase_builds(kernels_mod)
     t_build = build()
     log = os.path.join(os.path.dirname(tb.__file__), "..", "_build",
                        "build.log")
@@ -491,6 +673,10 @@ def main():
                 if "registers" in ln]
     print(f"[build] host runtime {t_native:.2f} s, kernels {t_build:.2f} s "
           f"(0 = up to date); ptxas: " + " | ".join(regs))
+    if os.path.exists(log):
+        for k, v in ptxas_lines(log, ("enc_match_kernel",
+                                      "enc_parse_emit_kernel")).items():
+            print(f"[build] ptxas {k}: " + "; ".join(v))
 
     def lz4f_block_decode(comp, history, size):
         """One block by the host oracle, behind ``history``."""
@@ -522,12 +708,10 @@ def main():
 
     # --- phase 2a: encoder kernels against their plain versions, every
     # configuration, on the edge-case windows
-    windows, lens, starts, gold, n_plain = edge_inputs(make_corpus, np)
-    w_deep = torch.from_numpy(windows).to(dev)
-    l_deep = torch.from_numpy(lens).to(dev)
-    s_deep = torch.from_numpy(starts).to(dev)
-    w_d, l_d, lens = w_deep[:n_plain], l_deep[:n_plain], lens[:n_plain]
-    s_d = torch.zeros_like(l_d)
+    windows, lens, starts, gold = edge_inputs(make_corpus, np)
+    w_d = w_deep = torch.from_numpy(windows).to(dev)
+    l_d = l_deep = torch.from_numpy(lens).to(dev)
+    s_d = s_deep = torch.from_numpy(starts).to(dev)
     tb.parse_emit(w_d, l_d, s_d, tb.match_candidates(w_d, l_d))  # warm-up
     tb.match_candidates(w_d, l_d, 0, 1)
     edge_err = {"enc_match": 0, "enc_match_fast": 0, "enc_parse_emit": 0}
@@ -1552,13 +1736,47 @@ def main():
     cap = out4.shape[1]
     tb.match_candidates(w_all, l_all)
     k_match, pk_all = cuda_ms(lambda: tb.match_candidates(w_all, l_all), 2)
+    tb.parse_emit(w_all, l_all, s_all, pk_all)
     k_emit, (out_all, olen_all) = cuda_ms(
         lambda: tb.parse_emit(w_all, l_all, s_all, pk_all), 2)
-    k_match4, _pk4 = cuda_ms(lambda: tb.match_candidates(w_all, l_all, 4), 2)
+    k_match4, pk4 = cuda_ms(lambda: tb.match_candidates(w_all, l_all, 4), 2)
     tb.match_candidates(w_all, l_all, 0)
     k_fast, pk_fast = cuda_ms(lambda: tb.match_candidates(w_all, l_all, 0), 2)
+    tb.parse_emit(w_all, l_all, s_all, pk_fast, 0)
     k_emit0, (out_f, olen_f) = cuda_ms(
         lambda: tb.parse_emit(w_all, l_all, s_all, pk_fast, 0), 2)
+    # the two redesigned kernels phase by phase, on the same inputs: each
+    # ZL4_STOP cut of encode_block.cu against the whole kernel
+    cut_m, cut_e, cut_order = phase_split(phase_jobs, w_all, l_all, s_all,
+                                          pk_all, 9, 4 + 4 * 8)
+    match_phases = dict(zip(
+        ("window load", "12-byte sort", "probes +-9", "s0 sort",
+         "fallback probes"),
+        [cut_m[1], cut_m[2] - cut_m[1], cut_m[3] - cut_m[2],
+         cut_m[4] - cut_m[3], k_match - cut_m[4]]))
+    emit_phases = dict(zip(
+        ("chain", "lazy mask", "walk", "emission"),
+        [cut_e[1], cut_e[2] - cut_e[1], cut_e[3] - cut_e[2],
+         k_emit - cut_e[3]]))
+    order_ts, sort_again = less12_torch_sort(torch, w_all, l_all)
+    k_tsort, _o = cuda_ms(sort_again, 2)
+    same_order = torch.equal(order_ts.int(), cut_order)
+    del order_ts, sort_again, _o, cut_order
+    print(f"[time] {smi}: enc_match (hc=9) at {nb} x 64 KB by phase (cuts "
+          "of encode_block.cu, -DZL4_STOP=1..4, each timed whole; a phase = "
+          "difference of two cuts): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in match_phases.items())
+          + f"; cuts {cut_m}; whole {k_match:.3f} ms")
+    print(f"[time] {smi}: enc_parse_emit (level 9) at {nb} x 64 KB by "
+          "phase: " + ", ".join(f"{k} {v:.3f} ms"
+                                for k, v in emit_phases.items())
+          + f"; cuts {cut_e}; whole {k_emit:.3f} ms")
+    print(f"[time] {smi}: yardstick for the 12-byte sort alone: the batched "
+          f"stable torch.sort of its three words (_stable_order over all "
+          f"{nb} windows) {k_tsort:.3f} ms against the radix passes' "
+          f"{match_phases['12-byte sort']:.3f} ms; orders equal: "
+          f"{same_order}")
+    check(same_order, "enc_match's 12-byte order differs from torch.sort's")
     print(f"[K2/K3] plain versions at {nb} x 64 KB (minutes) ...",
           flush=True)
     p_match, pk_all_p = cuda_ms(lambda: tb.match_candidates_plain(w_all,
@@ -1569,20 +1787,25 @@ def main():
         lambda: tb.match_candidates_plain(w_all, l_all, 0))
     p_emit0, (out_f_p, olen_f_p) = cuda_ms(
         lambda: tb.parse_emit_plain(w_all, l_all, s_all, pk_fast, 0))
-    err_m_all = max_abs_err(pk_all, pk_all_p)
+    # level 4, the other hc of the 64 KB paths
+    pk4_p = tb.match_candidates_plain(w_all, l_all, 4)
+    out4_k, olen4_k = tb.parse_emit(w_all, l_all, s_all, pk4, 4)
+    out4_p, olen4_p = tb.parse_emit_plain(w_all, l_all, s_all, pk4, 4)
+    err_m_all = max(max_abs_err(pk_all, pk_all_p), max_abs_err(pk4, pk4_p))
     err_p_all = max(max_abs_err(out_all, out_all_p),
-                    max_abs_err(olen_all, olen_all_p))
+                    max_abs_err(olen_all, olen_all_p),
+                    max_abs_err(out4_k, out4_p), max_abs_err(olen4_k, olen4_p))
     err_f_all = max_abs_err(pk_fast, pk_fast_p)
     err_p0_all = max(max_abs_err(out_f, out_f_p),
                      max_abs_err(olen_f, olen_f_p))
     print(f"[K2/K3] at {nb} x 64 KB: enc_match vs plain max_abs_err "
-          f"{err_m_all}; enc_parse_emit vs plain max_abs_err {err_p_all} "
-          f"(level 9), {err_p0_all} (level 0); enc_match_fast vs plain "
-          f"max_abs_err {err_f_all}")
+          f"{err_m_all} (hc=9 and hc=4); enc_parse_emit vs plain max_abs_err "
+          f"{err_p_all} (levels 9 and 4), {err_p0_all} (level 0); "
+          f"enc_match_fast vs plain max_abs_err {err_f_all}")
     check(err_m_all == 0 and err_p_all == 0 and err_f_all == 0
           and err_p0_all == 0,
           "encoder kernels differ from plain at the paths' shapes")
-    del pk_all_p, out_all_p, pk_fast_p, out_f_p
+    del pk_all_p, out_all_p, pk_fast_p, out_f_p, pk4_p, out4_k, out4_p, pk4
     in_bytes = nb * BLK + 4 * nb                # windows and lengths
     b_match = bound(in_bytes + 4 * nb * BLK, match_ops(nb, BLK, 9, 8, 2))
     b_fast = bound(in_bytes + 4 * nb * BLK, match_ops(nb, BLK, 0, 8, 2))
@@ -1594,7 +1817,8 @@ def main():
     results["enc_match"].update(
         max_abs_err=max(edge_err["enc_match"], err_m_all), ms=k_match,
         plain_ms=p_match, bound_ms=b_match[0], bound_by=b_match[1],
-        library_ms=None)
+        library_ms=None, ms_hc4=k_match4, phase_ms=match_phases,
+        torch_sort_12_byte_order_ms=k_tsort)
     results["enc_match_fast"].update(
         max_abs_err=max(edge_err["enc_match_fast"], err_f_all), ms=k_fast,
         plain_ms=p_fast, bound_ms=b_fast[0], bound_by=b_fast[1],
@@ -1602,7 +1826,7 @@ def main():
     results["enc_parse_emit"].update(
         max_abs_err=max(edge_err["enc_parse_emit"], err_p_all, err_p0_all),
         ms=k_emit, plain_ms=p_emit, bound_ms=b_emit[0], bound_by=b_emit[1],
-        library_ms=None)
+        library_ms=None, ms_level0=k_emit0, phase_ms=emit_phases)
 
     # the deep kernels at the paths' shapes; their plain versions ran on
     # every PLAIN_STRIDE-th window of these (phase 6)
@@ -1650,6 +1874,7 @@ def main():
         hc = kw_1m["hc"]
         tb.match_candidates(w_1m, l_1m, hc)
         k_wm, pk_1m = cuda_ms(lambda: tb.match_candidates(w_1m, l_1m, hc), 2)
+        tb.parse_emit(w_1m, l_1m, s_1m, pk_1m, hc)
         k_we, _o = cuda_ms(
             lambda: tb.parse_emit(w_1m, l_1m, s_1m, pk_1m, hc), 2)
         sel_w = torch.arange(0, w_1m.shape[0], WIDE_PLAIN_STRIDE, device=dev)
@@ -1680,6 +1905,25 @@ def main():
               f"{b_wm[0]:.4f} ms by {b_wm[1]}), enc_parse_emit {k_we:.2f} ms "
               f"(plain at {sel_w.numel()} windows {p_we:.1f} ms); vs plain "
               f"max_abs_err {err_wm}, {err_we}")
+    # enc_parse_emit against its plain version on every window of every
+    # wide path at levels 0-9, on the finder's candidates for them
+    for what, calls in wide_rec.items():
+        for (w_r, l_r, s_r), kw in calls:
+            if kw.get("deep"):
+                continue
+            pk_r = tb.match_candidates(w_r, l_r, kw["hc"])
+            o_k, ol_k = tb.parse_emit(w_r, l_r, s_r, pk_r, kw["hc"])
+            o_p, ol_p = tb.parse_emit_plain(w_r, l_r, s_r, pk_r, kw["hc"])
+            err_r = max(max_abs_err(o_k, o_p), max_abs_err(ol_k, ol_p))
+            print(f"[wide] {what}: enc_parse_emit vs plain on all "
+                  f"{w_r.shape[0]} x {w_r.shape[1]} windows: max_abs_err "
+                  f"{err_r}")
+            check(err_r == 0, f"enc_parse_emit differs from plain on the "
+                  f"{what} path")
+            wide_err["enc_parse_emit"] = max(wide_err["enc_parse_emit"],
+                                             err_r)
+    del pk_r, o_k, ol_k, o_p, ol_p
+
     # the deep kernels at the launch of the 1 MB level-12 path (192
     # sub-span windows), against their plain versions on every 48th window
     (w_1m, l_1m, s_1m), _kw = wide_rec["1 MB blocks, level 12"][0]
@@ -1897,7 +2141,8 @@ def main():
 if __name__ == "__main__":
     try:
         sys.exit(decode_without_native() if sys.argv[1:] == [CHILD_FLAG]
-                 else main())
+                 else time_encoder_kernels()
+                 if sys.argv[1:] == [ENCODER_FLAG] else main())
     except Failed as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         sys.exit(1)

@@ -122,6 +122,19 @@ def _static_inputs():
     return inputs
 
 
+def tie_dense(blk: int, seed: int = 0) -> np.ndarray:
+    """Windows dense in ties for the finders' sorts, as rows of blk
+    bytes: all 0x00, all 0xFF, periods 1, 2, 3, 4 and 7, and random bytes
+    over {0, 1}."""
+    rng = np.random.default_rng(seed)
+    rows = [np.zeros(blk, np.uint8), np.full(blk, 0xFF, np.uint8)]
+    for per in (1, 2, 3, 4, 7):
+        rows.append(np.resize(rng.integers(0, 256, per, dtype=np.uint8),
+                              blk))
+    rows.append(rng.integers(0, 2, blk, dtype=np.uint8))
+    return np.stack(rows)
+
+
 def _with_corpus(corpus):
     inputs = _static_inputs()
     for k in CORPUS:
@@ -513,7 +526,15 @@ def test_encoder_rejects_what_it_does_not_take():
 @pytest.mark.parametrize("config", ["hc9"] + sorted(LEVEL_CONFIGS))
 def test_kernels_match_plain_4k(cuda, config):
     hc, accel = {"hc9": (9, 1), **LEVEL_CONFIGS}[config]
-    _rows, windows, lens, starts = _pack(_static_inputs())
+    inputs = _static_inputs()
+    dense = tie_dense(BLK)
+    # the tie-dense windows whole, and cut to n = 0, 1, 3, 4, 5, 11, 12,
+    # 13 and 4,095 bytes
+    inputs["tie_dense"] = [(r.tobytes(), 0) for r in dense]
+    inputs["tie_dense_short"] = [
+        (dense[k % len(dense), :m].tobytes(), 0)
+        for k, m in enumerate((0, 1, 3, 4, 5, 11, 12, 13, 4095))]
+    _rows, windows, lens, starts = _pack(inputs)
     w, n, s = (torch.from_numpy(a).to(cuda) for a in (windows, lens, starts))
     pk = tb.match_candidates(w, n, hc, accel)
     assert torch.equal(pk.cpu(), tb.match_candidates_plain(w.cpu(), n.cpu(),
@@ -540,15 +561,20 @@ def test_kernels_match_goldens_64k(cuda, goldens, level):
 @pytest.mark.cuda
 @pytest.mark.parametrize("hc,accel", [(9, 1), (3, 1), (0, 1), (0, 8)])
 def test_kernels_odd_window_sizes(cuda, hc, accel):
-    """Windows that are not powers of two pad the bitonic sort."""
+    """Windows that are not powers of two: the sorts take blk rows (the
+    bitonic network pads them to a power of two); each width also runs
+    the tie-dense windows, whole and cut short."""
     rng = np.random.default_rng(5)
     text = CASES["text"]
     for blk in (1, 13, 1000, 5000):
-        windows = np.zeros((3, blk), np.uint8)
+        dense = tie_dense(blk, blk)
+        windows = np.zeros((3 + 2 * len(dense), blk), np.uint8)
         windows[0] = np.frombuffer((text * 20)[:blk], np.uint8)
         windows[1] = rng.integers(0, 3, blk, dtype=np.uint8)
-        lens = np.array([blk, blk, blk // 2], np.int32)
-        starts = np.zeros(3, np.int32)
+        windows[3:] = np.concatenate([dense, dense])
+        lens = np.array([blk, blk, blk // 2] + [blk] * len(dense)
+                        + [max(blk - 12, 0)] * len(dense), np.int32)
+        starts = np.zeros(len(windows), np.int32)
         got = _encode(windows, lens, starts, device=cuda, hc=hc,
                       accel=accel)
         want = _encode(windows, lens, starts, hc=hc, accel=accel)

@@ -62,7 +62,7 @@ def test_sources_name_no_jax():
         "encode_wide.cu", "frag_common.cuh", "frag_decode.cu",
         "linked_tmap.cu", "seq_decode.cu", "serial_decode.cu",
         "sort_cluster.cuh", "sort_global.cuh", "sort_probe.cu",
-        "tmap_gather.cu"}
+        "sort_radix.cuh", "tmap_gather.cu"}
     files += [os.path.join(ROOT, "chip_smoke.py"),
               os.path.join(ROOT, "time_main_path.py")]
     reference = re.compile(r"zig_lz4_tpu(?!_torch)")

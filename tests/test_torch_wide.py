@@ -241,3 +241,57 @@ def test_wide_kernels_odd_window_sizes(cuda, hc, accel):
         want = tb.encode_blocks(*args, hc=hc, accel=accel)
         assert torch.equal(got[1].cpu(), want[1])
         assert torch.equal(got[0].cpu(), want[0])
+
+
+def _sequences(payload: bytes) -> int:
+    """Sequences of an LZ4 block payload: one token each."""
+    pos, count = 0, 0
+    while pos < len(payload):
+        token = payload[pos]
+        pos += 1
+        count += 1
+        lit = token >> 4
+        if lit == 15:
+            while payload[pos] == 255:
+                lit += 255
+                pos += 1
+            lit += payload[pos]
+            pos += 1
+        pos += lit
+        if pos >= len(payload):
+            break
+        pos += 2
+        if token & 15 == 15:
+            while payload[pos] == 255:
+                pos += 1
+            pos += 1
+    return count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blk", [65536, 327_680])
+def test_parse_emit_dense_and_single_match(cuda, blk):
+    """``enc_parse_emit`` against its plain version on a window of short
+    matches every few bytes (random bytes over {0, 1, 2, 3}: blk / 7 to
+    blk / 5 sequences) and on one that a single match covers (all zero),
+    at levels 9 and 0; both payloads decode to the window."""
+    from zig_lz4_tpu_torch.ops.block import decompress_safe
+    rng = np.random.default_rng(blk)
+    windows = np.stack([rng.integers(0, 4, blk, dtype=np.uint8),
+                        np.zeros(blk, np.uint8)])
+    lens = np.full(2, blk, np.int32)
+    starts = np.zeros(2, np.int32)
+    w, n, s = (torch.from_numpy(a).to(cuda) for a in (windows, lens, starts))
+    for hc in (9, 0):
+        pk = tb.match_candidates(w, n, hc)
+        out, out_len = tb.parse_emit(w, n, s, pk, hc)
+        out_p, len_p = tb.parse_emit_plain(w.cpu(), n.cpu(), s.cpu(),
+                                           pk.cpu(), hc)
+        torch.cuda.synchronize()
+        assert torch.equal(out_len.cpu(), len_p)
+        assert torch.equal(out.cpu(), out_p)
+        pays = [out_p[k, :int(len_p[k])].numpy().tobytes() for k in range(2)]
+        assert _sequences(pays[0]) > blk // 10
+        assert _sequences(pays[1]) == 2       # the match, then the tail
+        for k in range(2):
+            assert decompress_safe(pays[k], blk) == windows[k].tobytes()

@@ -8,67 +8,148 @@
 // gathers and shared memory are cheap, so the same bytes come from these
 // kernels:
 //
-// enc_match (hc >= 1; one 1024-thread block per window):
-//   window build (:249-272) into shared memory, a bitonic sort of the
-//   positions by (s0, su[i+4], su[i+8], i) -- the stable 3-key sort of
-//   :349-350, since the index breaks every tie -- the +-1..+-hc probes of
-//   cand_at (:379-450) on the sorted rows, the unsort as a store to the
-//   position (:455-469), then the fallback order (s0, i) with probes +1
-//   and +2 (:471-516).  Output per position: the reference's pack
+// enc_match (hc >= 1; one 1024-thread block per window of up to 64 KB):
+//   window build (:249-272) into shared memory, the stable 3-key sort of
+//   :349-350 -- positions ordered by (s0, su[i+4], su[i+8], i) -- as 12
+//   stable byte passes of the LSD radix sort of sort_radix.cuh (window
+//   bytes i+8..i+11, i+4..i+7, then s0's four bytes, which are 0xFF on the
+//   rows past n - 4), the +-1..+-hc probes of cand_at (:379-450) on the
+//   sorted rows, the unsort as a store to the position (:455-469), then the
+//   fallback order (s0, i) in 4 more passes, with probes +1 and +2
+//   (:471-516).  Output per position: the reference's pack
 //   ((cand + 1) << 12) | (fine ml << 6) | back, 0 when there is none.
-//   Bound: the sort.  65536 u16 indices plus the 64 KB window fill 196 KB
-//   of shared memory, so one window runs per SM; each of the 136 bitonic
-//   stages recomputes 12-byte keys from the window in shared memory, so
-//   the kernel is bound by shared-memory loads and issue, not by device
-//   memory (it reads each window once and writes 4 bytes per position).
+//   Shared memory: the window words (64 KB), one u16 order over the blk rows
+//   (128 KB) and the passes' histograms (32 KB), 224 KB at 64 KB, so one
+//   window runs per SM; a pass keeps its rows in registers while it
+//   scatters them back into the one order buffer.
+//   Bound: issue of the passes' ballots and shared-memory accesses, and the
+//   probes' shared-memory loads (each compares up to 36 bytes of two rows);
+//   not device memory: it reads each window once and writes 4 bytes per
+//   position.
 //
-// enc_match_fast (hc == 0; same block shape and shared memory):
-//   window build, ONE bitonic sort by (s0, i) -- the stable 1-key sort of
-//   :348-352 -- and probes +1..+probes against the nearest previous rows
-//   of the group, a later probe winning only when strictly longer
-//   (:433-450), over W carried windows (fast_params, :179-197).  No
-//   fallback pass.  Bound: the one sort, with 4-byte keys.
+// enc_match_fast (hc == 0; one 1024-thread block per window): window build,
+//   ONE bitonic sort by (s0, i) -- the stable 1-key sort of :348-352 -- and
+//   probes +1..+probes against the nearest previous rows of the group, a
+//   later probe winning only when strictly longer (:433-450), over W
+//   carried windows (fast_params, :179-197).  No fallback pass.  Bound: the
+//   one sort, with 4-byte keys.
 //
-// enc_parse_emit (one 256-thread block per window, blk / 8 bytes of shared
-// memory: 8 KB at 64 KB, 40 KB at the 327,680-byte windows of
-// encode_wide.cu):
-//   same-offset chain extension (:522-552) as a chunked nearest-boundary
-//   scan, the n-5 clamp (:554-555), two-step lazy deferral (:684-710; HC
-//   only) as a bit mask built with warp ballots, then one thread walks the
-//   mask for the greedy parse (:716-743) -- it jumps from match end to the
-//   next set bit, so it costs words + matches, not positions -- and writes
-//   the sequence headers (:871-1103: chained selections at one offset
-//   merge, heads extend back over <= 2 literals, 255-escapes, LE offsets,
-//   the tail literal run).  The literal runs it records are copied by all
-//   warps.  Bound: the single parsing thread's dependent loads; the small
-//   footprint lets every window of a launch run at once.
+// enc_parse_emit (one 256-thread block per window of up to 2^19 bytes):
+//   1. same-offset chain extension (:522-552) and the n-5 clamp (:554-555),
+//      position-parallel and coalesced: the chain boundaries as a bit mask
+//      by warp ballots, the nearest boundary after each 32-row word by a
+//      block-wide reverse scan, then every row's length from its nearest
+//      boundary at or after it (a bit scan within its word);
+//   2. two-step lazy deferral (:684-710; HC only) into a bit mask of the
+//      final match rows, by warp ballots;
+//   3. the greedy parse (:716-743): the warps stage, 2,048 rows at a time,
+//      each match row's successor -- the first match row at or after its
+//      end, found in the mask by a bit scan within a word and a block-wide
+//      reverse scan over the words -- into shared memory, and one thread
+//      follows the chain through them, one shared load a chosen row, a
+//      span behind the warps; it lists the chosen rows and nothing else;
+//   4. the emission (:871-1103), in parallel over the list: an entry merges
+//      into the one before it when it starts at that one's end at the same
+//      offset; the last entry of each merged group finds its head by a
+//      block max-scan, computes the group's literal run (from the previous
+//      end, extended back over <= back literals) and its header bytes
+//      (255-escapes, LE offset), and a block sum-scan of the groups' sizes
+//      places it; a literal run under 32 bytes is copied by that thread,
+//      longer ones (the tail's too) and the zeros past out_len by all
+//      warps.
+//   Shared memory: the mask and the next set bit after each of its words
+//   (blk / 4 bytes: 16 KB at 64 KB, 80 KB at 327,680) and two staged spans
+//   (16 KB).  Bound: the one parsing thread's chain through shared memory,
+//   a few tens of cycles a chosen match, and the position-parallel phases'
+//   loads; not the bytes it must move.
+//
+// Built with -DZL4_STOP=k, a kernel stops after its k-th phase and stores
+// what that phase left, so that chip_smoke.py can time the phases one by
+// one; the library is built without it.
 
 #include "encode_common.cuh"
+#include "sort_radix.cuh"
+
+#ifdef ZL4_STOP
+#define ZL4_STOP_AFTER(k, keep) \
+  if (ZL4_STOP == (k)) {        \
+    keep;                       \
+    return;                     \
+  }
+#else
+#define ZL4_STOP_AFTER(k, keep)
+#endif
 
 namespace {
 
-__global__ void __launch_bounds__(kMatchThreads)
+constexpr int kStage = 2048;  // rows of successors the walk stages at a time
+constexpr int kBatch = 4;     // rows a thread loads before it stores any
+constexpr int kShortRun = 32;  // literal runs shorter go byte by byte
+
+// Byte k of each row's key for one radix pass: window byte p + k, or, on
+// the s0 passes (s0 = true), 0xFF on the rows past n - 4, whose s0 is
+// 0xFFFFFFFF (Window::s0).  Bytes at and past n read as zero.
+struct KeyByte {
+  const uint32_t* w;
+  int n, k;
+  bool s0;
+  __device__ __forceinline__ unsigned operator()(int p) const {
+    if (s0 && p > n - 4) return 0xFFu;
+    const int q = p + k;
+    return (w[q >> 2] >> ((q & 3) * 8)) & 0xFFu;
+  }
+};
+
+// The 12-byte order (s0, at(p+4), at(p+8), p): LSD passes over the bytes of
+// at(p+8), at(p+4), then s0, each word from its low byte up.
+__device__ void sort_less12(const Window& W, uint16_t* s, int rows,
+                            uint32_t* hist, int* part) {
+#pragma unroll 1
+  for (int i = 0; i < 12; ++i) {
+    const int k = i < 4 ? 8 + i : i < 8 ? i : i - 8;  // 8..11, 4..7, 0..3
+    radix_pass(s, rows, hist, part, KeyByte{W.w, W.n, k, i >= 8});
+  }
+}
+
+// The order (s0, p): 4 LSD passes over s0's bytes.
+__device__ void sort_s0(const Window& W, uint16_t* s, int rows,
+                        uint32_t* hist, int* part) {
+#pragma unroll 1
+  for (int k = 0; k < 4; ++k)
+    radix_pass(s, rows, hist, part, KeyByte{W.w, W.n, k, true});
+}
+
+__global__ void __launch_bounds__(kRadixThreads)
 enc_match_kernel(const uint8_t* __restrict__ data,
                  const int32_t* __restrict__ lens, int32_t* __restrict__ pk,
-                 int blk, int N, int nwords, int hc) {
+                 int blk, int nwords, int hc) {
   extern __shared__ uint32_t smem[];
+  __shared__ int part[33];
   uint32_t* words = smem;
-  uint16_t* s = reinterpret_cast<uint16_t*>(smem + nwords);
+  uint32_t* hist = smem + nwords;
+  uint16_t* s = reinterpret_cast<uint16_t*>(hist + kRadixHistWords);
   const int b = blockIdx.x;
   const int n = min(max(lens[b], 0), blk);
   int32_t* out = pk + (size_t)b * blk;
-  load_window(data + (size_t)b * blk, n, words, nwords, s, N);
+  load_window(data + (size_t)b * blk, n, words, nwords, s, blk);
   const Window W{words, n};
+  ZL4_STOP_AFTER(1, for (int t = threadIdx.x; t < blk; t += blockDim.x)
+                        out[t] = words[t % nwords])
 
   // 12-byte lexicographic order, ties by position
-  bitonic_sort(s, N, Less12{W, blk});
+  sort_less12(W, s, blk, hist, part);
+  ZL4_STOP_AFTER(2, for (int t = threadIdx.x; t < blk; t += blockDim.x)
+                        out[t] = s[t])
   for (int t = threadIdx.x; t < blk; t += blockDim.x)
     out[s[t]] = pack(nearest_both(W, s, t, blk, hc));
   __syncthreads();
+  ZL4_STOP_AFTER(3, )
 
   // positional fallback: order by s0 alone, probes +1 and +2
-  identity_order(s, N);
-  sort_by_s0(W, s, N, blk);
+  identity_order(s, blk);
+  sort_s0(W, s, blk, hist, part);
+  ZL4_STOP_AFTER(4, for (int t = threadIdx.x; t < blk; t += blockDim.x)
+                        out[t] = s[t])
   for (int t = threadIdx.x; t < blk; t += blockDim.x) {
     const int p = s[t];
     const Cand c = nearest(W, s, t, 2, kMaxW);
@@ -94,32 +175,163 @@ enc_match_fast_kernel(const uint8_t* __restrict__ data,
     out[s[t]] = pack(nearest(W, s, t, probes, nwin));
 }
 
-__global__ void __launch_bounds__(kParseThreads)
-enc_parse_emit_kernel(const uint8_t* __restrict__ data,
-                      const int32_t* __restrict__ lens,
-                      const int32_t* __restrict__ starts,
-                      const int32_t* __restrict__ pk, int32_t* __restrict__ mlw,
-                      int32_t* __restrict__ runs, uint8_t* __restrict__ out,
-                      int32_t* __restrict__ out_len, int blk, int cap,
-                      int runcap, int capped_ml, int lazy) {
-  extern __shared__ uint32_t imask[];
-  __shared__ int first_bnd[kParseThreads];
-  __shared__ int s_nruns, s_olen;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int n = min(max(lens[b], 0), blk);
-  const int start = min(max(starts[b], 0), n);
-  const uint8_t* row = data + (size_t)b * blk;
-  const Fields F{pk + (size_t)b * blk, n, blk, capped_ml, 0};
-  int32_t* M = mlw + (size_t)b * blk;
-  int32_t* R = runs + (size_t)b * runcap;
-  uint8_t* o = out + (size_t)b * cap;
+// Inclusive scan of v over the block's kParseThreads threads under op, with
+// the block's total; tmp: kParseThreads / 32 elements of shared memory.
+template <class Op>
+__device__ __forceinline__ int block_scan(int v, int* tmp, Op op,
+                                          int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int nw = kParseThreads / 32;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_up_sync(0xFFFFFFFFu, v, o);
+    if (lane >= o) v = op(v, x);
+  }
+  if (lane == 31) tmp[warp] = v;
+  __syncthreads();
+  int pre = tmp[0];
+  for (int k = 1; k < warp; ++k) pre = op(pre, tmp[k]);
+  if (warp > 0) v = op(pre, v);
+  total = tmp[0];
+  for (int k = 1; k < nw; ++k) total = op(total, tmp[k]);
+  __syncthreads();
+  return v;
+}
 
-  chain_lengths(F, start, M, first_bnd);
+struct MaxOp {
+  __device__ __forceinline__ int operator()(int a, int b) const {
+    return max(a, b);
+  }
+};
+struct SumOp {
+  __device__ __forceinline__ int operator()(int a, int b) const {
+    return a + b;
+  }
+};
 
-  // --- two-step lazy deferral (HC only) into a bit mask of final match
-  // rows
+// The literal run of lit bytes from row[src] to o[dst]: copied here when
+// it is shorter than kShortRun, else listed in R (src, dst, len) for the
+// warps, at the index the shared counter nlong hands out.
+__device__ __forceinline__ void literal_run(const uint8_t* row, int src,
+                                            uint8_t* o, int dst, int lit,
+                                            int32_t* R, int* nlong) {
+  if (lit < kShortRun) {
+    for (int k = 0; k < lit; ++k) o[dst + k] = row[src + k];
+    return;
+  }
+  const int r = atomicAdd(nlong, 1);
+  R[3 * r] = src;
+  R[3 * r + 1] = dst;
+  R[3 * r + 2] = lit;
+}
+
+// Bytes of the 255-escaped continuation of a length field whose token
+// nibble saturated: put_len's count for v = length - 15 >= 0.
+__device__ __forceinline__ int len_bytes(int v) {
+  return v >= 0 ? v / 255 + 1 : 0;
+}
+
+// nxt[w] = the first set bit of mask in the words after w (none if there
+// is none), for the nw words of mask: each thread scans a run of words,
+// and a reverse min-scan over the threads carries across runs.  tmp:
+// kParseThreads / 32 ints of shared memory.
+__device__ void next_after_words(const uint32_t* mask, int nw, int none,
+                                 int* nxt, int* tmp) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int run = (nw + kParseThreads - 1) / kParseThreads;
+  const int lo = min(tid * run, nw), hi = min(lo + run, nw);
+  int first = none;
+  for (int w = lo; w < hi; ++w)
+    if (mask[w]) {
+      first = (w << 5) + __ffs(mask[w]) - 1;
+      break;
+    }
+  int v = first;  // min over this lane and the lanes after it
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_down_sync(0xFFFFFFFFu, v, o);
+    if (lane + o < 32) v = min(v, x);
+  }
+  if (lane == 0) tmp[warp] = v;
+  __syncthreads();
+  int after = __shfl_down_sync(0xFFFFFFFFu, v, 1);
+  if (lane == 31) after = none;
+  for (int k = warp + 1; k < kParseThreads / 32; ++k)
+    after = min(after, tmp[k]);
+  for (int w = hi - 1; w >= lo; --w) {
+    nxt[w] = after;
+    if (mask[w]) after = (w << 5) + __ffs(mask[w]) - 1;
+  }
+  __syncthreads();
+}
+
+// The first set bit of mask at or after row x, with nxt from
+// next_after_words.
+__device__ __forceinline__ int first_at_or_after(const uint32_t* mask,
+                                                 const int* nxt, int x) {
+  const int w = x >> 5;
+  const uint32_t bits = mask[w] & (0xFFFFFFFFu << (x & 31));
+  return bits ? (w << 5) + __ffs(bits) - 1 : nxt[w];
+}
+
+// Row p's word of the parse, ml | is_match << 30 | cap_end << 29, from the
+// chain boundaries: a capped row takes its length from the nearest boundary
+// at or after it.
+__device__ __forceinline__ int chain_word(const Fields& F, int start,
+                                          const uint32_t* bnd, const int* nxt,
+                                          int p) {
+  const int nb = first_at_or_after(bnd, nxt, p);
+  int ml = F.ml0(p);
+  if (F.capped(p)) ml = max(nb - p + min(F.ml0(nb), 2047), ml);
+  ml = min(ml, max(F.n - 5 - p, 0));
+  const bool v = F.valid(p);
+  const bool im = v && ml >= 4 && p >= start;
+  const bool ce = v && F.capped(nb);
+  return ml | (im ? kImBit : 0) | (ce ? kCapEndBit : 0);
+}
+
+// Same-offset chain extension and the n - 5 clamp (jax_block.py:522-555),
+// position-parallel: each capped row takes its length from the nearest
+// chain boundary at or after it (a reverse cummax in the reference).
+// Writes M[p] = ml | is_match << 30 | cap_end << 29 for every row, kBatch
+// rows a thread at a time, so that their loads are in flight together.
+// bnd and nxt: nw = ceil(blk / 32) words of shared memory each.
+__device__ void chain_lengths_par(const Fields& F, int start, int32_t* M,
+                                  uint32_t* bnd, int* nxt, int* tmp) {
+  const int blk = F.blk, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
+  const int nw = (blk + 31) >> 5;
+  // boundary rows (no link into the next row); row blk - 1 always is one
+#pragma unroll 4
+  for (int base = warp * 32; base < nw * 32; base += kParseThreads) {
+    const int p = base + lane;
+    const unsigned bits = __ballot_sync(0xFFFFFFFFu, p < blk && !F.link(p));
+    if (lane == 0) bnd[base >> 5] = bits;
+  }
+  __syncthreads();
+  next_after_words(bnd, nw, blk, nxt, tmp);
+  for (int p0 = tid; p0 < blk; p0 += kBatch * kParseThreads) {
+    int word[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int p = p0 + u * kParseThreads;
+      word[u] = p < blk ? chain_word(F, start, bnd, nxt, p) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int p = p0 + u * kParseThreads;
+      if (p < blk) M[p] = word[u];
+    }
+  }
+  __syncthreads();
+}
+
+// Two-step lazy deferral (jax_block.py:684-710; lazy = HC only) into the
+// bit mask of the final match rows.
+__device__ void match_mask(const int32_t* M, int blk, int lazy,
+                           uint32_t* imask) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll 4
   for (int base = warp * 32; base < blk; base += kParseThreads) {
     const int p = base + lane;
     bool keep = false;
@@ -143,50 +355,193 @@ enc_parse_emit_kernel(const uint8_t* __restrict__ data,
     if (lane == 0) imask[base >> 5] = bits;
   }
   __syncthreads();
+}
 
-  // --- greedy parse and sequence headers (one thread)
-  if (tid == 0) {
-    Emitter em{o, R, start};
-    if (n > start) {
-      const int nw = (blk + 31) >> 5;
-      int pos = 0;
-      while (true) {
-        int wi = pos >> 5;
-        if (wi >= nw) break;
-        uint32_t bits = imask[wi] & (0xFFFFFFFFu << (pos & 31));
-        while (bits == 0 && ++wi < nw) bits = imask[wi];
-        if (bits == 0) break;
-        const int p = (wi << 5) + __ffs(bits) - 1;
-        const int e = p + (M[p] & kMlMask);
-        em.add(p, e, p - F.cand(p), F.pk[p] & 3);
-        pos = e;
+// Greedy parse (jax_block.py:716-743): the lowest match row not yet
+// covered, again and again; from a chosen row p the next one is the first
+// match row at or after p + ml(p).  The warps stage that next row for
+// every match row of a kStage-row span into shared memory (imask and inext
+// from next_after_words find it); thread 0 follows the chain, one shared
+// load a chosen row, while warps 1.. stage the span after its own into the
+// other half of buf.  Lists each chosen row in L; returns the count on
+// every thread.  walk: 4 ints of shared memory, the walker's (row, count)
+// by the parity of the step, so that it can post a step's while the others
+// still read the last one's.
+__device__ int greedy_walk(const int32_t* M, const uint32_t* imask,
+                           const int* inext, int blk, int* buf, int32_t* L,
+                           int* walk) {
+  const int tid = threadIdx.x;
+  const int nstage = (blk + kStage - 1) / kStage;
+  auto stage = [&](int c, int t0, int nt) {
+    const int lo = c * kStage, hi = min(lo + kStage, blk);
+    int* dst = buf + (c & 1) * kStage - lo;
+#pragma unroll 4
+    for (int p = lo + t0; p < hi; p += nt)
+      if ((imask[p >> 5] >> (p & 31)) & 1u)
+        dst[p] = first_at_or_after(imask, inext, p + (M[p] & kMlMask));
+  };
+  int p = first_at_or_after(imask, inext, 0);
+  if (p >= blk) return 0;  // no match row
+  int cur = p / kStage, cnt = 0;
+  stage(cur, tid, kParseThreads);
+  __syncthreads();
+  for (int par = 0;; par ^= 2) {
+    if (tid == 0) {
+      const int hi = min((cur + 1) * kStage, blk);
+      const int* nx = buf + (cur & 1) * kStage - cur * kStage;
+      while (p < hi) {
+        L[cnt++] = p;
+        p = nx[p];
       }
-      em.finish(n);
+      walk[par] = p;
+      walk[par + 1] = cnt;
+    } else if (tid >= 32 && cur + 1 < nstage) {
+      stage(cur + 1, tid - 32, kParseThreads - 32);
     }
-    s_nruns = em.nr;
-    s_olen = em.op;
-    out_len[b] = em.op;
+    __syncthreads();
+    p = walk[par];
+    if (p >= blk) {
+      cnt = walk[par + 1];
+      break;
+    }
+    const int next = p / kStage;
+    if (next != cur + 1) {  // a match or a gap skipped the staged span
+      stage(next, tid, kParseThreads);
+      __syncthreads();
+    }
+    cur = next;
   }
   __syncthreads();
+  return cnt;
+}
 
-  // --- literal runs, one warp each; zeros past out_len
-  copy_runs(row, R, s_nruns, o, s_olen, cap);
+__global__ void __launch_bounds__(kParseThreads)
+enc_parse_emit_kernel(const uint8_t* __restrict__ data,
+                      const int32_t* __restrict__ lens,
+                      const int32_t* __restrict__ starts,
+                      const int32_t* __restrict__ pk, int32_t* __restrict__ mlw,
+                      int32_t* __restrict__ runs, uint8_t* __restrict__ out,
+                      int32_t* __restrict__ out_len, int blk, int cap,
+                      int runcap, int capped_ml, int lazy) {
+  extern __shared__ uint32_t sm[];
+  __shared__ int tmp[kParseThreads / 32];
+  __shared__ int s_walk[4];
+  __shared__ int s_nlong;
+  const int nw = (blk + 31) >> 5;
+  uint32_t* mask = sm;                         // boundaries, then match rows
+  int* nxt = reinterpret_cast<int*>(sm + nw);  // the next set bit after a word
+  int* buf = nxt + nw;                         // the walk's staged spans
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int n = min(max(lens[b], 0), blk);
+  const int start = min(max(starts[b], 0), n);
+  const uint8_t* row = data + (size_t)b * blk;
+  const Fields F{pk + (size_t)b * blk, n, blk, capped_ml, 0};
+  int32_t* M = mlw + (size_t)b * blk;
+  int32_t* L = runs + (size_t)b * runcap;  // chosen rows, blk / 4 + 1
+  int32_t* R = L + blk / 4 + 1;            // literal runs (src, dst, len)
+  uint8_t* o = out + (size_t)b * cap;
+
+  chain_lengths_par(F, start, M, mask, nxt, tmp);
+  ZL4_STOP_AFTER(1, )
+  match_mask(M, blk, lazy, mask);
+  next_after_words(mask, nw, blk, nxt, tmp);
+  ZL4_STOP_AFTER(2, for (int w = tid; w < nw; w += kParseThreads)
+                        L[w] = nxt[w])
+  const int cnt = n > start ? greedy_walk(M, mask, nxt, blk, buf, L, s_walk)
+                            : 0;
+  ZL4_STOP_AFTER(3, )
+
+  // --- emission, in tiles of kParseThreads list entries (one a thread);
+  // a literal run shorter than kShortRun is copied by the thread that
+  // writes its header, a longer one is listed in R for the warps
+  if (tid == 0) s_nlong = 0;
+  int carry_head = -1, carry_out = 0;  // before this tile
+  for (int t0 = 0; t0 < cnt; t0 += kParseThreads) {
+    const int i = t0 + tid;
+    int p = 0, e = 0, off = 0;
+    bool head = false, last = false;
+    if (i < cnt) {
+      p = L[i];
+      e = p + (M[p] & kMlMask);
+      off = p - F.cand(p);
+      head = true;
+      if (i > 0) {  // continues the previous selection at the same offset
+        const int pp = L[i - 1];
+        head = !(pp + (M[pp] & kMlMask) == p && pp - F.cand(pp) == off);
+      }
+      last = true;
+      if (i + 1 < cnt) {
+        const int np = L[i + 1];
+        last = !(np == e && np - F.cand(np) == off);
+      }
+    }
+    int tot_h, tot_o;
+    const int h = max(carry_head,
+                      block_scan(head ? i : -1, tmp, MaxOp{}, tot_h));
+    int lit = 0, mml = 0, ls = 0, size = 0;
+    if (last) {  // the group h..i: one sequence
+      const int ph = L[h];
+      const int prev_end =
+          h > 0 ? max(L[h - 1] + (M[L[h - 1]] & kMlMask), start) : start;
+      const int bq = max(min(min(F.pk[ph] & 3, ph - prev_end), ph - off), 0);
+      ls = prev_end;
+      lit = ph - bq - prev_end;
+      mml = e - (ph - bq);
+      size = 1 + len_bytes(lit - 15) + lit + 2 + len_bytes(mml - 19);
+    }
+    int q = carry_out + block_scan(size, tmp, SumOp{}, tot_o) - size;
+    if (last) {
+      o[q++] = (uint8_t)((min(lit, 15) << 4) | min(mml - 4, 15));
+      if (lit >= 15) put_len(o, q, lit - 15);
+      literal_run(row, ls, o, q, lit, R, &s_nlong);
+      q += lit;
+      o[q++] = (uint8_t)(off & 0xFF);
+      o[q++] = (uint8_t)(off >> 8);
+      if (mml - 4 >= 15) put_len(o, q, mml - 19);
+    }
+    carry_head = max(carry_head, tot_h);
+    carry_out += tot_o;
+  }
+
+  // --- the tail literal run (one thread), then the long literal runs by
+  // all warps and zeros past out_len
+  if (tid == 0) {
+    int q = carry_out;
+    if (n > start) {
+      const int tail =
+          cnt > 0 ? max(L[cnt - 1] + (M[L[cnt - 1]] & kMlMask), start)
+                  : start;
+      const int lit = n - tail;
+      o[q++] = (uint8_t)(min(lit, 15) << 4);
+      if (lit >= 15) put_len(o, q, lit - 15);
+      literal_run(row, tail, o, q, lit, R, &s_nlong);
+      q += lit;
+    }
+    s_walk[0] = q;
+    out_len[b] = q;
+  }
+  __syncthreads();
+  copy_runs(row, R, s_nlong, o, s_walk[0], cap);
 }
 
 }  // namespace
 
 extern "C" int zl4_enc_match(const void* data, const void* lens, void* pk,
                              int B, int blk, int hc, void* stream) {
-  if (B <= 0 || blk <= 0 || blk > 65536 || hc < 1)
+  if (B <= 0 || blk <= 0 || blk > kRadixMaxRows || hc < 1)
     return (int)cudaErrorInvalidValue;
-  const MatchShape m = match_shape(blk);
+  // the window words, the passes' histograms and the u16 order
+  const int nwords = (blk + kPad) / 4 + 1;
+  const size_t smem = ((size_t)nwords + kRadixHistWords) * 4 +
+                      (size_t)blk * 2;
   cudaError_t err = cudaFuncSetAttribute(
       enc_match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)m.smem);
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  enc_match_kernel<<<B, kMatchThreads, m.smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)data, (const int32_t*)lens, (int32_t*)pk, blk, m.N,
-      m.nwords, hc);
+  enc_match_kernel<<<B, kRadixThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)data, (const int32_t*)lens, (int32_t*)pk, blk, nwords,
+      hc);
   return (int)cudaGetLastError();
 }
 
@@ -212,20 +567,22 @@ extern "C" int zl4_enc_parse_emit(const void* data, const void* lens,
                                   void* runs, void* out, void* out_len, int B,
                                   int blk, int cap, int runcap, int capped_ml,
                                   int lazy, void* stream) {
-  // runcap: ints per window of ``runs``, 3 per literal run; a window has
-  // at most blk / 4 matches, so at most blk / 4 + 1 runs.  Windows over
+  // runcap: ints per window of ``runs``: the chosen rows, then the literal
+  // runs, 3 ints each.  A window has at most blk / 4 + 1 chosen rows (each
+  // match covers >= 4 bytes), so at most blk / 4 + 2 runs.  Windows over
   // 64 KB (enc_match_wide's) are taken up to the candidate pack's 2^19:
-  // the 20-bit length field (kMlMask) holds any ml < blk, and the match
-  // mask is blk / 32 words, 40 KB at 327,680 bytes.
-  if (B <= 0 || blk <= 0 || blk >= (1 << 19) || runcap < 3 * (blk / 4 + 1))
+  // the 20-bit length field (kMlMask) holds any ml < blk.
+  if (B <= 0 || blk <= 0 || blk >= (1 << 19) ||
+      runcap < (blk / 4 + 1) + 3 * (blk / 4 + 2))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)((blk + 31) / 32) * 4;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        enc_parse_emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  // the two masks' words: the mask, the next set bit after each word; the
+  // walk's two staged spans
+  const int nw = (blk + 31) / 32;
+  const size_t smem = (2 * (size_t)nw + 2 * kStage) * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      enc_parse_emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
   enc_parse_emit_kernel<<<B, kParseThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)data, (const int32_t*)lens, (const int32_t*)starts,
       (const int32_t*)pk, (int32_t*)mlw, (int32_t*)runs, (uint8_t*)out,

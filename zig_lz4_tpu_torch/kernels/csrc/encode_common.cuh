@@ -1,8 +1,12 @@
 // Device code shared by the encoder kernels (encode_block.cu: levels 0-9,
-// encode_deep.cu: levels 10-12): the window in shared memory, the bitonic
-// sort of positions, the probe of one sorted neighbour (cand_at of the JAX
-// reference, ops/jax_block.py:379-426), the candidate pack, the per-position
-// fields of the parse and the sequence emitter.
+// encode_deep.cu: levels 10-12, and the wide finders): the window in shared
+// memory, the bitonic sort of positions (enc_match_fast and enc_deep_match;
+// enc_match sorts by the radix passes of sort_radix.cuh), the probe of one
+// sorted neighbour (cand_at of the JAX reference, ops/jax_block.py:379-426),
+// the candidate pack, the per-position fields of the parse, and the chain
+// extension and the one-thread sequence emitter of enc_deep_dp and
+// enc_deep_emit (enc_parse_emit runs position-parallel versions of both,
+// encode_block.cu).
 
 #pragma once
 

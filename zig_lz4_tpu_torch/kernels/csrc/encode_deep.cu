@@ -43,8 +43,9 @@
 //   running maximum of the extended ends (the absorb, :838-863): a covered
 //   match is dropped, one with >= 4 bytes left moves to its trimmed start
 //   with back = 0 -- only the first P moved matches, as the reference's pool
-//   (:857) -- and every kept selection goes to the same emitter as
-//   enc_parse_emit.  The take mask and the pool live in dynamic shared
+//   (:857) -- and every kept selection goes to the one-thread emitter of
+//   encode_common.cuh (Emitter), whose bytes enc_parse_emit's parallel
+//   emission reproduces.  The take mask and the pool live in dynamic shared
 //   memory: 61,440 bytes at 327,680, past the default 48 KB.
 
 #include "encode_deep.cuh"
@@ -305,7 +306,7 @@ extern "C" int zl4_enc_deep_emit(const void* data, const void* lens,
                                  int cap, int runcap, int chcap,
                                  void* stream) {
   // chosen: int32[B, chcap] scratch, one entry per selected match (at most
-  // blk / 4); runs as in zl4_enc_parse_emit
+  // blk / 4); runs: (src, dst, len) of each literal run, 3 ints a run
   if (B <= 0 || blk <= 0 || blk >= (1 << 19) || runcap < 3 * (blk / 4 + 1) ||
       chcap < blk / 4 + 1)
     return (int)cudaErrorInvalidValue;

@@ -1,13 +1,13 @@
 // A bitonic network over rows in device memory, one thread block per row.
 //
-// Shared by the batched key+payload sort (sort_probe.cu, the counterpart of
-// the Pallas probe experiments/pallas_sort_probe.py) and the match finder of
-// windows over 64 KB (encode_wide.cu), whose rows do not fit one block's
-// shared memory: 65,536 int32 keys plus payload are 512 KB, and the position
-// order of a 327,680-byte window is 2^19 u32 rows, 2 MB.
+// Used by the match finders of windows over 64 KB (encode_wide.cu, and
+// encode_deep_wide.cu through encode_deep.cuh), whose rows do not fit one
+// block's shared memory: the position order of a 327,680-byte window is
+// 2^19 u32 rows, 2 MB.  (The batched key+payload sort of sort_probe.cu runs
+// the same network inside a thread-block cluster, sort_cluster.cuh.)
 //
 // The network is the one of bitonic_sort in encode_common.cuh and of the
-// probe: stages k = 2, 4, ..., N and, in each, j = k/2, ..., 1; the pair
+// Pallas sort probe: stages k = 2, 4, ..., N and, in each, j = k/2, ..., 1; the pair
 // (i, i + j) with bit j of i clear is ascending when bit k of i is clear (so
 // the last merge, k = N, is all ascending), and its two rows are exchanged
 // only when strictly out of order, so equal keys keep their rows and the

@@ -13,9 +13,11 @@ and, for the deep levels, ``kernels/csrc/encode_deep.cu``):
 
 * ``enc_match`` (``hc >= 1``) -- window build, the 12-byte grouping
   sort, the +-1..+-hc sorted-neighbour probes, the positional fallback
-  sort and its +1/+2 probes.
+  sort and its +1/+2 probes.  Both sorts are stable byte-digit radix
+  passes (``kernels/csrc/sort_radix.cuh``), 12 and 4 of them.
 * ``enc_match_fast`` (``hc == 0``) -- window build, one grouping sort
-  by the 4-byte string, probes +1..+probes over ``W`` carried windows.
+  by the 4-byte string (a bitonic network), probes +1..+probes over
+  ``W`` carried windows.
   Both write one packed candidate word per position,
   ``((cand + 1) << 12) | (fine ml << 6) | back`` (0 = no candidate),
   the same pack the reference unsorts (``jax_block.py:459-466``).
@@ -28,8 +30,9 @@ and, for the deep levels, ``kernels/csrc/encode_deep.cu``):
   The window words and a u32 order live in device scratch, sorted by a
   bitonic network that runs its short strides in shared-memory tiles.
 * ``enc_parse_emit`` -- same-offset chain extension, the ``n - 5``
-  clamp, two-step lazy deferral (HC only), the greedy parse and the
-  emission of the LZ4 sequences.
+  clamp, two-step lazy deferral (HC only), the greedy parse (one thread,
+  reading lengths staged in shared memory) and the emission of the LZ4
+  sequences, placed by block scans over the chosen rows.
 * ``enc_deep_match`` (``deep`` 1..3) -- the finder of the deep levels:
   exact 32-byte ranks (and 256-byte ranks at ``deep=3``), the grand
   grouping sort by the deepest tier operands, +-1..+-hc probes with
@@ -838,11 +841,12 @@ def parse_emit(blocks: torch.Tensor, lens: torch.Tensor,
     out = torch.empty((B, cap), dtype=torch.uint8, device=dev)
     out_len = torch.empty(B, dtype=torch.int32, device=dev)
     # per position: final ml with the is_match bit; per window: the
-    # literal runs (src, dst, len) the parse records for the copy
+    # chosen rows, then the literal runs (src, dst, len) of the emission
+    # (a window has at most blk // 4 + 1 chosen rows, so at most
+    # blk // 4 + 2 runs)
     mlw = torch.empty((B, blk), dtype=torch.int32, device=dev)
-    # (a window has at most blk // 4 matches, so blk // 4 + 1 runs)
-    runs = torch.empty((B, 3 * (blk // 4 + 2)), dtype=torch.int32,
-                       device=dev)
+    runs = torch.empty((B, (blk // 4 + 1) + 3 * (blk // 4 + 2)),
+                       dtype=torch.int32, device=dev)
     if B:
         launch("enc_parse_emit", blocks, lens, starts, pk, mlw, runs,
                out, out_len, B, blk, cap, runs.shape[1], 4 + 4 * W,
