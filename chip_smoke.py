@@ -15,8 +15,8 @@ blocks, most of them through ``ShardedFrameCodec``:
   non-empty window for both the window and the new history), and
   dictionary frames of both kinds;
 * windows over 64 KB (``enc_match_wide`` with ``enc_parse_emit``): the
-  two kernels against their plain versions on wide edge windows and
-  corpus sub-span windows, the JAX payloads of
+  two kernels against their plain versions on wide edge windows, corpus
+  sub-span windows and windows dense in ties, the JAX payloads of
   ``tests/fixtures/wide_corpus.npz``, then ``compress_frame`` and both
   decoders of 16 MB with a 70,000-byte dictionary at levels 9 and 0
   (131,072-byte windows), of 16 MB in 256 KB blocks at level 9, of the
@@ -24,8 +24,8 @@ blocks, most of them through ``ShardedFrameCodec``:
   at level 9 (327,680-byte sub-span windows);
 * levels 10-12 in windows over 64 KB (``enc_deep_match_wide`` with
   ``enc_deep_dp`` and ``enc_deep_emit``): the three kernels against their
-  plain versions at deep 1, 2 and 3 on wide edge windows and corpus
-  sub-span windows, the JAX payloads of
+  plain versions at deep 1, 2 and 3 on wide edge windows, corpus
+  sub-span windows and windows dense in ties, the JAX payloads of
   ``tests/fixtures/wide_deep_corpus.npz``, then ``compress_frame`` and
   both decoders of the corpus in 1 MB blocks at level 12, of 16 MB with
   the 70,000-byte dictionary at level 10 and of 16 MB in 4 MB blocks at
@@ -71,7 +71,15 @@ smoke builds ``encode_block.cu`` four more times with ``-DZL4_STOP=k``,
 which stops each kernel after its k-th phase, and times every cut on
 the same inputs; ``enc_match``'s 12-byte order is held against a
 batched stable ``torch.sort`` of its three words, which is timed beside
-it as a yardstick for that sort alone.
+it as a yardstick for that sort alone.  The two wide finders, which sort
+by radix passes across a thread-block cluster a window, get the same
+at the 1 MB paths' launch (192 windows of 327,680 bytes): cuts of
+``encode_wide.cu`` (level 9) and ``encode_deep_wide.cu`` (level 12)
+timed phase by phase, their first orders held against ``torch.sort``
+of their three or eight words, their launch shape and
+``cudaOccupancyMaxActiveClusters``, ptxas's registers and spills, and
+each finder timed at every one of its launches on the nine wide paths
+(launches x ms).
 
 It checks the round trips and the ratios, shows by launch counts that
 each path went through its kernels (the wide paths through
@@ -90,9 +98,10 @@ Run from the repository root, with one CUDA device:
 
     python3 chip_smoke.py
 
-To compare the 64 KB path's encoder kernels of two checkouts in one
-call, run ``python3 /path/to/chip_smoke.py --time-encoder-kernels`` from
-each checkout's root in turns (``time_encoder_kernels`` below).
+To compare the encoder kernels of two checkouts in one call (at the
+64 KB and the 1 MB paths' shapes), run ``python3 /path/to/chip_smoke.py
+--time-encoder-kernels`` from each checkout's root in turns
+(``time_encoder_kernels`` below).
 
 Exits non-zero on any failed check.  Imports no JAX.  The last two
 lines of stdout are the card's name and power limit as nvidia-smi
@@ -129,8 +138,9 @@ PLAIN_STRIDE = 12
 #: host runtime (every 12th: parsing and checksums run in Python there),
 #: and blocks of the level-12 frame that meet the plain sequence decoder
 CHILD_FLAG = "--decode-without-native"
-#: the mode that times the 64 KB path's encoder kernels alone, with the
-#: package of the current directory (time_encoder_kernels)
+#: the mode that times the encoder kernels alone at the 64 KB and 1 MB
+#: paths' shapes, with the package of the current directory
+#: (time_encoder_kernels)
 ENCODER_FLAG = "--time-encoder-kernels"
 DEEP_KERNELS = ("enc_deep_match", "enc_deep_dp", "enc_deep_emit")
 SEQ_PLAIN_BLOCKS = 32
@@ -179,6 +189,26 @@ WIDE_DEEP_PLAIN_STRIDE = 48
 WIDE_KERNELS = ("enc_match_wide", "enc_parse_emit", "tmap_gather")
 WIDE_DEEP_KERNELS = ("enc_deep_match_wide", "enc_deep_dp", "enc_deep_emit",
                      "tmap_gather")
+#: the phase cuts (-DZL4_STOP=1..k) built beside the library, by source:
+#: enc_match and enc_parse_emit (encode_block.cu), and the two wide finders
+PHASE_CUTS = {"encode_block.cu": 4, "encode_wide.cu": 4,
+              "encode_deep_wide.cu": 8}
+#: phases of the two wide finders, one a cut and the last the rest
+WIDE_PHASES = ("window words", "12-byte sort", "probes +-9", "s0 sort",
+               "fallback probes")
+WIDE_DEEP_PHASES = ("window words", "32-byte sort", "32-byte rank numbering",
+                    "256-byte rank sort", "256-byte rank numbering",
+                    "grand sort", "tier probes", "s0 sort",
+                    "fallback probes")
+#: kernels whose registers and spills the build log gives
+PTXAS_KERNELS = ("enc_match_kernel", "enc_parse_emit_kernel",
+                 "enc_match_wide_kernel<20>", "enc_match_wide_kernel<32>",
+                 "enc_deep_match_wide_kernel<20>",
+                 "enc_deep_match_wide_kernel<32>")
+#: n / frame bytes of the 1 MB-block paths (the reference's frames, whose
+#: SHA-256 the wide goldens hold, give the same)
+EXPECT_RATIO_WIDE = {"1 MB blocks, level 9": 3.253950,
+                     "1 MB blocks, level 12": 3.444090}
 #: rows of the bitonic probe (P2), 65,536 int32 keys each
 SORT_BATCHES = (1, 64)
 #: published peaks of one H100 SXM: device memory bytes/s, and 32-bit
@@ -294,33 +324,48 @@ def host_us(fn, calls=1000):
 
 
 def start_phase_builds(kernels):
-    """Start one nvcc a phase cut of encode_block.cu (-DZL4_STOP=k, k =
-    1..4), each into a library of its own under the kernels' build
-    directory, all at once; returns [(k, library path, process)]."""
-    src = os.path.join(os.path.dirname(kernels.__file__), "csrc",
-                       "encode_block.cu")
+    """Start one nvcc a phase cut (-DZL4_STOP=k) of each timed source --
+    ``encode_block.cu`` (k = 1..4), ``encode_wide.cu`` (1..4) and
+    ``encode_deep_wide.cu`` (1..8) -- each into a library of its own under
+    the kernels' build directory, all at once; returns [(source, k,
+    library path, process)]."""
+    csrc = os.path.join(os.path.dirname(kernels.__file__), "csrc")
     out = os.path.join(os.path.dirname(os.path.dirname(kernels.__file__)),
                        "_build")
     os.makedirs(out, exist_ok=True)
     jobs = []
-    for k in range(1, 5):
-        so = os.path.join(out, f"encode_block_stop{k}.so")
-        cmd = [kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared",
-               f"-DZL4_STOP={k}", "-o", so, src]
-        jobs.append((k, so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+    for src, cuts in PHASE_CUTS.items():
+        for k in range(1, cuts + 1):
+            so = os.path.join(out, f"{src[:-3]}_stop{k}.so")
+            cmd = [kernels._nvcc(), "-gencode",
+                   "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                   "-Xcompiler", "-fPIC", "-shared", f"-DZL4_STOP={k}",
+                   "-o", so, os.path.join(csrc, src)]
+            jobs.append((src, k, so, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
     return jobs
 
 
-def phase_split(jobs, w, l, s, pk, hc, capped_ml):
+def finish_phase_builds(jobs):
+    """Wait for the phase cuts' builds: {source: {k: loaded library}}."""
+    import ctypes
+    libs = {}
+    for src, k, so, proc in jobs:
+        log = proc.communicate()[0]
+        check(proc.returncode == 0,
+              f"nvcc -DZL4_STOP={k} {src} failed:\n{log}")
+        libs.setdefault(src, {})[k] = ctypes.CDLL(so)
+    return libs
+
+
+def phase_split(libs, w, l, s, pk, hc, capped_ml):
     """Milliseconds of each phase cut of ``enc_match`` (at ``hc``) and of
     ``enc_parse_emit`` (on ``pk``, HC parse) at the windows ``w``, from
-    the libraries of ``start_phase_builds``, called through ctypes (not
-    counted as launches), and what the ZL4_STOP=2 cut of ``enc_match``
-    leaves: each window's order after its 12-byte sort.  Returns ({k:
-    match ms}, {k: emit ms}, order)."""
+    the cuts of ``encode_block.cu``, called through ctypes (not counted
+    as launches), and what the ZL4_STOP=2 cut of ``enc_match`` leaves:
+    each window's order after its 12-byte sort.  Returns ({k: match ms},
+    {k: emit ms}, order)."""
     import ctypes
 
     import torch
@@ -336,10 +381,7 @@ def phase_split(jobs, w, l, s, pk, hc, capped_ml):
     out = torch.empty((B, cap), dtype=torch.uint8, device=w.device)
     olen = torch.empty(B, dtype=torch.int32, device=w.device)
     m_ms, e_ms, order = {}, {}, None
-    for k, so, proc in jobs:
-        log = proc.communicate()[0]
-        check(proc.returncode == 0, f"nvcc -DZL4_STOP={k} failed:\n{log}")
-        lib = ctypes.CDLL(so)
+    for k, lib in libs["encode_block.cu"].items():
         fm, fe = lib.zl4_enc_match, lib.zl4_enc_parse_emit
         fm.argtypes, fm.restype = [P] * 3 + [I] * 3 + [P], I
         fe.argtypes, fe.restype = [P] * 8 + [I] * 6 + [P], I
@@ -363,20 +405,69 @@ def phase_split(jobs, w, l, s, pk, hc, capped_ml):
     return m_ms, e_ms, order
 
 
-def less12_torch_sort(torch, w, l):
-    """The batched stable torch.sort of the three words of the 12-byte
-    order, least significant first (_stable_order of the plain version,
-    over every window at once): the windows' position orders, and a
-    function that sorts again from the same keys (for timing the sorts
-    alone)."""
+def wide_phase_split(libs, w, l, hc, deep=0):
+    """Milliseconds of each phase cut of ``enc_match_wide`` (``deep`` 0)
+    or ``enc_deep_match_wide`` at the windows ``w`` (the cuts of
+    ``encode_wide.cu`` or ``encode_deep_wide.cu``, through ctypes, not
+    counted), and what the ZL4_STOP=2 cut leaves: each window's order
+    after its first sort (the 12-byte order at hc >= 1, the 32-byte order
+    of the deep finder).  Returns ({k: ms}, order)."""
+    import ctypes
+
+    import torch
+    from zig_lz4_tpu_torch.ops import torch_block as tb
+    B, blk = w.shape
+    C, J = tb.wide_cluster_shape(blk)
+    nwords = (blk + 64) // 4 + 1
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    words = torch.empty((B, nwords), dtype=torch.int32, device=w.device)
+    ranks = torch.empty((B, 2 if deep == 3 else 1, blk), dtype=torch.int32,
+                        device=w.device)
+    cut = torch.empty((B, blk), dtype=torch.int32, device=w.device)
+    ms, order = {}, None
+    src = "encode_deep_wide.cu" if deep else "encode_wide.cu"
+    for k, lib in libs[src].items():
+        if deep:
+            f = lib.zl4_enc_deep_match_wide
+            f.argtypes = [P] * 5 + [I] * 7 + [P]
+            args = (w.data_ptr(), l.data_ptr(), words.data_ptr(),
+                    ranks.data_ptr(), cut.data_ptr(), B, blk, nwords, C, J,
+                    hc, deep, stream)
+        else:
+            f = lib.zl4_enc_match_wide
+            f.argtypes = [P] * 4 + [I] * 8 + [P]
+            args = (w.data_ptr(), l.data_ptr(), words.data_ptr(),
+                    cut.data_ptr(), B, blk, nwords, C, J, hc, 8,
+                    tb.fast_params(1)[1], stream)
+        f.restype = I
+
+        def run():
+            check(f(*args) == 0, f"{src} cut {k} did not launch")
+        run()
+        ms[k] = cuda_ms(run, 2)[0]
+        if k == 2:
+            order = cut.clone()
+    return ms, order
+
+
+def torch_sort_words(torch, w, l, nw=3):
+    """The batched stable torch.sort of the nw words (s0, at(p+4), ...,
+    at(p+4(nw-1))) of every window, least significant first
+    (_stable_order of the plain version over every window at once): the
+    12-byte order at nw = 3, the 32-byte order at nw = 8.  Returns the
+    windows' position orders, and a function that sorts again from the
+    same keys (for timing the sorts alone)."""
     B, blk = w.shape
     idx = torch.arange(blk, device=w.device)
     b = torch.where(idx < l[:, None], w.long(), 0)
-    bp = torch.nn.functional.pad(b, (0, 16))
-    su = (bp[:, :blk + 8] | (bp[:, 1:blk + 9] << 8)
-          | (bp[:, 2:blk + 10] << 16) | (bp[:, 3:blk + 11] << 24))
+    bp = torch.nn.functional.pad(b, (0, 4 * nw + 4))
+    ext = blk + 4 * (nw - 1)
+    su = (bp[:, :ext] | (bp[:, 1:ext + 1] << 8)
+          | (bp[:, 2:ext + 2] << 16) | (bp[:, 3:ext + 3] << 24))
+    del b, bp
     s0 = torch.where(idx > l[:, None] - 4, 0xFFFFFFFF, su[:, :blk])
-    keys = (s0, su[:, 4:4 + blk], su[:, 8:8 + blk])
+    keys = (s0,) + tuple(su[:, 4 * k:4 * k + blk] for k in range(1, nw))
 
     def sort():
         order = idx.expand(B, blk)
@@ -389,12 +480,16 @@ def less12_torch_sort(torch, w, l):
 
 def ptxas_lines(log, names):
     """name -> ptxas's "registers" and "spill" lines for the entry
-    function whose mangled name holds ``name``, from an nvcc build log
-    written with -Xptxas -v."""
+    function whose mangled name holds ``name`` (a kernel's name, or a
+    template's name and arguments as ``enc_match_wide_kernel<20>``), from
+    an nvcc build log written with -Xptxas -v."""
+    def mangled(k):
+        base, _, arg = k.partition("<")
+        return f"{len(base)}{base}" + (f"ILi{arg[:-1]}E" if arg else "")
     found, fn = {}, None
     for ln in open(log):
         if "Compiling entry function" in ln:
-            fn = next((k for k in names if f"{len(k)}{k}" in ln), None)
+            fn = next((k for k in names if mangled(k) in ln), None)
         elif fn and ("registers" in ln or "spill" in ln):
             found.setdefault(fn, []).append(
                 ln.split("info    : ")[-1].strip())
@@ -583,14 +678,38 @@ def decode_without_native():
     return 0
 
 
+def subspan_windows(np, data, block=1 << 20):
+    """The windows a frame of ``block``-byte blocks encodes: each block's
+    256 KB sub-spans behind the 64 KB before them (none for the first),
+    as ``ShardedFrameCodec._encode_span`` builds them without a
+    dictionary.  Returns (windows, lens, starts) of SUB_WINDOW bytes."""
+    sub, hist = SUB_WINDOW - BLK, BLK
+    rows = []
+    for b0 in range(0, len(data), block):
+        raw = data[b0:b0 + block]
+        for s0 in range(0, len(raw), sub):
+            rows.append((raw[max(s0 - hist, 0):s0], raw[s0:s0 + sub]))
+    windows = np.zeros((len(rows), SUB_WINDOW), np.uint8)
+    lens = np.zeros(len(rows), np.int32)
+    starts = np.zeros(len(rows), np.int32)
+    for k, (h, span) in enumerate(rows):
+        windows[k, :len(h) + len(span)] = np.frombuffer(h + span, np.uint8)
+        lens[k], starts[k] = len(h) + len(span), len(h)
+    return windows, lens, starts
+
+
 def time_encoder_kernels():
     """``python3 /path/to/chip_smoke.py --time-encoder-kernels``: times
-    ``enc_match`` (hc 9 and 4) and ``enc_parse_emit`` (levels 9 and 0) at
-    the main path's shapes, 768 x 64 KB windows of the bench corpus,
-    with the package of the current directory first on the module path,
-    as time_main_path.py does, so that two checkouts (one unpacked from
-    the parent commit with ``git archive``) can be compared in turns in
-    one call.  It uses only what every version of the port has:
+    the encoder's finders and ``enc_parse_emit`` with the package of the
+    current directory first on the module path, as time_main_path.py
+    does, so that two checkouts (one unpacked from the parent commit with
+    ``git archive``) can be compared in turns in one call: at the main
+    path's shapes, 768 x 64 KB windows of the bench corpus, ``enc_match``
+    (hc 9 and 4), ``enc_match_fast`` (hc 0), ``enc_deep_match`` (level
+    12) and ``enc_parse_emit`` (levels 9 and 0); at the 1 MB paths'
+    shapes, the corpus's 192 sub-span windows of 327,680 bytes,
+    ``enc_match_wide`` (hc 9 and 0) and ``enc_deep_match_wide`` (level
+    12).  It uses only what every version of the port has:
     ``torch_block.match_candidates``, ``parse_emit`` and
     ``corpus.make_corpus``.  Each time is the median of 5 calls between
     CUDA events, after one warm-up call; it prints one line."""
@@ -600,6 +719,8 @@ def time_encoder_kernels():
         print("[device] FAIL: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
+    import numpy as np
+
     from zig_lz4_tpu_torch.corpus import make_corpus
     from zig_lz4_tpu_torch.ops import torch_block as tb
     smi = nvidia_smi()
@@ -609,12 +730,22 @@ def time_encoder_kernels():
         .view(nb, BLK).cuda()
     n = torch.full((nb,), BLK, dtype=torch.int32, device=w.device)
     st = torch.zeros_like(n)
+    ww, nw, _sw = (torch.from_numpy(a).cuda()
+                   for a in subspan_windows(np, data[:nb * BLK]))
     pk9, pk0 = tb.match_candidates(w, n, 9), tb.match_candidates(w, n, 0)
     calls = {"enc_match hc=9": lambda: tb.match_candidates(w, n, 9),
              "enc_match hc=4": lambda: tb.match_candidates(w, n, 4),
+             "enc_match_fast hc=0": lambda: tb.match_candidates(w, n, 0),
+             "enc_deep_match level 12":
+             lambda: tb.match_candidates(w, n, 8, 1, 3),
              "enc_parse_emit level 9": lambda: tb.parse_emit(w, n, st, pk9),
              "enc_parse_emit level 0": lambda: tb.parse_emit(w, n, st, pk0,
-                                                             0)}
+                                                             0),
+             f"enc_match_wide hc=9 at {ww.shape[0]} x {SUB_WINDOW}":
+             lambda: tb.match_candidates(ww, nw, 9),
+             "enc_match_wide hc=0": lambda: tb.match_candidates(ww, nw, 0),
+             "enc_deep_match_wide level 12":
+             lambda: tb.match_candidates(ww, nw, 8, 1, 3)}
     ms = {}
     for k, fn in calls.items():
         fn()
@@ -667,16 +798,24 @@ def main():
     t_build = build()
     log = os.path.join(os.path.dirname(tb.__file__), "..", "_build",
                        "build.log")
-    regs = []
+    regs, ptxas = [], {}
     if os.path.exists(log):
         regs = [ln.split("info    : ")[-1].strip() for ln in open(log)
                 if "registers" in ln]
     print(f"[build] host runtime {t_native:.2f} s, kernels {t_build:.2f} s "
           f"(0 = up to date); ptxas: " + " | ".join(regs))
     if os.path.exists(log):
-        for k, v in ptxas_lines(log, ("enc_match_kernel",
-                                      "enc_parse_emit_kernel")).items():
+        for k, v in ptxas_lines(log, PTXAS_KERNELS).items():
             print(f"[build] ptxas {k}: " + "; ".join(v))
+            ptxas[k] = v
+    wide_shapes = {f"{blk_} x {'deep' if deep_ else 'levels 0-9'}":
+                   tb.wide_launch_shape(blk_, deep_)
+                   for blk_ in (2 * BLK, SUB_WINDOW) for deep_ in (0, 3)}
+    print("[build] the wide finders' launch shape by window bytes (CTAs a "
+          "cluster, threads, rows a thread, shared bytes a CTA, clusters "
+          f"the card holds at once): {wide_shapes}")
+    check(all(v["active_clusters"] > 0 for v in wide_shapes.values()),
+          "a wide finder's cluster cannot be scheduled")
 
     def lz4f_block_decode(comp, history, size):
         """One block by the host oracle, behind ``history``."""
@@ -1024,7 +1163,31 @@ def main():
                   f"{olen_h.tolist()}; every payload decodes")
             check(err_m == 0 and err_p == 0,
                   f"wide kernels differ from plain at {width}, hc={hc}")
-    del w_e, pk_e, pk_ep, out_e, out_ep
+    # the tie-dense windows at both widths, every finder configuration:
+    # one length in two leaves tail rows (s0's override) and zero bytes
+    for blk_t in (2 * BLK, SUB_WINDOW):
+        w_t = torch.from_numpy(np.stack([
+            np.frombuffer(r, np.uint8) for r in tie_dense(np, blk_t)])).to(dev)
+        l_t = torch.full((w_t.shape[0],), blk_t, dtype=torch.int32,
+                         device=dev)
+        l_t[1::2] -= 5
+        errs_t = {}
+        for hc, deep in ((9, 0), (3, 0), (0, 0), (8, 1), (8, 2), (8, 3)):
+            err_t = max_abs_err(
+                tb.match_candidates(w_t, l_t, hc, 1, deep),
+                tb.match_candidates_plain(w_t, l_t, hc, 1, deep))
+            kern = "enc_deep_match_wide" if deep else "enc_match_wide"
+            errs_t[f"{kern} hc={hc} deep={deep}"] = err_t
+            if deep:
+                deep_err[kern] = max(deep_err[kern], err_t)
+            else:
+                wide_err[kern] = max(wide_err[kern], err_t)
+        print(f"[wide] {w_t.shape[0]} tie-dense windows of {blk_t} bytes: "
+              f"finders vs plain max_abs_err {errs_t}")
+        check(not any(errs_t.values()),
+              f"a wide finder differs from plain on tie-dense windows of "
+              f"{blk_t} bytes")
+    del w_e, pk_e, pk_ep, out_e, out_ep, w_t
     wg = np.load(WIDE_GOLDENS)
     corpus_g = make_corpus(int(wg["corpus_mb"]))
     wide_gold_ok, wide_gold_in = {}, {}
@@ -1162,9 +1325,9 @@ def main():
               "1 MB blocks, level 12", "1 MB blocks, level 9",
               "dictionary, level 10", "dictionary, level 9",
               "4 MB blocks, level 11", "4 MB blocks, level 9")))
-    check(wide_ratio["1 MB blocks, level 12"]
-          > wide_ratio["1 MB blocks, level 9"],
-          "level 12 does not beat level 9 on the 1 MB path")
+    for what, want in EXPECT_RATIO_WIDE.items():
+        check(round(wide_ratio[what], 6) == want,
+              f"{what}: n / frame bytes {wide_ratio[what]:.6f}, not {want}")
 
     # --- phase 6: the deep levels at full width, counted, then timed
     deep_frames, deep_ratio = {}, {}
@@ -1747,7 +1910,8 @@ def main():
         lambda: tb.parse_emit(w_all, l_all, s_all, pk_fast, 0), 2)
     # the two redesigned kernels phase by phase, on the same inputs: each
     # ZL4_STOP cut of encode_block.cu against the whole kernel
-    cut_m, cut_e, cut_order = phase_split(phase_jobs, w_all, l_all, s_all,
+    phase_libs = finish_phase_builds(phase_jobs)
+    cut_m, cut_e, cut_order = phase_split(phase_libs, w_all, l_all, s_all,
                                           pk_all, 9, 4 + 4 * 8)
     match_phases = dict(zip(
         ("window load", "12-byte sort", "probes +-9", "s0 sort",
@@ -1758,7 +1922,7 @@ def main():
         ("chain", "lazy mask", "walk", "emission"),
         [cut_e[1], cut_e[2] - cut_e[1], cut_e[3] - cut_e[2],
          k_emit - cut_e[3]]))
-    order_ts, sort_again = less12_torch_sort(torch, w_all, l_all)
+    order_ts, sort_again = torch_sort_words(torch, w_all, l_all)
     k_tsort, _o = cuda_ms(sort_again, 2)
     same_order = torch.equal(order_ts.int(), cut_order)
     del order_ts, sort_again, _o, cut_order
@@ -1866,8 +2030,30 @@ def main():
           + f"; plain versions at {int(sel.numel())} x 64 KB, level 12: "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in deep_plain_ms[12].items()))
 
+    # every wide finder launch of the nine wide paths, timed alone on the
+    # inputs the path gave it: ms at each launch, and launches x ms
+    wide_launch_ms = {"enc_match_wide": [], "enc_deep_match_wide": []}
+    for what, calls in wide_rec.items():
+        for (w_r, l_r, _s_r), kw in calls:
+            hc_r, deep_r = kw["hc"], kw.get("deep", 0)
+            tb.match_candidates(w_r, l_r, hc_r, 1, deep_r)
+            t_r, _pk = cuda_ms(
+                lambda: tb.match_candidates(w_r, l_r, hc_r, 1, deep_r), 2)
+            wide_launch_ms["enc_deep_match_wide" if deep_r
+                           else "enc_match_wide"].append(dict(
+                               path=what, windows=w_r.shape[0],
+                               window_bytes=w_r.shape[1], ms=t_r))
+    del _pk
+    for kern, rows_ in wide_launch_ms.items():
+        print(f"[time] {smi}: {kern} at each of its {len(rows_)} launches "
+              "on the wide paths: " + "; ".join(
+                  f"{r['path']} ({r['windows']} x {r['window_bytes']}) "
+                  f"{r['ms']:.2f} ms" for r in rows_)
+              + f"; launches x ms {sum(r['ms'] for r in rows_):.2f} ms")
+
     # the wide kernels at the launches of the 1 MB paths (192 sub-span
-    # windows), against their plain versions on every 12th window
+    # windows), against their plain versions on every 12th window; at
+    # level 9 phase by phase, and the 12-byte sort against torch.sort
     wide_ms = {}
     for level in (9, 0):
         (w_1m, l_1m, s_1m), kw_1m = wide_rec[f"1 MB blocks, level {level}"][0]
@@ -1899,6 +2085,26 @@ def main():
         wide_ms[level] = dict(match=k_wm, emit=k_we, plain_match=p_wm,
                               plain_emit=p_we, bound=b_wm, B=B_w,
                               plain_windows=int(sel_w.numel()))
+        if hc:
+            cut_w, order_w = wide_phase_split(phase_libs, w_1m, l_1m, hc)
+            wide_ms[level]["phases"] = dict(zip(WIDE_PHASES, [
+                cut_w[1], cut_w[2] - cut_w[1], cut_w[3] - cut_w[2],
+                cut_w[4] - cut_w[3], k_wm - cut_w[4]]))
+            order_ts, sort_again = torch_sort_words(torch, w_1m, l_1m)
+            wide_ms[level]["torch_sort"] = cuda_ms(sort_again, 2)[0]
+            same_w = torch.equal(order_ts.int(), order_w)
+            del order_ts, sort_again, order_w
+            print(f"[time] {smi}: enc_match_wide (hc={hc}) at {B_w} x "
+                  f"{blk_w} by phase (cuts of encode_wide.cu, -DZL4_STOP="
+                  "1..4): " + ", ".join(
+                      f"{k} {v:.3f} ms"
+                      for k, v in wide_ms[level]["phases"].items())
+                  + f"; cuts {cut_w}; whole {k_wm:.3f} ms; yardstick for "
+                  "the 12-byte sort alone: the batched stable torch.sort of "
+                  f"its three words {wide_ms[level]['torch_sort']:.3f} ms; "
+                  f"orders equal: {same_w}")
+            check(same_w, "enc_match_wide's 12-byte order differs from "
+                  "torch.sort's")
         print(f"[time] {smi}: 1 MB blocks, level {level}: {B_w} x {blk_w} "
               f"windows: enc_match_wide {k_wm:.2f} ms (plain at "
               f"{sel_w.numel()} windows {p_wm:.1f} ms; bound "
@@ -1938,6 +2144,21 @@ def main():
         f"every {WIDE_DEEP_PLAIN_STRIDE}th window of the 1 MB level-12 path",
         w_1m[sel_w], l_1m[sel_w], s_1m[sel_w], 8, 3)
     B_w, blk_w = w_1m.shape
+    cut_d, order_d = wide_phase_split(phase_libs, w_1m, l_1m, 8, 3)
+    wide_deep_phases = dict(zip(WIDE_DEEP_PHASES, [cut_d[1]] + [
+        cut_d[k] - cut_d[k - 1] for k in range(2, 9)] + [k_wdm - cut_d[8]]))
+    order_ts, sort_again = torch_sort_words(torch, w_1m, l_1m, 8)
+    k_tsort32 = cuda_ms(sort_again, 2)[0]
+    same_d = torch.equal(order_ts.int(), order_d)
+    del order_ts, sort_again, order_d
+    print(f"[time] {smi}: enc_deep_match_wide (level 12) at {B_w} x {blk_w} "
+          "by phase (cuts of encode_deep_wide.cu, -DZL4_STOP=1..8): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in wide_deep_phases.items())
+          + f"; cuts {cut_d}; whole {k_wdm:.3f} ms; yardstick for the "
+          "32-byte sort alone: the batched stable torch.sort of its eight "
+          f"words {k_tsort32:.3f} ms; orders equal: {same_d}")
+    check(same_d, "enc_deep_match_wide's 32-byte order differs from "
+          "torch.sort's")
     b_wide_deep = {
         "enc_deep_match_wide": bound(B_w * blk_w + 4 * B_w
                                      + 4 * B_w * blk_w,
@@ -1961,7 +2182,16 @@ def main():
         plain_ms=wide_deep_plain_ms["enc_deep_match_wide"],
         plain_windows=int(sel_w.numel()), windows=B_w, window_bytes=blk_w,
         bound_ms=b_wide_deep["enc_deep_match_wide"][0],
-        bound_by=b_wide_deep["enc_deep_match_wide"][1], library_ms=None)
+        bound_by=b_wide_deep["enc_deep_match_wide"][1],
+        library_ms=k_tsort32,
+        library_call="batched stable torch.sort of the 32-byte order's "
+        "eight words (the first sort alone)",
+        phase_ms=wide_deep_phases,
+        launch_ms=wide_launch_ms["enc_deep_match_wide"],
+        launches_x_ms=sum(r["ms"]
+                          for r in wide_launch_ms["enc_deep_match_wide"]),
+        launch_shape={k: v for k, v in wide_shapes.items() if "deep" in k},
+        ptxas={k: v for k, v in ptxas.items() if "deep_match_wide" in k})
     for k in ("enc_deep_dp", "enc_deep_emit"):
         results[k].update(
             wide_ms=k_wide_deep[k], wide_plain_ms=wide_deep_plain_ms[k],
@@ -1973,7 +2203,15 @@ def main():
         ms_level0=wide_ms[0]["match"], plain_ms=wide_ms[9]["plain_match"],
         plain_windows=wide_ms[9]["plain_windows"], windows=wide_ms[9]["B"],
         window_bytes=SUB_WINDOW, bound_ms=wide_ms[9]["bound"][0],
-        bound_by=wide_ms[9]["bound"][1], library_ms=None)
+        bound_by=wide_ms[9]["bound"][1], library_ms=wide_ms[9]["torch_sort"],
+        library_call="batched stable torch.sort of the 12-byte order's "
+        "three words (the first sort alone)",
+        phase_ms=wide_ms[9]["phases"],
+        launch_ms=wide_launch_ms["enc_match_wide"],
+        launches_x_ms=sum(r["ms"] for r in wide_launch_ms["enc_match_wide"]),
+        launch_shape={k: v for k, v in wide_shapes.items()
+                      if "deep" not in k},
+        ptxas={k: v for k, v in ptxas.items() if "enc_match_wide" in k})
     results["enc_parse_emit"].update(
         max_abs_err=max(results["enc_parse_emit"]["max_abs_err"],
                         wide_err["enc_parse_emit"]),
@@ -2128,6 +2366,21 @@ def main():
                                    "bound_ms", "bound_by", "library_ms")
                    if key not in entry]
         check(not missing, f"{entry['name']} lacks {missing}")
+    # the next redesign's ranking: each kernel's launches on the counted
+    # paths times (ms - bound_ms); the wide finders' ms summed over their
+    # launches, each timed on its own inputs, the others' ms at the shape
+    # each is timed at above
+    ranking = {}
+    for entry in kernels:
+        if "launches_x_ms" in entry:
+            x = entry["launches_x_ms"] - entry["launches"] * entry["bound_ms"]
+        else:
+            x = entry["launches"] * (entry["ms"] - entry["bound_ms"])
+        ranking[entry["name"]] = x
+    print("[rank] launches x (ms - bound_ms) over the counted paths (the "
+          "wide finders timed at each launch, the others at one shape): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+              ranking.items(), key=lambda kv: -kv[1])))
     print(f"[total] {time.perf_counter() - t_run:.1f} s, the kernels' build "
           "included")
     print(json.dumps({"kernels": kernels}))

@@ -50,7 +50,7 @@ KERNELS = {
                        [_P, _P, _P, _I, _I, _I, _I],
                        "ops/jax_block.py:348"),
     "enc_match_wide": ("zl4_enc_match_wide", "encode_wide.cu",
-                       [_P] * 5 + [_I] * 7,
+                       [_P] * 4 + [_I] * 8,
                        "ops/jax_block.py:249"),
     "enc_parse_emit": ("zl4_enc_parse_emit", "encode_block.cu",
                        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -60,7 +60,7 @@ KERNELS = {
                        [_P, _P, _P, _P, _I, _I, _I, _I],
                        "ops/jax_block.py:274"),
     "enc_deep_match_wide": ("zl4_enc_deep_match_wide", "encode_deep_wide.cu",
-                            [_P] * 6 + [_I] * 6,
+                            [_P] * 5 + [_I] * 7,
                             "ops/jax_block.py:274"),
     "enc_deep_dp": ("zl4_enc_deep_dp", "encode_deep.cu",
                     [_P, _P, _P, _P, _I, _I, _I, _I],

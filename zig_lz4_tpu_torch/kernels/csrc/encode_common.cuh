@@ -151,10 +151,11 @@ __device__ void sort_by_s0(const Window& W, uint16_t* s, int N, int blk) {
 }
 
 // Probes +1..+probes of sorted row t; a later probe wins only when
-// strictly longer (jax_block.py:445, :500).
-template <class Idx>
-__device__ __forceinline__ Cand nearest(const Window& W, const Idx* s, int t,
-                                        int probes, int nwin) {
+// strictly longer (jax_block.py:445, :500).  ``s`` is the sorted order:
+// a pointer, or an accessor with operator[] (the wide finders').
+template <class Order>
+__device__ __forceinline__ Cand nearest(const Window& W, const Order& s,
+                                        int t, int probes, int nwin) {
   Cand best{-1, 0, 0};
   const int p = s[t];
   for (int k = 1; k <= probes && k <= t; ++k) {
@@ -166,8 +167,8 @@ __device__ __forceinline__ Cand nearest(const Window& W, const Idx* s, int t,
 
 // Probes +-1..+-hc of sorted row t over all kMaxW windows; ties on the
 // length go to the larger (nearer) candidate (jax_block.py:432-450).
-template <class Idx>
-__device__ __forceinline__ Cand nearest_both(const Window& W, const Idx* s,
+template <class Order>
+__device__ __forceinline__ Cand nearest_both(const Window& W, const Order& s,
                                              int t, int blk, int hc) {
   Cand best{-1, 0, 0};
   const int p = s[t];

@@ -14,8 +14,8 @@
 //   finder of encode_deep.cuh -- the 32-byte rank, at deep = 3 the 256-byte
 //   rank, the grand grouping sort, the +-1..+-hc probes with the nested tier
 //   chain, the positional fallback.  Wider windows go to enc_deep_match_wide
-//   (encode_deep_wide.cu), which runs the same routine over a u32 order in
-//   device scratch.
+//   (encode_deep_wide.cu), which runs the same steps over a u32 order held
+//   by a thread-block cluster and sorted by radix passes.
 //   Bound: the four sorts (136 bitonic stages each); two of them read their
 //   keys from global memory (L2), not shared memory.
 //
@@ -64,17 +64,6 @@ __host__ __device__ __forceinline__ int ext_pool(int blk) {
   return P < blk ? P : blk;
 }
 
-// The position order of a window up to 64 KB: u16 in shared memory.
-struct SharedOrder {
-  uint16_t* s;
-  int N;
-  template <class Less>
-  __device__ void operator()(Less less) const {
-    bitonic_sort(s, N, less);
-  }
-  __device__ void identity() const { identity_order(s, N); }
-};
-
 __global__ void __launch_bounds__(kMatchThreads)
 enc_deep_match_kernel(const uint8_t* __restrict__ data,
                       const int32_t* __restrict__ lens, int32_t* ranks,
@@ -88,7 +77,7 @@ enc_deep_match_kernel(const uint8_t* __restrict__ data,
   const int n = min(max(lens[b], 0), blk);
   int32_t* r = ranks + (size_t)b * (deep == 3 ? 2 : 1) * blk;
   load_window(data + (size_t)b * blk, n, words, nwords, s, N);
-  deep_match(Window{words, n}, SharedOrder{s, N}, s, blk, hc, deep, r,
+  deep_match(Window{words, n}, s, N, blk, hc, deep, r,
              r + blk, pk + (size_t)b * blk, part);
 }
 

@@ -1,12 +1,9 @@
-// The deep finder of levels 10-12, shared by the kernel of windows up to
-// 64 KB (enc_deep_match, encode_deep.cu: the order u16 in shared memory) and
-// the kernel of wider windows (enc_deep_match_wide, encode_deep_wide.cu: the
-// order u32 in device scratch).  Semantics, by line of the JAX reference's
-// ops/jax_block.py:
+// The deep finder of levels 10-12.  Semantics, by line of the JAX
+// reference's ops/jax_block.py:
 //   * the 32-byte rank r (:285-306): the positions sorted by the eight u32
 //     words (s0, su[i+4], ..., su[i+28], i) -- compared as unsigned
-//     little-endian words, s0 poisoned past n - 4 -- then one block scan
-//     that numbers the classes in sorted order, stored at the position.
+//     little-endian words, s0 poisoned past n - 4 -- then one scan that
+//     numbers the classes in sorted order, stored at the position.
 //   * at deep = 3 the 256-byte rank r2 (:316-321) the same way, over the
 //     eight keys r[i], r[i+32], ..., r[i+224] (-1 past the end, as shl
 //     fills).
@@ -21,7 +18,12 @@
 //     | back, stored at the position (the unsort, :455-469).
 //   * the positional fallback (:471-516) as in enc_match; it wins when its
 //     fine ml beats the total ml, and then the tier is 0.
-// The ranks are int32 in device memory: they reach blk, past u16.
+// deep_match below runs it over a window of up to 64 KB (enc_deep_match,
+// encode_deep.cu: the order u16 in shared memory, comparison sorts by the
+// bitonic network); encode_deep_wide.cu runs the same steps over wider
+// windows with the radix passes of radix_cluster.cuh, sharing the tier
+// operands, the equalities, the tier probe and the fallback's test.  The
+// ranks are int32 in device memory: they reach blk, past u16.
 
 #pragma once
 
@@ -50,6 +52,45 @@ struct Tiers {
     return shl_at(r, p, 32 * tk, blk);
   }
 };
+
+// The pack of sorted row t (position p) of the grand order s: the
+// +-1..+-hc probes with the nested tier chain; the longest total ml wins,
+// ties to the larger candidate.  ``s`` is a pointer or an accessor.
+template <class Order>
+__device__ __forceinline__ int tier_pack(const Window& W, const Tiers& T,
+                                         const Order& s, int t, int p,
+                                         int blk, int hc) {
+  const int nt = T.count();
+  int b_cand = -1, b_ml = 0, b_mlf = 0, b_tier = 0, b_back = 0;
+  for (int k = 1; k <= hc; ++k) {
+    for (int side = 0; side < 2; ++side) {
+      const int u = side ? t + k : t - k;
+      if (u < 0 || u >= blk) continue;
+      const int q = s[u];
+      const Cand c = probe(W, p, q, kMaxW);
+      if (c.cand < 0) continue;
+      int tier = 0;
+      while (tier < nt && T.op(tier, p) == T.op(tier, q)) ++tier;
+      const int ml = max(c.ml, tier_len(tier, T.deep));
+      if (ml > b_ml || (ml == b_ml && c.cand > b_cand)) {
+        b_cand = c.cand;
+        b_ml = ml;
+        b_mlf = c.ml;
+        b_tier = tier;
+        b_back = c.back;
+      }
+    }
+  }
+  return b_cand >= 0
+             ? ((b_cand + 1) << 12) | (b_mlf << 6) | (b_tier << 2) | b_back
+             : 0;
+}
+
+// The total ml of a pack v: the fine ml, or the tier's length when longer;
+// the positional fallback must beat it.
+__device__ __forceinline__ int total_ml(int v, int deep) {
+  return v ? max((v >> 6) & 63, tier_len((v >> 2) & 15, deep)) : 0;
+}
 
 // Number the classes of the sorted order s[0..blk) -- rows t - 1 and t are
 // in one class when same(s[t - 1], s[t]) -- from 1 in sorted order, and
@@ -132,69 +173,43 @@ struct SameRanks {
   }
 };
 
-// The deep finder over one window.  ``sort`` holds the position order s
-// over N >= blk rows, which is the identity on entry: sort(less) sorts it,
-// sort.identity() resets it.  r (and r2 at deep == 3) are blk-entry rank
-// scratch, out the window's packs.
-template <class Idx, class Sort>
-__device__ void deep_match(const Window& W, const Sort& sort, const Idx* s,
-                           int blk, int hc, int deep, int32_t* r, int32_t* r2,
+// The deep finder over one window of up to 64 KB (enc_deep_match): s is
+// the u16 position order over N >= blk rows in shared memory, the identity
+// on entry, sorted by the bitonic network of encode_common.cuh; r (and r2
+// at deep == 3) are blk-entry rank scratch, out the window's packs.
+__device__ void deep_match(const Window& W, uint16_t* s, int N, int blk,
+                           int hc, int deep, int32_t* r, int32_t* r2,
                            int32_t* out, int* part) {
   // 32-byte rank: order by (s0, su[i+4], ..., su[i+28]), then number
-  sort(Less32{W, blk});
+  bitonic_sort(s, N, Less32{W, blk});
   assign_ranks(s, blk, Same32{W}, r, part);
 
   if (deep == 3) {  // 256-byte rank over r[i], r[i+32], ..., r[i+224]
-    sort.identity();
-    sort(LessRanks{r, 32, 8, blk});
+    identity_order(s, N);
+    bitonic_sort(s, N, LessRanks{r, 32, 8, blk});
     assign_ranks(s, blk, SameRanks{r, 32, 8, blk}, r2, part);
   }
 
   // grand order by the last NK tier operands, ties by position
-  sort.identity();
-  if (deep == 3) sort(LessRanks{r2, 256, 4, blk});
-  else sort(LessRanks{r, 32, deep == 2 ? 8 : 4, blk});
+  identity_order(s, N);
+  if (deep == 3) bitonic_sort(s, N, LessRanks{r2, 256, 4, blk});
+  else bitonic_sort(s, N, LessRanks{r, 32, deep == 2 ? 8 : 4, blk});
 
   const Tiers T{r, r2, blk, deep};
-  const int nt = T.count();
   for (int t = threadIdx.x; t < blk; t += blockDim.x) {
     const int p = s[t];
-    int b_cand = -1, b_ml = 0, b_mlf = 0, b_tier = 0, b_back = 0;
-    for (int k = 1; k <= hc; ++k) {
-      for (int side = 0; side < 2; ++side) {
-        const int u = side ? t + k : t - k;
-        if (u < 0 || u >= blk) continue;
-        const int q = s[u];
-        const Cand c = probe(W, p, q, kMaxW);
-        if (c.cand < 0) continue;
-        int tier = 0;
-        while (tier < nt && T.op(tier, p) == T.op(tier, q)) ++tier;
-        const int ml = max(c.ml, tier_len(tier, deep));
-        if (ml > b_ml || (ml == b_ml && c.cand > b_cand)) {
-          b_cand = c.cand;
-          b_ml = ml;
-          b_mlf = c.ml;
-          b_tier = tier;
-          b_back = c.back;
-        }
-      }
-    }
-    out[p] = b_cand >= 0 ? ((b_cand + 1) << 12) | (b_mlf << 6) | (b_tier << 2) |
-                               b_back
-                         : 0;
+    out[p] = tier_pack(W, T, s, t, p, blk, hc);
   }
   __syncthreads();
 
   // positional fallback: order by s0 alone, probes +1 and +2; it must beat
   // the total ml, and clears the tier
-  sort.identity();
-  sort(LessS0{W, blk});
+  identity_order(s, N);
+  sort_by_s0(W, s, N, blk);
   for (int t = threadIdx.x; t < blk; t += blockDim.x) {
     const int p = s[t];
     const Cand c = nearest(W, s, t, 2, kMaxW);
-    const int v = out[p];
-    const int ml = v ? max((v >> 6) & 63, tier_len((v >> 2) & 15, deep)) : 0;
-    if (c.ml > ml) out[p] = pack(c);
+    if (c.ml > total_ml(out[p], deep)) out[p] = pack(c);
   }
 }
 

@@ -1,8 +1,8 @@
 // A bitonic network over int32 (key, payload) rows, each row resident in
 // the shared memory of one thread-block cluster.
 //
-// The network is the one of sort_global.cuh and of the JAX package's probe
-// (experiments/pallas_sort_probe.py): stages k = 2, 4, ..., N and, in each,
+// The network is the one of bitonic_sort in encode_common.cuh and of the JAX
+// package's probe (experiments/pallas_sort_probe.py): stages k = 2, 4, ..., N and, in each,
 // j = k/2, ..., 1; the pair (i, i + j) with bit j of i clear is ascending
 // when bit k of i is clear (so the last merge, k = N, is all ascending), and
 // its two pairs are exchanged only when the keys are strictly out of order,
@@ -34,8 +34,8 @@
 // and writes them back; pushing them with remote stores and reading local
 // ones was slower on the H100.
 //
-// Rows longer than a cluster holds (65,536 pairs) are sorted in chunks as
-// sort_global.cuh sorts them in tiles: each chunk whole in the cluster, then
+// Rows longer than a cluster holds (65,536 pairs) are sorted in chunks:
+// each chunk whole in the cluster, then
 // for every k past a chunk the strides j >= 65,536 as passes over the row in
 // device memory, ordered by cluster.sync(), and the rest of the k chunk by
 // chunk in the cluster.  Rows shorter than 16 pairs are padded with

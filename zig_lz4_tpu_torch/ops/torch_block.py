@@ -27,8 +27,9 @@ and, for the deep levels, ``kernels/csrc/encode_deep.cu``):
   for the windows over 64 KB that the reference encodes on its device
   (``device_encoder_supports``): ``[dictionary | block]`` windows, 256 KB
   blocks and the 327,680-byte sub-span windows of 1 MB and 4 MB blocks.
-  The window words and a u32 order live in device scratch, sorted by a
-  bitonic network that runs its short strides in shared-memory tiles.
+  One thread-block cluster a window (``wide_cluster_shape``) holds its
+  u32 position order in shared memory, sorted by stable byte-digit radix
+  passes across the cluster; the window words live in device scratch.
 * ``enc_parse_emit`` -- same-offset chain extension, the ``n - 5``
   clamp, two-step lazy deferral (HC only), the greedy parse (one thread,
   reading lengths staged in shared memory) and the emission of the LZ4
@@ -40,9 +41,9 @@ and, for the deep levels, ``kernels/csrc/encode_deep.cu``):
   4-bit tier field: ``((cand + 1) << 12) | (fine ml << 6) | (tier << 2)
   | back`` (``jax_block.py:459-461``).
 * ``enc_deep_match_wide`` (``kernels/csrc/encode_deep_wide.cu``) -- the
-  same finder for the windows over 64 KB, with its state in device
-  scratch as ``enc_match_wide`` keeps it; both run one routine
-  (``kernels/csrc/encode_deep.cuh``).
+  same finder for the windows over 64 KB, its order in a cluster as
+  ``enc_match_wide`` keeps it, its ranks sorted by radix passes too and
+  numbered by a scan across the cluster.
 * ``enc_deep_dp`` -- chain extension with the tier lengths, then the
   backward price parse over a 512-entry cost ring with the 18-byte cut
   (``run_dp``, ``jax_block.py:556-683``): per position the final
@@ -63,16 +64,18 @@ the kernel or raise.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..constants import compress_bound
-from ..kernels import launch
+from ..kernels import launch, library
 
 __all__ = ["level_params", "fast_params", "device_encoder_supports",
            "encode_blocks", "encode_blocks_plain", "match_candidates",
            "match_candidates_plain", "parse_emit", "parse_emit_plain",
            "deep_dp", "deep_dp_plain", "deep_emit", "deep_emit_plain",
-           "tier_lengths"]
+           "tier_lengths", "wide_cluster_shape", "wide_launch_shape"]
 
 #: carried u32 windows (jax_block.py:100) -> fine ml up to 4 + 4*W
 _W = 8
@@ -747,19 +750,18 @@ def match_candidates(blocks: torch.Tensor, lens: torch.Tensor,
         ranks = torch.empty((B, 2 if deep == 3 else 1, blk),
                             dtype=torch.int32, device=dev)
     if B and blk > _MAX_SHARED_BLK:
-        # device scratch a window: the u32 order over the power of two
-        # N >= blk rows, and the window as words with 64 zero bytes past
-        # it (2.3 MB at 327,680 bytes)
-        N = 1 << (blk - 1).bit_length()
+        # device scratch a window: the window as words with 64 zero bytes
+        # past it (320 KB at 327,680 bytes); the order lives in the
+        # shared memory of the window's cluster
         nwords = (blk + 64) // 4 + 1
-        order = torch.empty((B, N), dtype=torch.int32, device=dev)
         words = torch.empty((B, nwords), dtype=torch.int32, device=dev)
+        C, J = wide_cluster_shape(blk)
         if deep:
-            launch("enc_deep_match_wide", blocks, lens, order, words, ranks,
-                   pk, B, blk, N, nwords, hc, deep)
+            launch("enc_deep_match_wide", blocks, lens, words, ranks, pk, B,
+                   blk, nwords, C, J, hc, deep)
         else:
-            launch("enc_match_wide", blocks, lens, order, words, pk, B, blk,
-                   N, nwords, hc, W, probes)
+            launch("enc_match_wide", blocks, lens, words, pk, B, blk,
+                   nwords, C, J, hc, W, probes)
     elif B and deep:
         launch("enc_deep_match", blocks, lens, ranks, pk, B, blk, hc, deep)
     elif B and hc:
@@ -767,6 +769,48 @@ def match_candidates(blocks: torch.Tensor, lens: torch.Tensor,
     elif B:
         launch("enc_match_fast", blocks, lens, pk, B, blk, W, probes)
     return pk
+
+
+#: rows a thread of a wide finder's CTA holds in registers during a radix
+#: pass: at most 20 while the cluster may still grow (327,680 rows over 16
+#: CTAs), at most 32 past that (2^19 rows over 16 CTAs of 1024 threads);
+#: the kernels are built for these two bounds
+_WIDE_ROWS, _WIDE_MAX_ROWS = 20, 32
+_WIDE_THREADS, _WIDE_MAX_CLUSTER = 1024, 16
+
+
+def wide_cluster_shape(blk: int) -> tuple[int, int]:
+    """(C, J) of a wide finder's launch (``enc_match_wide``,
+    ``enc_deep_match_wide``): each window's position order is cut into C
+    slices of ``1024 * J`` rows, one a CTA of 1024 threads, J rows a
+    thread; C is the least power of two up to 16 that keeps J at 20 or
+    under (C = 8 at 131,072 bytes, 16 at 262,144 and 327,680), and J the
+    least that covers ``blk`` rows."""
+    C = 1
+    while C < _WIDE_MAX_CLUSTER and -(-blk // C) > _WIDE_ROWS * _WIDE_THREADS:
+        C *= 2
+    J = -(-blk // (C * _WIDE_THREADS))
+    assert J <= _WIDE_MAX_ROWS, blk
+    return C, J
+
+
+def wide_launch_shape(blk: int, deep: int = 0) -> dict:
+    """The launch shape of the wide finder (``enc_deep_match_wide`` when
+    ``deep``) for ``blk``-byte windows on the current CUDA device: CTAs a
+    cluster, threads a CTA, rows a thread, shared memory a CTA in bytes,
+    and the clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    C, J = wide_cluster_shape(blk)
+    out = (ctypes.c_int * 2)()
+    fn = getattr(library(), "zl4_enc_deep_match_wide_shape" if deep
+                 else "zl4_enc_match_wide_shape")
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(blk, C, J, out)
+    if err:
+        raise RuntimeError(f"wide launch shape: CUDA error {err}")
+    return {"ctas": C, "threads": _WIDE_THREADS, "rows_a_thread": J,
+            "smem_bytes": out[0], "active_clusters": out[1]}
 
 
 def _check_pk(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
