@@ -79,7 +79,16 @@ timed phase by phase, their first orders held against ``torch.sort``
 of their three or eight words, their launch shape and
 ``cudaOccupancyMaxActiveClusters``, ptxas's registers and spills, and
 each finder timed at every one of its launches on the nine wide paths
-(launches x ms).
+(launches x ms).  So does the 64 KB deep finder ``enc_deep_match``,
+which sorts by radix passes in one block's shared memory: the cuts of
+``encode_deep.cu`` (eight more builds) at levels 12 and 10, its 32-byte
+order against ``torch.sort`` of its eight words, and ptxas; every cut
+also stops ``enc_deep_dp`` after its chain extension, which splits that
+kernel into its chain and its warp-parallel price parse.  The three
+deep kernels are timed at every one of their launches on the counted
+paths (the three 64 KB levels, the block codec and, for ``enc_deep_dp``
+and ``enc_deep_emit``, the three wide deep paths), and the ``[rank]``
+line prices them by those sums.
 
 It checks the round trips and the ratios, shows by launch counts that
 each path went through its kernels (the wide paths through
@@ -190,10 +199,12 @@ WIDE_KERNELS = ("enc_match_wide", "enc_parse_emit", "tmap_gather")
 WIDE_DEEP_KERNELS = ("enc_deep_match_wide", "enc_deep_dp", "enc_deep_emit",
                      "tmap_gather")
 #: the phase cuts (-DZL4_STOP=1..k) built beside the library, by source:
-#: enc_match and enc_parse_emit (encode_block.cu), and the two wide finders
+#: enc_match and enc_parse_emit (encode_block.cu), the two wide finders,
+#: and enc_deep_match with enc_deep_dp (encode_deep.cu)
 PHASE_CUTS = {"encode_block.cu": 4, "encode_wide.cu": 4,
-              "encode_deep_wide.cu": 8}
-#: phases of the two wide finders, one a cut and the last the rest
+              "encode_deep_wide.cu": 8, "encode_deep.cu": 8}
+#: phases of the wide finders and of enc_deep_match, one a cut and the
+#: last the rest
 WIDE_PHASES = ("window words", "12-byte sort", "probes +-9", "s0 sort",
                "fallback probes")
 WIDE_DEEP_PHASES = ("window words", "32-byte sort", "32-byte rank numbering",
@@ -204,7 +215,8 @@ WIDE_DEEP_PHASES = ("window words", "32-byte sort", "32-byte rank numbering",
 PTXAS_KERNELS = ("enc_match_kernel", "enc_parse_emit_kernel",
                  "enc_match_wide_kernel<20>", "enc_match_wide_kernel<32>",
                  "enc_deep_match_wide_kernel<20>",
-                 "enc_deep_match_wide_kernel<32>")
+                 "enc_deep_match_wide_kernel<32>", "enc_deep_match_kernel",
+                 "enc_deep_dp_kernel")
 #: n / frame bytes of the 1 MB-block paths (the reference's frames, whose
 #: SHA-256 the wide goldens hold, give the same)
 EXPECT_RATIO_WIDE = {"1 MB blocks, level 9": 3.253950,
@@ -325,8 +337,9 @@ def host_us(fn, calls=1000):
 
 def start_phase_builds(kernels):
     """Start one nvcc a phase cut (-DZL4_STOP=k) of each timed source --
-    ``encode_block.cu`` (k = 1..4), ``encode_wide.cu`` (1..4) and
-    ``encode_deep_wide.cu`` (1..8) -- each into a library of its own under
+    ``encode_block.cu`` (k = 1..4), ``encode_wide.cu`` (1..4),
+    ``encode_deep_wide.cu`` (1..8) and ``encode_deep.cu`` (1..8) -- each
+    into a library of its own under
     the kernels' build directory, all at once; returns [(source, k,
     library path, process)]."""
     csrc = os.path.join(os.path.dirname(kernels.__file__), "csrc")
@@ -449,6 +462,48 @@ def wide_phase_split(libs, w, l, hc, deep=0):
         if k == 2:
             order = cut.clone()
     return ms, order
+
+
+def deep_phase_split(libs, w, l, s, pk, hc, deep):
+    """Milliseconds of each phase cut of ``enc_deep_match`` at ``deep`` on
+    the windows ``w`` (the cuts of ``encode_deep.cu``, through ctypes, not
+    counted), what its ZL4_STOP=2 cut leaves (each window's 32-byte
+    order), and the milliseconds of ``enc_deep_dp``'s chain extension
+    alone on the candidates ``pk`` (every cut stops that kernel there).
+    Returns ({k: ms}, order, chain ms)."""
+    import ctypes
+
+    import torch
+    from zig_lz4_tpu_torch.ops import torch_block as tb
+    B, blk = w.shape
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    ranks = torch.empty((B, 2 if deep == 3 else 1, blk), dtype=torch.int32,
+                        device=w.device)
+    cut = torch.empty((B, blk), dtype=torch.int32, device=w.device)
+    st = torch.empty_like(cut)
+    ms, order = {}, None
+    for k, lib in libs["encode_deep.cu"].items():
+        f = lib.zl4_enc_deep_match
+        f.argtypes, f.restype = [P] * 4 + [I] * 4 + [P], I
+
+        def run():
+            check(f(w.data_ptr(), l.data_ptr(), ranks.data_ptr(),
+                    cut.data_ptr(), B, blk, hc, deep, stream) == 0,
+                  f"encode_deep.cu cut {k} did not launch")
+        run()
+        ms[k] = cuda_ms(run, 2)[0]
+        if k == 2:
+            order = cut.clone()
+    g = libs["encode_deep.cu"][1].zl4_enc_deep_dp
+    g.argtypes, g.restype = [P] * 4 + [I] * 4 + [P], I
+
+    def chain():
+        check(g(l.data_ptr(), s.data_ptr(), pk.data_ptr(), st.data_ptr(), B,
+                blk, 4 + 4 * tb._W, deep, stream) == 0,
+              "enc_deep_dp's chain cut did not launch")
+    chain()
+    return ms, order, cuda_ms(chain, 2)[0]
 
 
 def torch_sort_words(torch, w, l, nw=3):
@@ -705,14 +760,15 @@ def time_encoder_kernels():
     does, so that two checkouts (one unpacked from the parent commit with
     ``git archive``) can be compared in turns in one call: at the main
     path's shapes, 768 x 64 KB windows of the bench corpus, ``enc_match``
-    (hc 9 and 4), ``enc_match_fast`` (hc 0), ``enc_deep_match`` (level
-    12) and ``enc_parse_emit`` (levels 9 and 0); at the 1 MB paths'
-    shapes, the corpus's 192 sub-span windows of 327,680 bytes,
-    ``enc_match_wide`` (hc 9 and 0) and ``enc_deep_match_wide`` (level
-    12).  It uses only what every version of the port has:
-    ``torch_block.match_candidates``, ``parse_emit`` and
-    ``corpus.make_corpus``.  Each time is the median of 5 calls between
-    CUDA events, after one warm-up call; it prints one line."""
+    (hc 9 and 4), ``enc_match_fast`` (hc 0), ``enc_deep_match`` (levels
+    12 and 10), ``enc_deep_dp`` (level 12) and ``enc_parse_emit`` (levels
+    9 and 0); at the 1 MB paths' shapes, the corpus's 192 sub-span windows
+    of 327,680 bytes, ``enc_match_wide`` (hc 9 and 0),
+    ``enc_deep_match_wide`` and ``enc_deep_dp`` (level 12).  It uses only
+    what every version of the port has: ``torch_block.match_candidates``,
+    ``deep_dp``, ``parse_emit`` and ``corpus.make_corpus``.  Each time is
+    the median of 5 calls between CUDA events, after one warm-up call; it
+    prints one line."""
     sys.path.insert(0, os.getcwd())
     import torch
     if not torch.cuda.is_available():
@@ -730,14 +786,19 @@ def time_encoder_kernels():
         .view(nb, BLK).cuda()
     n = torch.full((nb,), BLK, dtype=torch.int32, device=w.device)
     st = torch.zeros_like(n)
-    ww, nw, _sw = (torch.from_numpy(a).cuda()
-                   for a in subspan_windows(np, data[:nb * BLK]))
+    ww, nw, sw = (torch.from_numpy(a).cuda()
+                  for a in subspan_windows(np, data[:nb * BLK]))
     pk9, pk0 = tb.match_candidates(w, n, 9), tb.match_candidates(w, n, 0)
+    pk12 = tb.match_candidates(w, n, 8, 1, 3)
+    pkw12 = tb.match_candidates(ww, nw, 8, 1, 3)
     calls = {"enc_match hc=9": lambda: tb.match_candidates(w, n, 9),
              "enc_match hc=4": lambda: tb.match_candidates(w, n, 4),
              "enc_match_fast hc=0": lambda: tb.match_candidates(w, n, 0),
              "enc_deep_match level 12":
              lambda: tb.match_candidates(w, n, 8, 1, 3),
+             "enc_deep_match level 10":
+             lambda: tb.match_candidates(w, n, 8, 1, 1),
+             "enc_deep_dp level 12": lambda: tb.deep_dp(n, st, pk12, 3),
              "enc_parse_emit level 9": lambda: tb.parse_emit(w, n, st, pk9),
              "enc_parse_emit level 0": lambda: tb.parse_emit(w, n, st, pk0,
                                                              0),
@@ -745,7 +806,9 @@ def time_encoder_kernels():
              lambda: tb.match_candidates(ww, nw, 9),
              "enc_match_wide hc=0": lambda: tb.match_candidates(ww, nw, 0),
              "enc_deep_match_wide level 12":
-             lambda: tb.match_candidates(ww, nw, 8, 1, 3)}
+             lambda: tb.match_candidates(ww, nw, 8, 1, 3),
+             "enc_deep_dp level 12 at the 1 MB shape":
+             lambda: tb.deep_dp(nw, sw, pkw12, 3)}
     ms = {}
     for k, fn in calls.items():
         fn()
@@ -1993,8 +2056,10 @@ def main():
         library_ms=None, ms_level0=k_emit0, phase_ms=emit_phases)
 
     # the deep kernels at the paths' shapes; their plain versions ran on
-    # every PLAIN_STRIDE-th window of these (phase 6)
-    k_deep = {}
+    # every PLAIN_STRIDE-th window of these (phase 6); every launch of the
+    # three on the counted paths, each timed on its own inputs
+    k_deep, deep_phases, dp_phases = {}, {}, {}
+    deep_launch_ms = {k: [] for k in DEEP_KERNELS}
     for level in DEEP_LEVELS:
         hc, deep = tb.level_params(level)
         k_dm, pk_d = cuda_ms(
@@ -2004,7 +2069,58 @@ def main():
             lambda: tb.deep_emit(w_all, l_all, s_all, pk_d, st_d), 2)
         k_deep[level] = {"enc_deep_match": k_dm, "enc_deep_dp": k_dd,
                          "enc_deep_emit": k_de}
-    del pk_d, st_d, _od
+        if level in (12, 10):
+            # enc_deep_match by phase (cuts of encode_deep.cu) and the
+            # chain extension of enc_deep_dp alone; at level 12 the
+            # 32-byte order against the batched stable torch.sort
+            cut_dm, order32, k_chain_d = deep_phase_split(
+                phase_libs, w_all, l_all, s_all, pk_d, hc, deep)
+            deep_phases[level] = dict(zip(WIDE_DEEP_PHASES, [cut_dm[1]] + [
+                cut_dm[k] - cut_dm[k - 1] for k in range(2, 9)]
+                + [k_dm - cut_dm[8]]))
+            dp_phases[level] = {"chain": k_chain_d, "DP": k_dd - k_chain_d}
+            print(f"[time] {smi}: enc_deep_match (level {level}) at {nb} x "
+                  "64 KB by phase (cuts of encode_deep.cu, -DZL4_STOP=1..8): "
+                  + ", ".join(f"{k} {v:.3f} ms"
+                              for k, v in deep_phases[level].items())
+                  + f"; cuts {cut_dm}; whole {k_dm:.3f} ms; enc_deep_dp by "
+                  "phase: " + ", ".join(f"{k} {v:.3f} ms"
+                                        for k, v in dp_phases[level].items())
+                  + f" of {k_dd:.3f} ms")
+            if level == 12:
+                order_ts, sort_again = torch_sort_words(torch, w_all, l_all,
+                                                        8)
+                k_tsort32_64k = cuda_ms(sort_again, 2)[0]
+                same32 = torch.equal(order_ts.int(), order32)
+                del order_ts, sort_again
+                print(f"[time] {smi}: yardstick for enc_deep_match's 32-byte "
+                      "sort alone: the batched stable torch.sort of its "
+                      f"eight words over all {nb} windows "
+                      f"{k_tsort32_64k:.3f} ms against the radix passes' "
+                      f"{deep_phases[12]['32-byte sort']:.3f} ms; orders "
+                      f"equal: {same32}")
+                check(same32, "enc_deep_match's 32-byte order differs from "
+                      "torch.sort's")
+            del order32
+    # the block codec's launches: one 64 KB window at level 12
+    w_one = torch.frombuffer(bytearray(one), dtype=torch.uint8).view(
+        1, BLK).to(dev)
+    l_one = torch.tensor([len(one)], dtype=torch.int32, device=dev)
+    s_one = torch.zeros_like(l_one)
+    tb.match_candidates(w_one, l_one, 8, 1, 3)
+    k_dm1, pk_1 = cuda_ms(lambda: tb.match_candidates(w_one, l_one, 8, 1, 3),
+                          2)
+    k_dd1, st_1 = cuda_ms(lambda: tb.deep_dp(l_one, s_one, pk_1, 3), 2)
+    k_de1, _od = cuda_ms(
+        lambda: tb.deep_emit(w_one, l_one, s_one, pk_1, st_1), 2)
+    for k, v in (("enc_deep_match", k_dm1), ("enc_deep_dp", k_dd1),
+                 ("enc_deep_emit", k_de1)):
+        deep_launch_ms[k] += [dict(path=f"level {lv}", windows=nb,
+                                   window_bytes=BLK, ms=k_deep[lv][k])
+                              for lv in DEEP_LEVELS]
+        deep_launch_ms[k].append(dict(path="block codec, level 12",
+                                      windows=1, window_bytes=BLK, ms=v))
+    del pk_d, st_d, _od, pk_1, st_1
     b_deep = {
         "enc_deep_match": bound(in_bytes + 4 * nb * BLK,
                                 deep_match_ops(nb, BLK, 8, 3)),
@@ -2021,6 +2137,14 @@ def main():
             ms_by_level={lv: k_deep[lv][k] for lv in DEEP_LEVELS},
             plain_ms=deep_plain_ms[12][k], plain_windows=int(sel.numel()),
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    results["enc_deep_match"].update(
+        library_ms=k_tsort32_64k,
+        library_call="batched stable torch.sort of the 32-byte order's "
+        "eight words (the first sort alone)", phase_ms=deep_phases,
+        ptxas={k: v for k, v in ptxas.items() if k == "enc_deep_match_kernel"})
+    results["enc_deep_dp"].update(
+        phase_ms=dp_phases,
+        ptxas={k: v for k, v in ptxas.items() if k == "enc_deep_dp_kernel"})
     print(f"[time] {smi}: deep kernels at {nb} x 64 KB by level: "
           + "; ".join(f"level {lv}: " + ", ".join(
               f"{k} {v:.2f} ms" for k, v in k_deep[lv].items())
@@ -2034,16 +2158,35 @@ def main():
     # inputs the path gave it: ms at each launch, and launches x ms
     wide_launch_ms = {"enc_match_wide": [], "enc_deep_match_wide": []}
     for what, calls in wide_rec.items():
-        for (w_r, l_r, _s_r), kw in calls:
+        for (w_r, l_r, s_r), kw in calls:
             hc_r, deep_r = kw["hc"], kw.get("deep", 0)
             tb.match_candidates(w_r, l_r, hc_r, 1, deep_r)
             t_r, _pk = cuda_ms(
                 lambda: tb.match_candidates(w_r, l_r, hc_r, 1, deep_r), 2)
+            shape = dict(path=what, windows=w_r.shape[0],
+                         window_bytes=w_r.shape[1])
             wide_launch_ms["enc_deep_match_wide" if deep_r
-                           else "enc_match_wide"].append(dict(
-                               path=what, windows=w_r.shape[0],
-                               window_bytes=w_r.shape[1], ms=t_r))
+                           else "enc_match_wide"].append(dict(shape, ms=t_r))
+            if deep_r:  # the two other deep kernels on this launch's inputs
+                tb.deep_dp(l_r, s_r, _pk, deep_r)
+                t_d, _st = cuda_ms(lambda: tb.deep_dp(l_r, s_r, _pk, deep_r),
+                                   2)
+                t_e, _o = cuda_ms(
+                    lambda: tb.deep_emit(w_r, l_r, s_r, _pk, _st), 2)
+                deep_launch_ms["enc_deep_dp"].append(dict(shape, ms=t_d))
+                deep_launch_ms["enc_deep_emit"].append(dict(shape, ms=t_e))
+                del _st, _o
     del _pk
+    for kern, rows_ in deep_launch_ms.items():
+        check(len(rows_) == counts[kern],
+              f"{kern}: {len(rows_)} launches timed, {counts[kern]} counted")
+        print(f"[time] {smi}: {kern} at each of its {len(rows_)} launches "
+              "on the counted paths: " + "; ".join(
+                  f"{r['path']} ({r['windows']} x {r['window_bytes']}) "
+                  f"{r['ms']:.2f} ms" for r in rows_)
+              + f"; launches x ms {sum(r['ms'] for r in rows_):.2f} ms")
+        results[kern].update(launch_ms=rows_,
+                             launches_x_ms=sum(r["ms"] for r in rows_))
     for kern, rows_ in wide_launch_ms.items():
         print(f"[time] {smi}: {kern} at each of its {len(rows_)} launches "
               "on the wide paths: " + "; ".join(
@@ -2367,9 +2510,9 @@ def main():
                    if key not in entry]
         check(not missing, f"{entry['name']} lacks {missing}")
     # the next redesign's ranking: each kernel's launches on the counted
-    # paths times (ms - bound_ms); the wide finders' ms summed over their
-    # launches, each timed on its own inputs, the others' ms at the shape
-    # each is timed at above
+    # paths times (ms - bound_ms); the wide finders' and the three deep
+    # kernels' ms summed over their launches, each timed on its own inputs,
+    # the others' ms at the shape each is timed at above
     ranking = {}
     for entry in kernels:
         if "launches_x_ms" in entry:
@@ -2378,7 +2521,8 @@ def main():
             x = entry["launches"] * (entry["ms"] - entry["bound_ms"])
         ranking[entry["name"]] = x
     print("[rank] launches x (ms - bound_ms) over the counted paths (the "
-          "wide finders timed at each launch, the others at one shape): "
+          "wide finders and the deep kernels timed at each launch, the "
+          "others at one shape): "
           + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
               ranking.items(), key=lambda kv: -kv[1])))
     print(f"[total] {time.perf_counter() - t_run:.1f} s, the kernels' build "

@@ -67,7 +67,6 @@
 // what that phase left, so that chip_smoke.py can time the phases one by
 // one; the library is built without it.
 
-#include "encode_common.cuh"
 #include "sort_radix.cuh"
 
 #ifdef ZL4_STOP
@@ -83,41 +82,7 @@
 namespace {
 
 constexpr int kStage = 2048;  // rows of successors the walk stages at a time
-constexpr int kBatch = 4;     // rows a thread loads before it stores any
 constexpr int kShortRun = 32;  // literal runs shorter go byte by byte
-
-// Byte k of each row's key for one radix pass: window byte p + k, or, on
-// the s0 passes (s0 = true), 0xFF on the rows past n - 4, whose s0 is
-// 0xFFFFFFFF (Window::s0).  Bytes at and past n read as zero.
-struct KeyByte {
-  const uint32_t* w;
-  int n, k;
-  bool s0;
-  __device__ __forceinline__ unsigned operator()(int p) const {
-    if (s0 && p > n - 4) return 0xFFu;
-    const int q = p + k;
-    return (w[q >> 2] >> ((q & 3) * 8)) & 0xFFu;
-  }
-};
-
-// The 12-byte order (s0, at(p+4), at(p+8), p): LSD passes over the bytes of
-// at(p+8), at(p+4), then s0, each word from its low byte up.
-__device__ void sort_less12(const Window& W, uint16_t* s, int rows,
-                            uint32_t* hist, int* part) {
-#pragma unroll 1
-  for (int i = 0; i < 12; ++i) {
-    const int k = i < 4 ? 8 + i : i < 8 ? i : i - 8;  // 8..11, 4..7, 0..3
-    radix_pass(s, rows, hist, part, KeyByte{W.w, W.n, k, i >= 8});
-  }
-}
-
-// The order (s0, p): 4 LSD passes over s0's bytes.
-__device__ void sort_s0(const Window& W, uint16_t* s, int rows,
-                        uint32_t* hist, int* part) {
-#pragma unroll 1
-  for (int k = 0; k < 4; ++k)
-    radix_pass(s, rows, hist, part, KeyByte{W.w, W.n, k, true});
-}
 
 __global__ void __launch_bounds__(kRadixThreads)
 enc_match_kernel(const uint8_t* __restrict__ data,
@@ -137,7 +102,7 @@ enc_match_kernel(const uint8_t* __restrict__ data,
                         out[t] = words[t % nwords])
 
   // 12-byte lexicographic order, ties by position
-  sort_less12(W, s, blk, hist, part);
+  sort_words(W, s, blk, hist, part, 3);
   ZL4_STOP_AFTER(2, for (int t = threadIdx.x; t < blk; t += blockDim.x)
                         out[t] = s[t])
   for (int t = threadIdx.x; t < blk; t += blockDim.x)
@@ -147,7 +112,7 @@ enc_match_kernel(const uint8_t* __restrict__ data,
 
   // positional fallback: order by s0 alone, probes +1 and +2
   identity_order(s, blk);
-  sort_s0(W, s, blk, hist, part);
+  sort_words(W, s, blk, hist, part, 1);
   ZL4_STOP_AFTER(4, for (int t = threadIdx.x; t < blk; t += blockDim.x)
                         out[t] = s[t])
   for (int t = threadIdx.x; t < blk; t += blockDim.x) {
@@ -229,101 +194,6 @@ __device__ __forceinline__ void literal_run(const uint8_t* row, int src,
 // nibble saturated: put_len's count for v = length - 15 >= 0.
 __device__ __forceinline__ int len_bytes(int v) {
   return v >= 0 ? v / 255 + 1 : 0;
-}
-
-// nxt[w] = the first set bit of mask in the words after w (none if there
-// is none), for the nw words of mask: each thread scans a run of words,
-// and a reverse min-scan over the threads carries across runs.  tmp:
-// kParseThreads / 32 ints of shared memory.
-__device__ void next_after_words(const uint32_t* mask, int nw, int none,
-                                 int* nxt, int* tmp) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int run = (nw + kParseThreads - 1) / kParseThreads;
-  const int lo = min(tid * run, nw), hi = min(lo + run, nw);
-  int first = none;
-  for (int w = lo; w < hi; ++w)
-    if (mask[w]) {
-      first = (w << 5) + __ffs(mask[w]) - 1;
-      break;
-    }
-  int v = first;  // min over this lane and the lanes after it
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int x = __shfl_down_sync(0xFFFFFFFFu, v, o);
-    if (lane + o < 32) v = min(v, x);
-  }
-  if (lane == 0) tmp[warp] = v;
-  __syncthreads();
-  int after = __shfl_down_sync(0xFFFFFFFFu, v, 1);
-  if (lane == 31) after = none;
-  for (int k = warp + 1; k < kParseThreads / 32; ++k)
-    after = min(after, tmp[k]);
-  for (int w = hi - 1; w >= lo; --w) {
-    nxt[w] = after;
-    if (mask[w]) after = (w << 5) + __ffs(mask[w]) - 1;
-  }
-  __syncthreads();
-}
-
-// The first set bit of mask at or after row x, with nxt from
-// next_after_words.
-__device__ __forceinline__ int first_at_or_after(const uint32_t* mask,
-                                                 const int* nxt, int x) {
-  const int w = x >> 5;
-  const uint32_t bits = mask[w] & (0xFFFFFFFFu << (x & 31));
-  return bits ? (w << 5) + __ffs(bits) - 1 : nxt[w];
-}
-
-// Row p's word of the parse, ml | is_match << 30 | cap_end << 29, from the
-// chain boundaries: a capped row takes its length from the nearest boundary
-// at or after it.
-__device__ __forceinline__ int chain_word(const Fields& F, int start,
-                                          const uint32_t* bnd, const int* nxt,
-                                          int p) {
-  const int nb = first_at_or_after(bnd, nxt, p);
-  int ml = F.ml0(p);
-  if (F.capped(p)) ml = max(nb - p + min(F.ml0(nb), 2047), ml);
-  ml = min(ml, max(F.n - 5 - p, 0));
-  const bool v = F.valid(p);
-  const bool im = v && ml >= 4 && p >= start;
-  const bool ce = v && F.capped(nb);
-  return ml | (im ? kImBit : 0) | (ce ? kCapEndBit : 0);
-}
-
-// Same-offset chain extension and the n - 5 clamp (jax_block.py:522-555),
-// position-parallel: each capped row takes its length from the nearest
-// chain boundary at or after it (a reverse cummax in the reference).
-// Writes M[p] = ml | is_match << 30 | cap_end << 29 for every row, kBatch
-// rows a thread at a time, so that their loads are in flight together.
-// bnd and nxt: nw = ceil(blk / 32) words of shared memory each.
-__device__ void chain_lengths_par(const Fields& F, int start, int32_t* M,
-                                  uint32_t* bnd, int* nxt, int* tmp) {
-  const int blk = F.blk, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int nw = (blk + 31) >> 5;
-  // boundary rows (no link into the next row); row blk - 1 always is one
-#pragma unroll 4
-  for (int base = warp * 32; base < nw * 32; base += kParseThreads) {
-    const int p = base + lane;
-    const unsigned bits = __ballot_sync(0xFFFFFFFFu, p < blk && !F.link(p));
-    if (lane == 0) bnd[base >> 5] = bits;
-  }
-  __syncthreads();
-  next_after_words(bnd, nw, blk, nxt, tmp);
-  for (int p0 = tid; p0 < blk; p0 += kBatch * kParseThreads) {
-    int word[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int p = p0 + u * kParseThreads;
-      word[u] = p < blk ? chain_word(F, start, bnd, nxt, p) : 0;
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int p = p0 + u * kParseThreads;
-      if (p < blk) M[p] = word[u];
-    }
-  }
-  __syncthreads();
 }
 
 // Two-step lazy deferral (jax_block.py:684-710; lazy = HC only) into the

@@ -1,12 +1,12 @@
 // Device code shared by the encoder kernels (encode_block.cu: levels 0-9,
 // encode_deep.cu: levels 10-12, and the wide finders): the window in shared
-// memory, the bitonic sort of positions (enc_match_fast and enc_deep_match;
-// enc_match sorts by the radix passes of sort_radix.cuh), the probe of one
-// sorted neighbour (cand_at of the JAX reference, ops/jax_block.py:379-426),
-// the candidate pack, the per-position fields of the parse, and the chain
-// extension and the one-thread sequence emitter of enc_deep_dp and
-// enc_deep_emit (enc_parse_emit runs position-parallel versions of both,
-// encode_block.cu).
+// memory, the bitonic sort of positions (enc_match_fast; enc_match and
+// enc_deep_match sort by the radix passes of sort_radix.cuh), the probe of
+// one sorted neighbour (cand_at of the JAX reference,
+// ops/jax_block.py:379-426), the candidate pack, the per-position fields of
+// the parse, the position-parallel chain extension of enc_parse_emit and
+// enc_deep_dp, and the one-thread sequence emitter of enc_deep_emit
+// (enc_parse_emit runs a position-parallel emission, encode_block.cu).
 
 #pragma once
 
@@ -99,10 +99,9 @@ __device__ void identity_order(uint16_t* s, int N) {
   __syncthreads();
 }
 
-// The window as zero-padded LE words in shared memory, and the identity
-// order over N >= blk rows.
-__device__ void load_window(const uint8_t* row, int n, uint32_t* words,
-                            int nwords, uint16_t* s, int N) {
+// The window as zero-padded LE words in shared memory.
+__device__ void load_words(const uint8_t* row, int n, uint32_t* words,
+                           int nwords) {
   for (int q = threadIdx.x; q < nwords; q += blockDim.x) {
     uint32_t v = 0;
     for (int k = 0; k < 4; ++k) {
@@ -111,6 +110,12 @@ __device__ void load_window(const uint8_t* row, int n, uint32_t* words,
     }
     words[q] = v;
   }
+}
+
+// The window words, and the identity order over N >= blk rows.
+__device__ void load_window(const uint8_t* row, int n, uint32_t* words,
+                            int nwords, uint16_t* s, int N) {
+  load_words(row, n, words, nwords);
   identity_order(s, N);
 }
 
@@ -123,23 +128,6 @@ struct LessS0 {
   __device__ __forceinline__ bool operator()(int p, int q) const {
     if (p >= blk || q >= blk) return p < q;
     const uint32_t a = W.s0(p), c = W.s0(q);
-    if (a != c) return a < c;
-    return p < q;
-  }
-};
-
-// The 12-byte lexicographic order (s0, su[i+4], su[i+8]), ties by position:
-// the stable 3-key sort of jax_block.py:349-350.
-struct Less12 {
-  Window W;
-  int blk;
-  __device__ __forceinline__ bool operator()(int p, int q) const {
-    if (p >= blk || q >= blk) return p < q;
-    uint32_t a = W.s0(p), c = W.s0(q);
-    if (a != c) return a < c;
-    a = W.at(p + 4), c = W.at(q + 4);
-    if (a != c) return a < c;
-    a = W.at(p + 8), c = W.at(q + 8);
     if (a != c) return a < c;
     return p < q;
   }
@@ -218,44 +206,99 @@ struct Fields {
   }
 };
 
-// Same-offset chain extension and the n - 5 clamp (jax_block.py:522-555):
-// each capped row takes its length from the nearest chain boundary at or
-// after it (a reverse cummax in the reference); chunked over the block's
-// threads: local first boundary, carry, then a rescan.  Writes
-// M[p] = ml | is_match << 30 | cap_end << 29.
-__device__ void chain_lengths(const Fields& F, int start, int32_t* M,
-                              int* first_bnd /* shared, blockDim.x */) {
-  const int blk = F.blk, n = F.n, tid = threadIdx.x, T = blockDim.x;
-  const int chunk = (blk + T - 1) / T;
-  const int lo = min(tid * chunk, blk), hi = min(lo + chunk, blk);
-  int fb = blk;  // none in this chunk
-  for (int p = lo; p < hi; ++p) {
-    if (!F.link(p)) {
-      fb = p;
+constexpr int kBatch = 4;  // rows a thread loads before it stores any
+
+// nxt[w] = the first set bit of mask in the words after w (none if there
+// is none), for the nw words of mask: each thread scans a run of words,
+// and a reverse min-scan over the threads carries across runs.  tmp:
+// kParseThreads / 32 ints of shared memory.
+__device__ void next_after_words(const uint32_t* mask, int nw, int none,
+                                 int* nxt, int* tmp) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int run = (nw + kParseThreads - 1) / kParseThreads;
+  const int lo = min(tid * run, nw), hi = min(lo + run, nw);
+  int first = none;
+  for (int w = lo; w < hi; ++w)
+    if (mask[w]) {
+      first = (w << 5) + __ffs(mask[w]) - 1;
       break;
     }
+  int v = first;  // min over this lane and the lanes after it
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_down_sync(0xFFFFFFFFu, v, o);
+    if (lane + o < 32) v = min(v, x);
   }
-  first_bnd[tid] = fb;
+  if (lane == 0) tmp[warp] = v;
   __syncthreads();
-  if (tid == 0) {
-    int running = blk;  // row blk - 1 is always a boundary
-    for (int t = T - 1; t >= 0; --t) {
-      const int f = first_bnd[t];
-      first_bnd[t] = running;
-      if (f < blk) running = f;
+  int after = __shfl_down_sync(0xFFFFFFFFu, v, 1);
+  if (lane == 31) after = none;
+  for (int k = warp + 1; k < kParseThreads / 32; ++k)
+    after = min(after, tmp[k]);
+  for (int w = hi - 1; w >= lo; --w) {
+    nxt[w] = after;
+    if (mask[w]) after = (w << 5) + __ffs(mask[w]) - 1;
+  }
+  __syncthreads();
+}
+
+// The first set bit of mask at or after row x, with nxt from
+// next_after_words.
+__device__ __forceinline__ int first_at_or_after(const uint32_t* mask,
+                                                 const int* nxt, int x) {
+  const int w = x >> 5;
+  const uint32_t bits = mask[w] & (0xFFFFFFFFu << (x & 31));
+  return bits ? (w << 5) + __ffs(bits) - 1 : nxt[w];
+}
+
+// Row p's word of the parse, ml | is_match << 30 | cap_end << 29, from the
+// chain boundaries: a capped row takes its length from the nearest boundary
+// at or after it.
+__device__ __forceinline__ int chain_word(const Fields& F, int start,
+                                          const uint32_t* bnd, const int* nxt,
+                                          int p) {
+  const int nb = first_at_or_after(bnd, nxt, p);
+  int ml = F.ml0(p);
+  if (F.capped(p)) ml = max(nb - p + min(F.ml0(nb), 2047), ml);
+  ml = min(ml, max(F.n - 5 - p, 0));
+  const bool v = F.valid(p);
+  const bool im = v && ml >= 4 && p >= start;
+  const bool ce = v && F.capped(nb);
+  return ml | (im ? kImBit : 0) | (ce ? kCapEndBit : 0);
+}
+
+// Same-offset chain extension and the n - 5 clamp (jax_block.py:522-555),
+// position-parallel: each capped row takes its length from the nearest
+// chain boundary at or after it (a reverse cummax in the reference).
+// Writes M[p] = ml | is_match << 30 | cap_end << 29 for every row, kBatch
+// rows a thread at a time, so that their loads are in flight together.
+// bnd and nxt: nw = ceil(blk / 32) words of shared memory each.
+__device__ void chain_lengths_par(const Fields& F, int start, int32_t* M,
+                                  uint32_t* bnd, int* nxt, int* tmp) {
+  const int blk = F.blk, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int nw = (blk + 31) >> 5;
+  // boundary rows (no link into the next row); row blk - 1 always is one
+#pragma unroll 4
+  for (int base = warp * 32; base < nw * 32; base += kParseThreads) {
+    const int p = base + lane;
+    const unsigned bits = __ballot_sync(0xFFFFFFFFu, p < blk && !F.link(p));
+    if (lane == 0) bnd[base >> 5] = bits;
+  }
+  __syncthreads();
+  next_after_words(bnd, nw, blk, nxt, tmp);
+  for (int p0 = tid; p0 < blk; p0 += kBatch * kParseThreads) {
+    int word[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int p = p0 + u * kParseThreads;
+      word[u] = p < blk ? chain_word(F, start, bnd, nxt, p) : 0;
     }
-  }
-  __syncthreads();
-  int nb = first_bnd[tid];
-  for (int p = hi - 1; p >= lo; --p) {
-    if (!F.link(p)) nb = p;
-    int ml = F.ml0(p);
-    if (F.capped(p)) ml = max(nb - p + min(F.ml0(nb), 2047), ml);
-    ml = min(ml, max(n - 5 - p, 0));
-    const bool v = F.valid(p);
-    const bool im = v && ml >= 4 && p >= start;
-    const bool ce = v && F.capped(nb);
-    M[p] = ml | (im ? kImBit : 0) | (ce ? kCapEndBit : 0);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int p = p0 + u * kParseThreads;
+      if (p < blk) M[p] = word[u];
+    }
   }
   __syncthreads();
 }

@@ -8,30 +8,72 @@
 // chunks with one-hot reads, and repairs the parse with pooled gathers and
 // scatter.  Here the same bytes come from three kernels:
 //
-// enc_deep_match (one 1024-thread block per window of up to 64 KB; the window
-//   and the u16 sort order in shared memory as in enc_match, the ranks in
-//   global memory, 256 KB a window at 64 KB, which the L2 holds): the deep
-//   finder of encode_deep.cuh -- the 32-byte rank, at deep = 3 the 256-byte
-//   rank, the grand grouping sort, the +-1..+-hc probes with the nested tier
-//   chain, the positional fallback.  Wider windows go to enc_deep_match_wide
-//   (encode_deep_wide.cu), which runs the same steps over a u32 order held
-//   by a thread-block cluster and sorted by radix passes.
-//   Bound: the four sorts (136 bitonic stages each); two of them read their
-//   keys from global memory (L2), not shared memory.
+// enc_deep_match (one 1024-thread block per window of up to 64 KB; in
+//   shared memory the window words, the radix passes' histograms and the
+//   u16 order, 224 KB at 64 KB, as in enc_match; the ranks in device
+//   memory, 256 KB a window at 64 KB, which the L2 holds): the deep finder
+//   of encode_deep.cuh, its sorts the stable byte passes of sort_radix.cuh
+//   from the identity order, the position the last key:
+//   * the 32-byte order (s0, at(p+4), ..., at(p+28), p): 32 passes over
+//     window bytes, the last word first and each word from its low byte
+//     up; s0's bytes are 0xFF on the rows past n - 4, every byte zero at
+//     and past n;
+//   * its class numbering (ranksN): each thread compares its run of up to
+//     64 sorted rows with the row before, once a row, keeping the previous
+//     key in registers and the class boundaries as a bit mask, then one
+//     block scan of the counts; ranks count from 1;
+//   * the rank orders (x[p + step k], k < nk, then p; x = -1 past the end)
+//     in two passes a key over the bytes of x + 1, the last key first: 16
+//     for the 256-byte rank (deep 3: r, step 32, 8 keys) and 16 for the
+//     grand order at deep 2 (r, 8 keys), 8 at deep 1 (r, 4 keys) and deep
+//     3 (r2, step 256, 4 keys).  Two bytes hold x + 1: the rows past n - 4
+//     share one 32-byte key, and so at least the last three rows share one
+//     class of either rank, which leaves at most blk - 2 <= 65,534 classes
+//     (asserted where they are numbered).  A rank pass first writes its
+//     digit byte for every position into the window words' space
+//     (coalesced reads of the rank), so that the pass reads it from shared
+//     memory; the window words are loaded again before the probes;
+//   * the +-1..+-hc probes with the nested tier chain, then the positional
+//     fallback: the order (s0, p) in 4 more passes, probes +1 and +2.
+//   Level 12 sorts in 60 passes (10: 44, 11: 52).  Wider windows go to
+//   enc_deep_match_wide (encode_deep_wide.cu), which runs the same steps
+//   over a u32 order held by a thread-block cluster.
+//   Bound: issue and latency of the passes (a shared-memory atomic, a
+//   match and a scattered store a row a pass), the class numberings' and
+//   probes' rank loads from the L2; not the bytes it must move.
 //
-// enc_deep_dp (one 256-thread block per window):
-//   chain extension with tier lengths and the capped-end bit (:522-555),
-//   then the backward price parse (run_dp, :556-683).  The reference relaxes
-//   chunks of 32 positions to the fixpoint of
-//     cost[i] = min(256 + cost[i+1], price(i) + cost[i + min(ml, 512)],
-//                   768 + cost[i + 18] where ml > 18)
-//   with cost = 0 past the window; one thread runs that recurrence backwards
-//   over a 1024-entry cost ring in shared memory, the block staging 4096
-//   positions at a time through shared memory, so any window below 2^19
-//   bytes fits.  Costs stay below 256 * blk < 2^27, under the reference's
-//   INF_D = 2^28 (:582).  Output per position: ml (cut to 18 where the
-//   18-byte cut won) | take << 30 | cap_end << 29.
-//   Bound: the one thread's dependent chain, blk steps a window.
+// enc_deep_dp (one 256-thread block per window of up to 2^19 bytes):
+//   1. chain extension with tier lengths and the capped-end bit
+//      (:522-555), position-parallel (chain_lengths_par of
+//      encode_common.cuh, as in enc_parse_emit), into the state words;
+//   2. the backward price parse (run_dp, :556-683) by warp 0 alone, as the
+//      reference relaxes it: chunks of 32 positions, one a lane, from the
+//      last chunk down (the first one the warp takes is partial when 32
+//      does not divide blk).  Within a chunk the literal chain collapses to
+//      a suffix min over A[k] = price(k) + est[k + jmp] + 256 k
+//      (five __shfl_down_sync), and the match edges that land inside the
+//      chunk (jump >= 4, the 18-byte cut included) settle in at most 9
+//      rounds: est reads at p + jmp and p + 18 come from a lane shuffle
+//      inside the chunk and from a 1024-entry ring of exact costs in
+//      shared memory beyond it, read once a chunk; the rounds stop when a
+//      ballot shows that no lane an edge lands on (a mask made once a
+//      chunk by __reduce_or_sync) changed its estimate, so a chunk whose
+//      edges all leave it takes one round.  The fixpoint is the exact
+//      backward DP
+//        cost[i] = min(256 + cost[i+1], price(i) + cost[i + min(ml, 512)],
+//                      768 + cost[i + 18] where ml > 18)
+//      with cost = 0 past the window, and take (best <= lit, ties to the
+//      match: the cost is best) and cut (the 18-byte cut strictly cheaper)
+//      are read off the same costs.  The warp holds the next chunks' state
+//      words in registers, kDpAhead chunks ahead, so no block barrier sits
+//      on the chain; the other warps leave after step 1.  Costs stay below
+//      256 * blk < 2^27, under the reference's INF_D = 2^28 (:582).
+//   Output per position: ml (cut to 18 where the 18-byte cut won) | take
+//   << 30 | cap_end << 29.  Shared memory: the chain's boundary mask and
+//   next-boundary words, 2 ceil(blk / 32) words (16 KB at 64 KB, 80 KB at
+//   327,680), and the ring.
+//   Bound: the warp's chain of chunks, 2,048 a 64 KB window, each a few
+//   dependent shuffles a round.
 //
 // enc_deep_emit (one 256-thread block per window):
 //   the greedy parse over the take bits (:716-743) by one thread, which lists
@@ -47,14 +89,37 @@
 //   encode_common.cuh (Emitter), whose bytes enc_parse_emit's parallel
 //   emission reproduces.  The take mask and the pool live in dynamic shared
 //   memory: 61,440 bytes at 327,680, past the default 48 KB.
+//
+// Built with -DZL4_STOP=k (chip_smoke.py), enc_deep_match stops after phase
+// k and stores what it left: 1 window words, 2 the 32-byte sort, 3 its
+// class numbering, 4 the 256-byte rank's sort and 5 its numbering (deep 3;
+// at deep 1 and 2 these two cuts stop where cut 3 does), 6 the grand sort,
+// 7 the tier probes, 8 the s0 sort; 9 is the fallback probes.  Every cut
+// also stops enc_deep_dp after its chain extension (step 1).
+
+#include <assert.h>
 
 #include "encode_deep.cuh"
+#include "sort_radix.cuh"
+
+#ifdef ZL4_STOP
+#define ZL4_STOP_AFTER(k, keep) \
+  if (ZL4_STOP == (k)) {        \
+    keep;                       \
+    return;                     \
+  }
+#else
+#define ZL4_STOP_AFTER(k, keep)
+#endif
 
 namespace {
 
-constexpr int kDpRing = 1024;    // >= _DP_R + 1 entries, a power of two
+constexpr int kDpRing = 1024;    // >= _DP_R + 32 entries, a power of two
 constexpr int kDpR = 512;        // jumps are priced at min(ml, 512)
-constexpr int kDpChunk = 4096;   // positions staged per round
+constexpr int kDpLit = 256;      // a literal's cost (the reference's LITC)
+constexpr int kDpRounds = 9;     // KD / 4 + 1 relaxation rounds at most
+constexpr int kDpAhead = 4;      // chunks of state words a lane holds
+constexpr int kDpInf = 1 << 28;  // INF_D
 constexpr int kExtPool = 512;    // pooled rows per 64 KB of window
 constexpr int kExtBytes = 32;
 
@@ -64,76 +129,289 @@ __host__ __device__ __forceinline__ int ext_pool(int blk) {
   return P < blk ? P : blk;
 }
 
-__global__ void __launch_bounds__(kMatchThreads)
+// A radix digit staged in shared memory, by position.
+struct ByteAt {
+  const uint8_t* d;
+  __device__ __forceinline__ unsigned operator()(int p) const { return d[p]; }
+};
+
+// The sorts of enc_deep_match are calls, not inlined: a pass then has the
+// registers that the rest of the kernel keeps live across it (pointers,
+// the window's geometry), and spills far less; inlined, the passes took
+// about twice as long on the H100.
+
+// The order of the window words (sort_words of sort_radix.cuh).
+__device__ __noinline__ void sort_window(Window W, uint16_t* s, int rows,
+                                         uint32_t* hist, int* part, int nw) {
+  sort_words(W, s, rows, hist, part, nw);
+}
+
+// The order of the nk keys x[p + step k], k < nk, ties by position, from
+// the identity order s[0, rows): two passes a key over the bytes of x + 1
+// (x = -1 past the rows, so that -1 sorts first), the last key first.
+// Each pass first stages its digit byte of every position in dig (rows
+// bytes of shared memory), four positions a thread, the rank read
+// coalesced.
+__device__ __noinline__ void sort_ranks(const int32_t* x, int step, int nk,
+                                        uint16_t* s, int rows, uint8_t* dig,
+                                        uint32_t* hist, int* part) {
+  uint32_t* dig4 = reinterpret_cast<uint32_t*>(dig);
+#pragma unroll 1
+  for (int i = 0; i < 2 * nk; ++i) {
+    const int off = step * (nk - 1 - i / 2), sh = 8 * (i & 1);
+    for (int q = threadIdx.x; 4 * q < rows; q += blockDim.x) {
+      uint32_t v = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int p = 4 * q + k + off;
+        const uint32_t x1 = p < rows ? (uint32_t)(x[p] + 1) : 0u;
+        v |= ((x1 >> sh) & 0xFFu) << (8 * k);
+      }
+      dig4[q] = v;
+    }
+    __syncthreads();
+    radix_pass(s, rows, hist, part, ByteAt{dig});
+  }
+}
+
+// Number the classes of the sorted order s[0, rows) -- rows t - 1 and t
+// are in one class when their eight key words are equal -- from 1 in
+// sorted order, and store each row's number at its position (ranksN,
+// jax_block.py:285-296).  A thread takes a run of up to 64 rows, keeps the
+// previous row's key in registers and its class boundaries as a bit mask,
+// so each row's key is read once; one block scan adds the runs' counts.
+// part: 33 ints of shared memory.
+template <class Key>
+__device__ void block_ranks(const uint16_t* s, int rows, Key key,
+                            int32_t* rank, int* part) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int chunk = (rows + kRadixThreads - 1) / kRadixThreads;  // <= 64
+  const int i0 = min(tid * chunk, rows), i1 = min(i0 + chunk, rows);
+  uint32_t prev[8] = {};
+  uint64_t bounds = 0;
+  if (i0 < i1 && i0 > 0) {
+    const int q = s[i0 - 1];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) prev[k] = key(q, k);
+  }
+  for (int i = i0; i < i1; ++i) {
+    const int p = s[i];
+    bool same = i > 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const uint32_t v = key(p, k);
+      same &= v == prev[k];
+      prev[k] = v;
+    }
+    bounds |= (uint64_t)!same << (i - i0);
+  }
+  const int cnt = __popcll(bounds);
+  int x = cnt;  // inclusive scan of the run counts over the warp
+#pragma unroll
+  for (int k = 1; k < 32; k <<= 1) {
+    const int y = __shfl_up_sync(0xFFFFFFFFu, x, k);
+    if (lane >= k) x += y;
+  }
+  if (lane == 31) part[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    const int v = part[lane];
+    int y = v;
+#pragma unroll
+    for (int k = 1; k < 32; k <<= 1) {
+      const int z = __shfl_up_sync(0xFFFFFFFFu, y, k);
+      if (lane >= k) y += z;
+    }
+    part[lane] = y - v;
+    if (lane == 31) part[32] = y;  // the classes
+  }
+  __syncthreads();
+  // the rank passes read x + 1 as two bytes: at most rows - 2 classes
+  if (tid == 0) assert(rows < 3 || part[32] <= rows - 2);
+  int run = part[warp] + x - cnt;
+  for (int i = i0; i < i1; ++i) {
+    run += (int)((bounds >> (i - i0)) & 1u);
+    rank[s[i]] = run;
+  }
+  __syncthreads();
+}
+
+// One block an SM: with the minimum stated, ptxas takes the 64 registers a
+// thread that 1024 threads allow, not 32.
+__global__ void __launch_bounds__(kRadixThreads, 1)
 enc_deep_match_kernel(const uint8_t* __restrict__ data,
                       const int32_t* __restrict__ lens, int32_t* ranks,
-                      int32_t* __restrict__ pk, int blk, int N, int nwords,
-                      int hc, int deep) {
+                      int32_t* __restrict__ pk, int blk, int nwords, int hc,
+                      int deep) {
   extern __shared__ uint32_t smem[];
-  __shared__ int part[kMatchThreads];
+  __shared__ int part[33];
   uint32_t* words = smem;
-  uint16_t* s = reinterpret_cast<uint16_t*>(smem + nwords);
+  uint32_t* hist = smem + nwords;
+  uint16_t* s = reinterpret_cast<uint16_t*>(hist + kRadixHistWords);
+  // the rank passes' digits, in the window words' space
+  uint8_t* dig = reinterpret_cast<uint8_t*>(words);
   const int b = blockIdx.x;
   const int n = min(max(lens[b], 0), blk);
+  const uint8_t* row = data + (size_t)b * blk;
   int32_t* r = ranks + (size_t)b * (deep == 3 ? 2 : 1) * blk;
-  load_window(data + (size_t)b * blk, n, words, nwords, s, N);
-  deep_match(Window{words, n}, s, N, blk, hc, deep, r,
-             r + blk, pk + (size_t)b * blk, part);
+  int32_t* r2 = r + blk;  // deep == 3 only
+  int32_t* out = pk + (size_t)b * blk;
+  const Window W{words, n};
+#define ZL4_KEEP(value) \
+  for (int t = threadIdx.x; t < blk; t += blockDim.x) out[t] = (value)
+  load_window(row, n, words, nwords, s, blk);
+  ZL4_STOP_AFTER(1, ZL4_KEEP(words[t % nwords]))
+
+  // 32-byte rank: order by (s0, at(p+4), ..., at(p+28)), then number
+  sort_window(W, s, blk, hist, part, 8);
+  ZL4_STOP_AFTER(2, ZL4_KEEP(s[t]))
+  block_ranks(s, blk, Key32{W}, r, part);
+  ZL4_STOP_AFTER(3, ZL4_KEEP(r[t]))
+
+  if (deep == 3) {  // 256-byte rank over r[i], r[i+32], ..., r[i+224]
+    identity_order(s, blk);
+    sort_ranks(r, 32, 8, s, blk, dig, hist, part);
+  }
+  ZL4_STOP_AFTER(4, ZL4_KEEP(s[t]))
+  if (deep == 3) block_ranks(s, blk, KeyRanks{r, 32, blk}, r2, part);
+  ZL4_STOP_AFTER(5, ZL4_KEEP(deep == 3 ? r2[t] : r[t]))
+
+  // grand order by the last NK tier operands, ties by position
+  identity_order(s, blk);
+  if (deep == 3) sort_ranks(r2, 256, 4, s, blk, dig, hist, part);
+  else sort_ranks(r, 32, deep == 2 ? 8 : 4, s, blk, dig, hist, part);
+  ZL4_STOP_AFTER(6, ZL4_KEEP(s[t]))
+  load_words(row, n, words, nwords);  // the digits overwrote them
+  __syncthreads();
+  const Tiers T{r, r2, blk, deep};
+  for (int t = threadIdx.x; t < blk; t += blockDim.x) {
+    const int p = s[t];
+    out[p] = tier_pack(W, T, s, t, p, blk, hc);
+  }
+  __syncthreads();
+  ZL4_STOP_AFTER(7, )
+
+  // positional fallback: order by s0 alone, probes +1 and +2; it must beat
+  // the total ml, and clears the tier
+  identity_order(s, blk);
+  sort_window(W, s, blk, hist, part, 1);
+  ZL4_STOP_AFTER(8, ZL4_KEEP(s[t]))
+#undef ZL4_KEEP
+  for (int t = threadIdx.x; t < blk; t += blockDim.x) {
+    const int p = s[t];
+    const Cand c = nearest(W, s, t, 2, kMaxW);
+    if (c.ml > total_ml(out[p], deep)) out[p] = pack(c);
+  }
+}
+
+// One chunk [lo, hi) of the price parse by the warp, a position a lane:
+// v is the lane's state word after the chain extension, carry the exact
+// cost at hi (0 past the window), ring the exact costs beyond the chunk.
+// Stores the lane's state word and its exact cost; returns the cost at lo.
+__device__ __forceinline__ int dp_chunk(int32_t* M, int* ring, int lo, int hi,
+                                        int v, int carry, int R) {
+  constexpr unsigned kAll = 0xFFFFFFFFu;
+  const int lane = threadIdx.x & 31, p = lo + lane, m = hi - lo;
+  const bool im = lane < m && (v & kImBit);
+  int ml = v & kMlMask;
+  const int jmp = min(ml, R);
+  const int esc = jmp - 4 >= 15 ? 1 + max(jmp - 19, 0) / 255 : 0;
+  const int price = kDpLit * (3 + esc);
+  const bool tr = im && R >= 18 && jmp > 18;  // the 18-byte cut is priced
+  const bool inj = im && p + jmp < hi, in18 = tr && p + 18 < hi;
+  const int far = im && !inj ? ring[(p + jmp) & (kDpRing - 1)] : 0;
+  const int far18 = tr && !in18 ? ring[(p + 18) & (kDpRing - 1)] : 0;
+  const int sj = min(lane + jmp, 31), s18 = min(lane + 18, 31);
+  // the lanes an edge lands on: only their estimates feed the next round
+  const unsigned targets = __reduce_or_sync(
+      kAll, (inj ? 1u << sj : 0u) | (in18 ? 1u << s18 : 0u));
+  const int T = m * kDpLit + carry;  // all literals to hi
+  const int kl = lane * kDpLit;
+  int est = T - kl, ej = 0, e18 = 0;
+#pragma unroll 1
+  for (int round = 0; round < kDpRounds; ++round) {
+    ej = __shfl_sync(kAll, est, sj);
+    e18 = __shfl_sync(kAll, est, s18);
+    int a = kDpInf;
+    if (im) {
+      a = price + (inj ? ej : far);
+      if (tr) a = min(a, 3 * kDpLit + (in18 ? e18 : far18));
+      a += kl;
+    }
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {  // suffix min over the lanes
+      const int x = __shfl_down_sync(kAll, a, o);
+      if (lane + o < 32) a = min(a, x);
+    }
+    const int nv = min(a, T) - kl;
+    const unsigned moved = __ballot_sync(kAll, nv != est) & targets;
+    est = nv;
+    if (!moved) break;  // the next round would read the same estimates
+  }
+  // est is exact, and so are ej and e18 where an edge lands in the chunk
+  // (no target moved in the last round); est = min(best, 256 + est[k+1]),
+  // so the match is taken where it is the cost (ties to the match)
+  if (lane < m) {
+    int w = v;
+    if (im) {
+      const int a_full = price + (inj ? ej : far);
+      const int a_tr = 3 * kDpLit + (in18 ? e18 : far18);
+      const bool cut = tr && a_tr < a_full;  // only when strictly cheaper
+      const bool take = (cut ? a_tr : a_full) == est;
+      if (cut) ml = min(ml, 18);
+      w = ml | (take ? kImBit : 0) |
+          ((v & kCapEndBit) && !cut ? kCapEndBit : 0);
+    }
+    ring[p & (kDpRing - 1)] = est;
+    M[p] = w;
+  }
+  __syncwarp();
+  return __shfl_sync(kAll, est, 0);
 }
 
 __global__ void __launch_bounds__(kParseThreads)
 enc_deep_dp_kernel(const int32_t* __restrict__ lens,
                    const int32_t* __restrict__ starts,
-                   const int32_t* __restrict__ pk, int32_t* __restrict__ st,
-                   int blk, int capped_ml, int deep) {
-  __shared__ int first_bnd[kParseThreads];
+                   const int32_t* __restrict__ pk, int32_t* st, int blk,
+                   int capped_ml, int deep) {
+  extern __shared__ uint32_t bnd[];  // then nxt: ceil(blk / 32) words each
+  __shared__ int tmp[kParseThreads / 32];
   __shared__ int ring[kDpRing];
-  __shared__ int32_t cm[kDpChunk];
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int nw = (blk + 31) >> 5;
   const int n = min(max(lens[b], 0), blk);
   const int start = min(max(starts[b], 0), n);
   const Fields F{pk + (size_t)b * blk, n, blk, capped_ml, deep};
   int32_t* M = st + (size_t)b * blk;
 
-  chain_lengths(F, start, M, first_bnd);
+  chain_lengths_par(F, start, M, bnd, reinterpret_cast<int*>(bnd + nw), tmp);
+#ifdef ZL4_STOP
+  return;
+#endif
+  if (threadIdx.x >= 32) return;  // warp 0 runs the price parse
 
-  for (int k = tid; k < kDpRing; k += kParseThreads) ring[k] = 0;
+  const int lane = threadIdx.x;
+  for (int k = lane; k < kDpRing; k += 32) ring[k] = 0;
+  __syncwarp();
   const int R = min(kDpR, blk);
-  for (int hi = blk; hi > 0; hi -= kDpChunk) {
-    const int lo = max(hi - kDpChunk, 0);
-    for (int k = lo + tid; k < hi; k += kParseThreads) cm[k - lo] = M[k];
-    __syncthreads();
-    if (tid == 0) {
-      for (int p = hi - 1; p >= lo; --p) {
-        const int v = cm[p - lo];
-        const int lit = 256 + ring[(p + 1) & (kDpRing - 1)];
-        if (!(v & kImBit)) {
-          ring[p & (kDpRing - 1)] = lit;
-          continue;
-        }
-        int ml = v & kMlMask;
-        const int jmp = min(ml, R);
-        const int esc = jmp - 4 >= 15 ? 1 + max(jmp - 19, 0) / 255 : 0;
-        int best = 256 * (3 + esc) + ring[(p + jmp) & (kDpRing - 1)];
-        bool cut = false;
-        if (R >= 18 && jmp > 18) {
-          const int a_tr = 768 + ring[(p + 18) & (kDpRing - 1)];
-          if (a_tr < best) {  // the 18-byte cut, only when strictly cheaper
-            cut = true;
-            best = a_tr;
-          }
-        }
-        const bool take = best <= lit;  // ties go to the match
-        ring[p & (kDpRing - 1)] = min(best, lit);
-        if (cut) ml = min(ml, 18);
-        cm[p - lo] = ml | (take ? kImBit : 0) |
-                     ((v & kCapEndBit) && !cut ? kCapEndBit : 0);
-      }
+  const int top = (blk - 1) >> 5;  // the last chunk, maybe partial
+  int ahead[kDpAhead];  // state words of chunks top - a, top - a - kDpAhead..
+#pragma unroll
+  for (int a = 0; a < kDpAhead; ++a) {
+    const int p = ((top - a) << 5) + lane;
+    ahead[a] = top - a >= 0 && p < blk ? M[p] : 0;
+  }
+  int carry = 0;
+#pragma unroll 1
+  for (int c0 = top; c0 >= 0; c0 -= kDpAhead) {
+#pragma unroll
+    for (int a = 0; a < kDpAhead; ++a) {
+      const int c = c0 - a;
+      if (c < 0) break;
+      const int v = ahead[a];
+      if (c - kDpAhead >= 0) ahead[a] = M[((c - kDpAhead) << 5) + lane];
+      carry = dp_chunk(M, ring, c << 5, min((c << 5) + 32, blk), v, carry, R);
     }
-    __syncthreads();
-    for (int k = lo + tid; k < hi; k += kParseThreads) M[k] = cm[k - lo];
-    __syncthreads();
   }
 }
 
@@ -264,16 +542,21 @@ extern "C" int zl4_enc_deep_match(const void* data, const void* lens,
                                   int hc, int deep, void* stream) {
   // ranks: scratch, int32[B, 1, blk] for the 32-byte rank, int32[B, 2, blk]
   // at deep == 3, which adds the 256-byte rank
-  if (B <= 0 || blk <= 0 || blk > 65536 || hc < 1 || deep < 1 || deep > 3)
+  if (B <= 0 || blk <= 0 || blk > kRadixMaxRows || hc < 1 || deep < 1 ||
+      deep > 3)
     return (int)cudaErrorInvalidValue;
-  const MatchShape m = match_shape(blk);
+  // the window words (at least blk bytes: the rank passes' digits go
+  // there), the passes' histograms and the u16 order
+  const int nwords = (blk + kPad) / 4 + 1;
+  const size_t smem = ((size_t)nwords + kRadixHistWords) * 4 +
+                      (size_t)blk * 2;
   cudaError_t err = cudaFuncSetAttribute(
       enc_deep_match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)m.smem);
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  enc_deep_match_kernel<<<B, kMatchThreads, m.smem, (cudaStream_t)stream>>>(
+  enc_deep_match_kernel<<<B, kRadixThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)data, (const int32_t*)lens, (int32_t*)ranks,
-      (int32_t*)pk, blk, m.N, m.nwords, hc, deep);
+      (int32_t*)pk, blk, nwords, hc, deep);
   return (int)cudaGetLastError();
 }
 
@@ -282,7 +565,13 @@ extern "C" int zl4_enc_deep_dp(const void* lens, const void* starts,
                                int capped_ml, int deep, void* stream) {
   if (B <= 0 || blk <= 0 || blk >= (1 << 19) || deep < 1 || deep > 3)
     return (int)cudaErrorInvalidValue;
-  enc_deep_dp_kernel<<<B, kParseThreads, 0, (cudaStream_t)stream>>>(
+  // the chain's boundary mask and next-boundary words
+  const size_t smem = 2 * (size_t)((blk + 31) / 32) * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      enc_deep_dp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  enc_deep_dp_kernel<<<B, kParseThreads, smem, (cudaStream_t)stream>>>(
       (const int32_t*)lens, (const int32_t*)starts, (const int32_t*)pk,
       (int32_t*)st, blk, capped_ml, deep);
   return (int)cudaGetLastError();

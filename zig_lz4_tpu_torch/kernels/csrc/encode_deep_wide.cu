@@ -57,27 +57,10 @@
 
 namespace {
 
-// The eight key words of a class: the 32-byte key (s0, at(p+4), ...,
-// at(p+28)), or the rank keys x[p + step k], k < 8 (-1 past the end).
-struct Key32 {
-  Window W;
-  __device__ __forceinline__ uint32_t operator()(int p, int k) const {
-    return k ? W.at(p + 4 * k) : W.s0(p);
-  }
-};
-
-struct KeyRanks {
-  const int32_t* x;
-  int step, blk;
-  __device__ __forceinline__ uint32_t operator()(int p, int k) const {
-    return (uint32_t)shl_at(x, p, step * k, blk);
-  }
-};
-
 // Number the classes of the cluster's sorted order -- rows t - 1 and t are
 // in one class when their eight key words are equal -- from 1 in sorted
 // order, and store each row's number at its position (ranksN,
-// jax_block.py:285-296; assign_ranks of encode_deep.cuh across the
+// jax_block.py:285-296; block_ranks of encode_deep.cu across the
 // cluster).  A thread takes a run of at most 32 rows of its CTA's slice,
 // keeps the previous row's key in registers and its class boundaries as a
 // bit mask, so each row's key is read once; the row before a slice comes

@@ -3,11 +3,13 @@
 //
 // A lexicographic order over window bytes with the position as the last key
 // is exactly what a chain of stable byte passes, least significant digit
-// first, makes of the identity order; so the encoder's comparison orders
-// (encode_block.cu: Less12 in 12 passes, LessS0 in 4) come out of these
-// passes with every tie broken by the position, as the bitonic network's
-// comparator broke it.  Each pass reads ONE byte per row, where a network
-// stage recomputed 4-12-byte keys at two random rows per compare.
+// first, makes of the identity order; so the encoders' comparison orders
+// (enc_match: the 12-byte order in 12 passes, (s0, p) in 4; enc_deep_match:
+// the 32-byte order in 32, its rank orders in 2 a rank key, encode_deep.cu)
+// come out of these passes with every tie broken by the position, as a
+// comparison network's comparator broke it.  Each pass reads ONE byte per
+// row, where a network stage recomputed 4-32-byte keys at two random rows
+// per compare.
 //
 // A pass over `rows` rows (<= 65,536):
 //   1. each warp takes a contiguous slice of the current order, J tiles of
@@ -32,8 +34,7 @@
 
 #pragma once
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "encode_common.cuh"
 
 namespace {
 
@@ -147,6 +148,35 @@ __device__ void radix_pass(uint16_t* s, int rows, uint32_t* hist, int* part,
     }
   }
   __syncthreads();
+}
+
+// Byte k of each row's key for one radix pass: window byte p + k, or, on
+// the s0 passes (s0 = true), 0xFF on the rows past n - 4, whose s0 is
+// 0xFFFFFFFF (Window::s0).  Bytes at and past n read as zero.
+struct KeyByte {
+  const uint32_t* w;
+  int n, k;
+  bool s0;
+  __device__ __forceinline__ unsigned operator()(int p) const {
+    if (s0 && p > n - 4) return 0xFFu;
+    const int q = p + k;
+    return (w[q >> 2] >> ((q & 3) * 8)) & 0xFFu;
+  }
+};
+
+// The lexicographic order of the nw words (s0, at(p+4), ..., at(p+4(nw-1)))
+// of each row, ties by position, from the identity order: 4 nw passes over
+// window bytes, the last word first, each word from its low byte up
+// (Less12 of the reference's HC finder: nw = 3; the order (s0, p): 1; the
+// deep finder's 32-byte order: 8).
+__device__ void sort_words(const Window& W, uint16_t* s, int rows,
+                           uint32_t* hist, int* part, int nw) {
+#pragma unroll 1
+  for (int i = 0; i < 4 * nw; ++i) {
+    const int wk = nw - 1 - i / 4;
+    radix_pass(s, rows, hist, part, KeyByte{W.w, W.n, 4 * wk + (i & 3),
+                                            wk == 0});
+  }
 }
 
 }  // namespace

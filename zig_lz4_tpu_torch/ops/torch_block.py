@@ -37,7 +37,9 @@ and, for the deep levels, ``kernels/csrc/encode_deep.cu``):
 * ``enc_deep_match`` (``deep`` 1..3) -- the finder of the deep levels:
   exact 32-byte ranks (and 256-byte ranks at ``deep=3``), the grand
   grouping sort by the deepest tier operands, +-1..+-hc probes with
-  nested tier lengths, then the positional fallback.  The pack gains a
+  nested tier lengths, then the positional fallback; its orders are
+  stable byte radix sorts in one block's shared memory, as
+  ``enc_match``'s, two passes a rank key.  The pack gains a
   4-bit tier field: ``((cand + 1) << 12) | (fine ml << 6) | (tier << 2)
   | back`` (``jax_block.py:459-461``).
 * ``enc_deep_match_wide`` (``kernels/csrc/encode_deep_wide.cu``) -- the
@@ -45,9 +47,10 @@ and, for the deep levels, ``kernels/csrc/encode_deep.cu``):
   ``enc_match_wide`` keeps it, its ranks sorted by radix passes too and
   numbered by a scan across the cluster.
 * ``enc_deep_dp`` -- chain extension with the tier lengths, then the
-  backward price parse over a 512-entry cost ring with the 18-byte cut
-  (``run_dp``, ``jax_block.py:556-683``): per position the final
-  length, the ``take`` bit and the capped-end bit.
+  backward price parse with the 18-byte cut (``run_dp``,
+  ``jax_block.py:556-683``), relaxed as the reference does in chunks of
+  32 positions, one warp a window and a position a lane: per position
+  the final length, the ``take`` bit and the capped-end bit.
 * ``enc_deep_emit`` -- the greedy parse over ``take``, the pooled exact
   extension of capped chosen ends and the one-pass absorb
   (``jax_block.py:748-863``; 512 pooled rows per 64 KB of window), then
