@@ -66,12 +66,15 @@ versions on every 12th window of the 1 MB paths as well.
 ``enc_match`` and ``enc_parse_emit`` meet their plain versions on 22
 edge windows (eight of them dense in ties), on every window of the 64 KB
 paths at levels 9, 4 and 0, and ``enc_parse_emit`` on every window of
-the wide paths at levels 0-9.  Both are timed phase by phase: the
-smoke builds ``encode_block.cu`` four more times with ``-DZL4_STOP=k``,
-which stops each kernel after its k-th phase, and times every cut on
-the same inputs; ``enc_match``'s 12-byte order is held against a
-batched stable ``torch.sort`` of its three words, which is timed beside
-it as a yardstick for that sort alone.  The two wide finders, which sort
+the wide paths at levels 0-9; ``enc_match_fast`` meets its plain
+version at accelerations 1, 2, 4 and 8 on the 22 edge windows, at 1 on
+every window of the level-0 path and at 2, 4 and 8 on every 12th.  The
+three are timed phase by phase: the smoke builds ``encode_block.cu``
+four more times with ``-DZL4_STOP=k``, which stops each kernel after its
+k-th phase, and times every cut on the same inputs; ``enc_match``'s
+12-byte order and ``enc_match_fast``'s s0 order are held against a
+batched stable ``torch.sort`` of their three words and their one word,
+which is timed beside each as a yardstick for that sort alone.  The two wide finders, which sort
 by radix passes across a thread-block cluster a window, get the same
 at the 1 MB paths' launch (192 windows of 327,680 bytes): cuts of
 ``encode_wide.cu`` (level 9) and ``encode_deep_wide.cu`` (level 12)
@@ -84,7 +87,12 @@ which sorts by radix passes in one block's shared memory: the cuts of
 ``encode_deep.cu`` (eight more builds) at levels 12 and 10, its 32-byte
 order against ``torch.sort`` of its eight words, and ptxas; every cut
 also stops ``enc_deep_dp`` after its chain extension, which splits that
-kernel into its chain and its warp-parallel price parse.  The three
+kernel into its chain and its warp-parallel price parse, and stops
+``enc_deep_emit`` after its take mask (cut 1), its walk (cut 2) or its
+compaction (cuts 3-8), which splits it into its mask, walk, absorb and
+emission at 64 KB (levels 12 and 10) and at the 1 MB level-12 launch.
+``enc_deep_emit`` also meets its plain version on a window whose capped
+chosen rows outnumber its extension pool of 512.  The three
 deep kernels are timed at every one of their launches on the counted
 paths (the three 64 KB levels, the block codec and, for ``enc_deep_dp``
 and ``enc_deep_emit``, the three wide deep paths), and the ``[rank]``
@@ -211,8 +219,11 @@ WIDE_DEEP_PHASES = ("window words", "32-byte sort", "32-byte rank numbering",
                     "256-byte rank sort", "256-byte rank numbering",
                     "grand sort", "tier probes", "s0 sort",
                     "fallback probes")
+#: phases of enc_deep_emit, one a cut (1, 2, 3) and the last the rest
+DEEP_EMIT_PHASES = ("take mask", "walk", "absorb and compaction", "emission")
 #: kernels whose registers and spills the build log gives
-PTXAS_KERNELS = ("enc_match_kernel", "enc_parse_emit_kernel",
+PTXAS_KERNELS = ("enc_match_kernel", "enc_match_fast_kernel",
+                 "enc_parse_emit_kernel", "enc_deep_emit_kernel",
                  "enc_match_wide_kernel<20>", "enc_match_wide_kernel<32>",
                  "enc_deep_match_wide_kernel<20>",
                  "enc_deep_match_wide_kernel<32>", "enc_deep_match_kernel",
@@ -373,16 +384,19 @@ def finish_phase_builds(jobs):
 
 
 def phase_split(libs, w, l, s, pk, hc, capped_ml):
-    """Milliseconds of each phase cut of ``enc_match`` (at ``hc``) and of
-    ``enc_parse_emit`` (on ``pk``, HC parse) at the windows ``w``, from
-    the cuts of ``encode_block.cu``, called through ctypes (not counted
-    as launches), and what the ZL4_STOP=2 cut of ``enc_match`` leaves:
-    each window's order after its 12-byte sort.  Returns ({k: match ms},
-    {k: emit ms}, order)."""
+    """Milliseconds of each phase cut of ``enc_match`` (at ``hc``), of
+    ``enc_parse_emit`` (on ``pk``, HC parse) and of ``enc_match_fast``
+    (acceleration 1; its cuts 1 and 2) at the windows ``w``, from the
+    cuts of ``encode_block.cu``, called through ctypes (not counted as
+    launches), and what the ZL4_STOP=2 cuts of the two finders leave:
+    each window's order after its 12-byte sort and after its s0 sort.
+    Returns ({k: match ms}, {k: emit ms}, {k: fast ms}, order, s0
+    order)."""
     import ctypes
 
     import torch
     from zig_lz4_tpu_torch.constants import compress_bound
+    from zig_lz4_tpu_torch.ops import torch_block as tb
     B, blk = w.shape
     P, I = ctypes.c_void_p, ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream
@@ -393,11 +407,14 @@ def phase_split(libs, w, l, s, pk, hc, capped_ml):
                        dtype=torch.int32, device=w.device)
     out = torch.empty((B, cap), dtype=torch.uint8, device=w.device)
     olen = torch.empty(B, dtype=torch.int32, device=w.device)
-    m_ms, e_ms, order = {}, {}, None
+    W, probes = tb.fast_params(1)
+    m_ms, e_ms, f_ms, order, order_s0 = {}, {}, {}, None, None
     for k, lib in libs["encode_block.cu"].items():
         fm, fe = lib.zl4_enc_match, lib.zl4_enc_parse_emit
+        ff = lib.zl4_enc_match_fast
         fm.argtypes, fm.restype = [P] * 3 + [I] * 3 + [P], I
         fe.argtypes, fe.restype = [P] * 8 + [I] * 6 + [P], I
+        ff.argtypes, ff.restype = [P] * 3 + [I] * 4 + [P], I
 
         def match():
             check(fm(w.data_ptr(), l.data_ptr(), cut.data_ptr(), B, blk, hc,
@@ -409,13 +426,22 @@ def phase_split(libs, w, l, s, pk, hc, capped_ml):
                      olen.data_ptr(), B, blk, cap, runs.shape[1], capped_ml,
                      1, stream) == 0, f"enc_parse_emit cut {k} did not "
                   "launch")
+        def fast():
+            check(ff(w.data_ptr(), l.data_ptr(), cut.data_ptr(), B, blk, W,
+                     probes, stream) == 0, f"enc_match_fast cut {k} did not "
+                  "launch")
         match()
         emit()
         m_ms[k] = cuda_ms(match, 2)[0]
         e_ms[k] = cuda_ms(emit, 2)[0]
         if k == 2:
             order = cut.clone()
-    return m_ms, e_ms, order
+        if k <= 2:
+            fast()
+            f_ms[k] = cuda_ms(fast, 2)[0]
+        if k == 2:
+            order_s0 = cut.clone()
+    return m_ms, e_ms, f_ms, order, order_s0
 
 
 def wide_phase_split(libs, w, l, hc, deep=0):
@@ -506,13 +532,65 @@ def deep_phase_split(libs, w, l, s, pk, hc, deep):
     return ms, order, cuda_ms(chain, 2)[0]
 
 
+def deep_emit_phase_split(libs, w, l, s, pk, st):
+    """Milliseconds of the phase cuts 1-3 of ``enc_deep_emit`` (the cuts of
+    ``encode_deep.cu``, through ctypes, not counted) on the windows ``w``
+    with the finder's candidates ``pk`` and the state words ``st``: the
+    take mask, then the walk, then the absorb and compaction.  Returns
+    {k: ms}."""
+    import ctypes
+
+    import torch
+    from zig_lz4_tpu_torch.constants import compress_bound
+    B, blk = w.shape
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    cap, chcap = compress_bound(blk), blk // 4 + 1
+    chosen = torch.empty((B, chcap), dtype=torch.int32, device=w.device)
+    ents = torch.empty((B, 4 * chcap), dtype=torch.int32, device=w.device)
+    runs = torch.empty((B, 3 * (blk // 4 + 2)), dtype=torch.int32,
+                       device=w.device)
+    out = torch.empty((B, cap), dtype=torch.uint8, device=w.device)
+    olen = torch.empty(B, dtype=torch.int32, device=w.device)
+    ms = {}
+    for k in (1, 2, 3):
+        f = libs["encode_deep.cu"][k].zl4_enc_deep_emit
+        f.argtypes, f.restype = [P] * 10 + [I] * 5 + [P], I
+
+        def run():
+            check(f(w.data_ptr(), l.data_ptr(), s.data_ptr(), pk.data_ptr(),
+                    st.data_ptr(), chosen.data_ptr(), ents.data_ptr(),
+                    runs.data_ptr(), out.data_ptr(), olen.data_ptr(), B, blk,
+                    cap, runs.shape[1], chcap, stream) == 0,
+                  f"enc_deep_emit cut {k} did not launch")
+        run()
+        ms[k] = cuda_ms(run, 2)[0]
+    return ms
+
+
+def overflow_window(np, seed=11, blk=BLK):
+    """A window whose capped chosen rows at level 12 outnumber
+    ``enc_deep_emit``'s extension pool of 512 (the recipe of
+    ``overflow_window`` in tests/test_torch_deep_emit_scan.py): lines of
+    36 to 45 bytes drawn from 400 random ones, each within two lines of
+    the one before."""
+    rng = np.random.default_rng(seed)
+    lines = [rng.integers(0, 256, int(rng.integers(36, 46)), dtype=np.uint8)
+             for _ in range(400)]
+    out, k = [], 0
+    while sum(map(len, out)) < blk:
+        k = (k + int(rng.integers(-2, 3))) % len(lines)
+        out.append(lines[k])
+    return np.concatenate(out)[:blk]
+
+
 def torch_sort_words(torch, w, l, nw=3):
     """The batched stable torch.sort of the nw words (s0, at(p+4), ...,
     at(p+4(nw-1))) of every window, least significant first
     (_stable_order of the plain version over every window at once): the
-    12-byte order at nw = 3, the 32-byte order at nw = 8.  Returns the
-    windows' position orders, and a function that sorts again from the
-    same keys (for timing the sorts alone)."""
+    12-byte order at nw = 3, the 32-byte order at nw = 8, the s0 order at
+    nw = 1.  Returns the windows' position orders, and a function that
+    sorts again from the same keys (for timing the sorts alone)."""
     B, blk = w.shape
     idx = torch.arange(blk, device=w.device)
     b = torch.where(idx < l[:, None], w.long(), 0)
@@ -760,13 +838,15 @@ def time_encoder_kernels():
     does, so that two checkouts (one unpacked from the parent commit with
     ``git archive``) can be compared in turns in one call: at the main
     path's shapes, 768 x 64 KB windows of the bench corpus, ``enc_match``
-    (hc 9 and 4), ``enc_match_fast`` (hc 0), ``enc_deep_match`` (levels
-    12 and 10), ``enc_deep_dp`` (level 12) and ``enc_parse_emit`` (levels
-    9 and 0); at the 1 MB paths' shapes, the corpus's 192 sub-span windows
-    of 327,680 bytes, ``enc_match_wide`` (hc 9 and 0),
-    ``enc_deep_match_wide`` and ``enc_deep_dp`` (level 12).  It uses only
-    what every version of the port has: ``torch_block.match_candidates``,
-    ``deep_dp``, ``parse_emit`` and ``corpus.make_corpus``.  Each time is
+    (hc 9 and 4), ``enc_match_fast`` (hc 0 at accelerations 1, 2, 4 and
+    8), ``enc_deep_match`` (levels 12 and 10), ``enc_deep_dp`` and
+    ``enc_deep_emit`` (level 12) and ``enc_parse_emit`` (levels 9 and 0);
+    at the 1 MB paths' shapes, the corpus's 192 sub-span windows of
+    327,680 bytes, ``enc_match_wide`` (hc 9 and 0), ``enc_parse_emit``
+    (level 9), ``enc_deep_match_wide``, ``enc_deep_dp`` and
+    ``enc_deep_emit`` (level 12).  It uses only what every version of the
+    port has: ``torch_block.match_candidates``, ``deep_dp``,
+    ``deep_emit``, ``parse_emit`` and ``corpus.make_corpus``.  Each time is
     the median of 5 calls between CUDA events, after one warm-up call; it
     prints one line."""
     sys.path.insert(0, os.getcwd())
@@ -791,24 +871,38 @@ def time_encoder_kernels():
     pk9, pk0 = tb.match_candidates(w, n, 9), tb.match_candidates(w, n, 0)
     pk12 = tb.match_candidates(w, n, 8, 1, 3)
     pkw12 = tb.match_candidates(ww, nw, 8, 1, 3)
+    pkw9 = tb.match_candidates(ww, nw, 9)
+    sd12, sdw12 = tb.deep_dp(n, st, pk12, 3), tb.deep_dp(nw, sw, pkw12, 3)
     calls = {"enc_match hc=9": lambda: tb.match_candidates(w, n, 9),
              "enc_match hc=4": lambda: tb.match_candidates(w, n, 4),
              "enc_match_fast hc=0": lambda: tb.match_candidates(w, n, 0),
+             "enc_match_fast accel 2":
+             lambda: tb.match_candidates(w, n, 0, 2),
+             "enc_match_fast accel 4":
+             lambda: tb.match_candidates(w, n, 0, 4),
+             "enc_match_fast accel 8":
+             lambda: tb.match_candidates(w, n, 0, 8),
              "enc_deep_match level 12":
              lambda: tb.match_candidates(w, n, 8, 1, 3),
              "enc_deep_match level 10":
              lambda: tb.match_candidates(w, n, 8, 1, 1),
              "enc_deep_dp level 12": lambda: tb.deep_dp(n, st, pk12, 3),
+             "enc_deep_emit level 12":
+             lambda: tb.deep_emit(w, n, st, pk12, sd12),
              "enc_parse_emit level 9": lambda: tb.parse_emit(w, n, st, pk9),
              "enc_parse_emit level 0": lambda: tb.parse_emit(w, n, st, pk0,
                                                              0),
              f"enc_match_wide hc=9 at {ww.shape[0]} x {SUB_WINDOW}":
              lambda: tb.match_candidates(ww, nw, 9),
              "enc_match_wide hc=0": lambda: tb.match_candidates(ww, nw, 0),
+             "enc_parse_emit level 9 at the 1 MB shape":
+             lambda: tb.parse_emit(ww, nw, sw, pkw9),
              "enc_deep_match_wide level 12":
              lambda: tb.match_candidates(ww, nw, 8, 1, 3),
              "enc_deep_dp level 12 at the 1 MB shape":
-             lambda: tb.deep_dp(nw, sw, pkw12, 3)}
+             lambda: tb.deep_dp(nw, sw, pkw12, 3),
+             "enc_deep_emit level 12 at the 1 MB shape":
+             lambda: tb.deep_emit(ww, nw, sw, pkw12, sdw12)}
     ms = {}
     for k, fn in calls.items():
         fn()
@@ -1015,6 +1109,21 @@ def main():
           f"host block decoder")
     check(all(deep_gold_ok.values()),
           "deep encoder output differs from JAX goldens")
+    # enc_deep_emit where its extension pool overflows: more capped chosen
+    # rows than P = 512, so only the first 512 by position are extended
+    w_ov = torch.from_numpy(overflow_window(np)[None]).to(dev)
+    l_ov = torch.full((1,), BLK, dtype=torch.int32, device=dev)
+    s_ov = torch.zeros_like(l_ov)
+    deep_against_plain("pool-overflow window", w_ov, l_ov, s_ov, 8, 3)
+    st_ov = tb.deep_dp(l_ov, s_ov, tb.match_candidates(w_ov, l_ov, 8, 1, 3),
+                       3)[0].long().cpu()
+    chosen_ov = tb._greedy(((st_ov >> 30) & 1).bool(),
+                           (st_ov & 0xFFFFF).tolist())
+    capped_ov = int(((st_ov[chosen_ov] >> 29) & 1).sum())
+    print(f"[K4] pool-overflow window: {len(chosen_ov)} chosen rows, "
+          f"{capped_ov} of them capped, beside a pool of 512")
+    check(capped_ov > 512, "the pool-overflow window does not overflow")
+    del w_ov, st_ov
 
     # --- phase 2c: K1 against its plain version, on T-maps of 16
     # level-9 corpus blocks
@@ -1968,14 +2077,28 @@ def main():
     k_match4, pk4 = cuda_ms(lambda: tb.match_candidates(w_all, l_all, 4), 2)
     tb.match_candidates(w_all, l_all, 0)
     k_fast, pk_fast = cuda_ms(lambda: tb.match_candidates(w_all, l_all, 0), 2)
+    # the other accelerations: timed at the path's shape, against plain on
+    # every PLAIN_STRIDE-th window
+    fast_ms, fast_err = {1: k_fast}, {}
+    for accel in (2, 4, 8):
+        tb.match_candidates(w_all, l_all, 0, accel)
+        fast_ms[accel], pk_a = cuda_ms(
+            lambda: tb.match_candidates(w_all, l_all, 0, accel), 2)
+        fast_err[accel] = max_abs_err(
+            pk_a[sel], tb.match_candidates_plain(w_sel, l_sel, 0, accel))
+    del pk_a
+    print(f"[K3] enc_match_fast at accelerations 2, 4, 8 vs plain on "
+          f"{int(sel.numel())} x 64 KB windows: max_abs_err {fast_err}")
+    check(not any(fast_err.values()),
+          "enc_match_fast differs from plain at an acceleration")
     tb.parse_emit(w_all, l_all, s_all, pk_fast, 0)
     k_emit0, (out_f, olen_f) = cuda_ms(
         lambda: tb.parse_emit(w_all, l_all, s_all, pk_fast, 0), 2)
     # the two redesigned kernels phase by phase, on the same inputs: each
     # ZL4_STOP cut of encode_block.cu against the whole kernel
     phase_libs = finish_phase_builds(phase_jobs)
-    cut_m, cut_e, cut_order = phase_split(phase_libs, w_all, l_all, s_all,
-                                          pk_all, 9, 4 + 4 * 8)
+    cut_m, cut_e, cut_f, cut_order, cut_s0 = phase_split(
+        phase_libs, w_all, l_all, s_all, pk_all, 9, 4 + 4 * 8)
     match_phases = dict(zip(
         ("window load", "12-byte sort", "probes +-9", "s0 sort",
          "fallback probes"),
@@ -1985,10 +2108,17 @@ def main():
         ("chain", "lazy mask", "walk", "emission"),
         [cut_e[1], cut_e[2] - cut_e[1], cut_e[3] - cut_e[2],
          k_emit - cut_e[3]]))
+    fast_phases = {accel: {"window load": cut_f[1],
+                           "s0 sort": cut_f[2] - cut_f[1],
+                           "probes": t - cut_f[2]}
+                   for accel, t in fast_ms.items()}
     order_ts, sort_again = torch_sort_words(torch, w_all, l_all)
     k_tsort, _o = cuda_ms(sort_again, 2)
     same_order = torch.equal(order_ts.int(), cut_order)
-    del order_ts, sort_again, _o, cut_order
+    order_ts, sort_again = torch_sort_words(torch, w_all, l_all, 1)
+    k_tsort_s0, _o = cuda_ms(sort_again, 2)
+    same_s0 = torch.equal(order_ts.int(), cut_s0)
+    del order_ts, sort_again, _o, cut_order, cut_s0
     print(f"[time] {smi}: enc_match (hc=9) at {nb} x 64 KB by phase (cuts "
           "of encode_block.cu, -DZL4_STOP=1..4, each timed whole; a phase = "
           "difference of two cuts): " + ", ".join(
@@ -2004,6 +2134,18 @@ def main():
           f"{match_phases['12-byte sort']:.3f} ms; orders equal: "
           f"{same_order}")
     check(same_order, "enc_match's 12-byte order differs from torch.sort's")
+    print(f"[time] {smi}: enc_match_fast at {nb} x 64 KB by acceleration "
+          "and phase (cuts 1 and 2 of encode_block.cu; the probes = whole - "
+          "cut 2): " + "; ".join(
+              f"accel {a}: " + ", ".join(f"{k} {v:.3f} ms"
+                                         for k, v in ph.items())
+              + f", whole {fast_ms[a]:.3f} ms"
+              for a, ph in fast_phases.items())
+          + f"; cuts {cut_f}; yardstick for the s0 sort alone: the batched "
+          f"stable torch.sort of its one word {k_tsort_s0:.3f} ms against "
+          f"the radix passes' {fast_phases[1]['s0 sort']:.3f} ms; orders "
+          f"equal: {same_s0}")
+    check(same_s0, "enc_match_fast's s0 order differs from torch.sort's")
     print(f"[K2/K3] plain versions at {nb} x 64 KB (minutes) ...",
           flush=True)
     p_match, pk_all_p = cuda_ms(lambda: tb.match_candidates_plain(w_all,
@@ -2047,9 +2189,14 @@ def main():
         library_ms=None, ms_hc4=k_match4, phase_ms=match_phases,
         torch_sort_12_byte_order_ms=k_tsort)
     results["enc_match_fast"].update(
-        max_abs_err=max(edge_err["enc_match_fast"], err_f_all), ms=k_fast,
+        max_abs_err=max(edge_err["enc_match_fast"], err_f_all,
+                        *fast_err.values()), ms=k_fast,
         plain_ms=p_fast, bound_ms=b_fast[0], bound_by=b_fast[1],
-        library_ms=None)
+        library_ms=k_tsort_s0,
+        library_call="batched stable torch.sort of the s0 order's one word "
+        "(the sort alone)", ms_by_accel=fast_ms, phase_ms=fast_phases,
+        ptxas={k: v for k, v in ptxas.items()
+               if k == "enc_match_fast_kernel"})
     results["enc_parse_emit"].update(
         max_abs_err=max(edge_err["enc_parse_emit"], err_p_all, err_p0_all),
         ms=k_emit, plain_ms=p_emit, bound_ms=b_emit[0], bound_by=b_emit[1],
@@ -2058,7 +2205,7 @@ def main():
     # the deep kernels at the paths' shapes; their plain versions ran on
     # every PLAIN_STRIDE-th window of these (phase 6); every launch of the
     # three on the counted paths, each timed on its own inputs
-    k_deep, deep_phases, dp_phases = {}, {}, {}
+    k_deep, deep_phases, dp_phases, emit_phases_d = {}, {}, {}, {}
     deep_launch_ms = {k: [] for k in DEEP_KERNELS}
     for level in DEEP_LEVELS:
         hc, deep = tb.level_params(level)
@@ -2079,6 +2226,11 @@ def main():
                 cut_dm[k] - cut_dm[k - 1] for k in range(2, 9)]
                 + [k_dm - cut_dm[8]]))
             dp_phases[level] = {"chain": k_chain_d, "DP": k_dd - k_chain_d}
+            cut_de = deep_emit_phase_split(phase_libs, w_all, l_all, s_all,
+                                           pk_d, st_d)
+            emit_phases_d[f"level {level}, {nb} x 64 KB"] = dict(zip(
+                DEEP_EMIT_PHASES, [cut_de[1], cut_de[2] - cut_de[1],
+                                   cut_de[3] - cut_de[2], k_de - cut_de[3]]))
             print(f"[time] {smi}: enc_deep_match (level {level}) at {nb} x "
                   "64 KB by phase (cuts of encode_deep.cu, -DZL4_STOP=1..8): "
                   + ", ".join(f"{k} {v:.3f} ms"
@@ -2086,7 +2238,11 @@ def main():
                   + f"; cuts {cut_dm}; whole {k_dm:.3f} ms; enc_deep_dp by "
                   "phase: " + ", ".join(f"{k} {v:.3f} ms"
                                         for k, v in dp_phases[level].items())
-                  + f" of {k_dd:.3f} ms")
+                  + f" of {k_dd:.3f} ms; enc_deep_emit by phase (cuts "
+                  "1-3): " + ", ".join(
+                      f"{k} {v:.3f} ms" for k, v in emit_phases_d[
+                          f"level {level}, {nb} x 64 KB"].items())
+                  + f" of {k_de:.3f} ms")
             if level == 12:
                 order_ts, sort_again = torch_sort_words(torch, w_all, l_all,
                                                         8)
@@ -2145,6 +2301,10 @@ def main():
     results["enc_deep_dp"].update(
         phase_ms=dp_phases,
         ptxas={k: v for k, v in ptxas.items() if k == "enc_deep_dp_kernel"})
+    results["enc_deep_emit"].update(
+        phase_ms=emit_phases_d,
+        ptxas={k: v for k, v in ptxas.items()
+               if k == "enc_deep_emit_kernel"})
     print(f"[time] {smi}: deep kernels at {nb} x 64 KB by level: "
           + "; ".join(f"level {lv}: " + ", ".join(
               f"{k} {v:.2f} ms" for k, v in k_deep[lv].items())
@@ -2282,6 +2442,16 @@ def main():
     k_wdd, st_1m = cuda_ms(lambda: tb.deep_dp(l_1m, s_1m, pk_1m, 3), 2)
     k_wde, _o = cuda_ms(
         lambda: tb.deep_emit(w_1m, l_1m, s_1m, pk_1m, st_1m), 2)
+    cut_wde = deep_emit_phase_split(phase_libs, w_1m, l_1m, s_1m, pk_1m,
+                                    st_1m)
+    emit_phases_d[f"level 12, {w_1m.shape[0]} x {w_1m.shape[1]}"] = \
+        wide_emit_phases = dict(zip(DEEP_EMIT_PHASES, [
+            cut_wde[1], cut_wde[2] - cut_wde[1], cut_wde[3] - cut_wde[2],
+            k_wde - cut_wde[3]]))
+    print(f"[time] {smi}: enc_deep_emit (level 12) at {w_1m.shape[0]} x "
+          f"{w_1m.shape[1]} by phase (cuts 1-3 of encode_deep.cu): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in wide_emit_phases.items())
+          + f"; cuts {cut_wde}; whole {k_wde:.3f} ms")
     sel_w = torch.arange(0, w_1m.shape[0], WIDE_DEEP_PLAIN_STRIDE, device=dev)
     _out, wide_deep_plain_ms = deep_against_plain(
         f"every {WIDE_DEEP_PLAIN_STRIDE}th window of the 1 MB level-12 path",

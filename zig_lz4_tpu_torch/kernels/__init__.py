@@ -66,8 +66,7 @@ KERNELS = {
                     [_P, _P, _P, _P, _I, _I, _I, _I],
                     "ops/jax_block.py:556"),
     "enc_deep_emit": ("zl4_enc_deep_emit", "encode_deep.cu",
-                      [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       _I],
+                      [_P] * 10 + [_I] * 5,
                       "ops/jax_block.py:748"),
     "linked_tmap_step": ("zl4_linked_tmap_step", "linked_tmap.cu",
                          [_P] * 5 + [_I] * 4,

@@ -27,12 +27,15 @@
 //   not device memory: it reads each window once and writes 4 bytes per
 //   position.
 //
-// enc_match_fast (hc == 0; one 1024-thread block per window): window build,
-//   ONE bitonic sort by (s0, i) -- the stable 1-key sort of :348-352 -- and
-//   probes +1..+probes against the nearest previous rows of the group, a
-//   later probe winning only when strictly longer (:433-450), over W
-//   carried windows (fast_params, :179-197).  No fallback pass.  Bound: the
-//   one sort, with 4-byte keys.
+// enc_match_fast (hc == 0; one 1024-thread block per window of up to
+//   64 KB, on enc_match's shared-memory layout): window build, the stable
+//   1-key sort of :348-352 -- positions ordered by (s0, i) -- as the 4 s0
+//   byte passes of sort_radix.cuh that enc_match runs for its fallback (0xFF
+//   on the rows past n - 4), and probes +1..+probes against the nearest
+//   previous rows of the group, a later probe winning only when strictly
+//   longer (:433-450), over W carried windows (fast_params, :179-197).  No
+//   fallback pass.  Bound: the 4 passes' ballots and shared-memory accesses
+//   and the probes' shared-memory loads, as enc_match's; not device memory.
 //
 // enc_parse_emit (one 256-thread block per window of up to 2^19 bytes):
 //   1. same-offset chain extension (:522-552) and the n-5 clamp (:554-555),
@@ -48,7 +51,8 @@
 //      reverse scan over the words -- into shared memory, and one thread
 //      follows the chain through them, one shared load a chosen row, a
 //      span behind the warps; it lists the chosen rows and nothing else;
-//   4. the emission (:871-1103), in parallel over the list: an entry merges
+//   4. the emission (:871-1103), in parallel over the list: emit_entries
+//      of encode_common.cuh, which enc_deep_emit runs too: an entry merges
 //      into the one before it when it starts at that one's end at the same
 //      offset; the last entry of each merged group finds its head by a
 //      block max-scan, computes the group's literal run (from the previous
@@ -65,7 +69,11 @@
 //
 // Built with -DZL4_STOP=k, a kernel stops after its k-th phase and stores
 // what that phase left, so that chip_smoke.py can time the phases one by
-// one; the library is built without it.
+// one; the library is built without it.  enc_match: 1 window words, 2 the
+// 12-byte sort, 3 the +-hc probes, 4 the s0 sort; the rest is the fallback
+// probes.  enc_match_fast: 1 window words, 2 the s0 sort; the rest is the
+// probes.  enc_parse_emit: 1 the chain, 2 the lazy mask, 3 the walk; the
+// rest is the emission.
 
 #include "sort_radix.cuh"
 
@@ -80,9 +88,6 @@
 #endif
 
 namespace {
-
-constexpr int kStage = 2048;  // rows of successors the walk stages at a time
-constexpr int kShortRun = 32;  // literal runs shorter go byte by byte
 
 __global__ void __launch_bounds__(kRadixThreads)
 enc_match_kernel(const uint8_t* __restrict__ data,
@@ -122,78 +127,31 @@ enc_match_kernel(const uint8_t* __restrict__ data,
   }
 }
 
-__global__ void __launch_bounds__(kMatchThreads)
+__global__ void __launch_bounds__(kRadixThreads)
 enc_match_fast_kernel(const uint8_t* __restrict__ data,
                       const int32_t* __restrict__ lens,
-                      int32_t* __restrict__ pk, int blk, int N, int nwords,
+                      int32_t* __restrict__ pk, int blk, int nwords,
                       int nwin, int probes) {
   extern __shared__ uint32_t smem[];
+  __shared__ int part[33];
   uint32_t* words = smem;
-  uint16_t* s = reinterpret_cast<uint16_t*>(smem + nwords);
+  uint32_t* hist = smem + nwords;
+  uint16_t* s = reinterpret_cast<uint16_t*>(hist + kRadixHistWords);
   const int b = blockIdx.x;
   const int n = min(max(lens[b], 0), blk);
   int32_t* out = pk + (size_t)b * blk;
-  load_window(data + (size_t)b * blk, n, words, nwords, s, N);
+  load_window(data + (size_t)b * blk, n, words, nwords, s, blk);
   const Window W{words, n};
-  sort_by_s0(W, s, N, blk);
+  ZL4_STOP_AFTER(1, for (int t = threadIdx.x; t < blk; t += blockDim.x)
+                        out[t] = words[t % nwords])
+
+  // order by s0 alone, ties by position: within a group of equal 4-byte
+  // strings the rows before t are the nearest previous occurrences
+  sort_words(W, s, blk, hist, part, 1);
+  ZL4_STOP_AFTER(2, for (int t = threadIdx.x; t < blk; t += blockDim.x)
+                        out[t] = s[t])
   for (int t = threadIdx.x; t < blk; t += blockDim.x)
     out[s[t]] = pack(nearest(W, s, t, probes, nwin));
-}
-
-// Inclusive scan of v over the block's kParseThreads threads under op, with
-// the block's total; tmp: kParseThreads / 32 elements of shared memory.
-template <class Op>
-__device__ __forceinline__ int block_scan(int v, int* tmp, Op op,
-                                          int& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int nw = kParseThreads / 32;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int x = __shfl_up_sync(0xFFFFFFFFu, v, o);
-    if (lane >= o) v = op(v, x);
-  }
-  if (lane == 31) tmp[warp] = v;
-  __syncthreads();
-  int pre = tmp[0];
-  for (int k = 1; k < warp; ++k) pre = op(pre, tmp[k]);
-  if (warp > 0) v = op(pre, v);
-  total = tmp[0];
-  for (int k = 1; k < nw; ++k) total = op(total, tmp[k]);
-  __syncthreads();
-  return v;
-}
-
-struct MaxOp {
-  __device__ __forceinline__ int operator()(int a, int b) const {
-    return max(a, b);
-  }
-};
-struct SumOp {
-  __device__ __forceinline__ int operator()(int a, int b) const {
-    return a + b;
-  }
-};
-
-// The literal run of lit bytes from row[src] to o[dst]: copied here when
-// it is shorter than kShortRun, else listed in R (src, dst, len) for the
-// warps, at the index the shared counter nlong hands out.
-__device__ __forceinline__ void literal_run(const uint8_t* row, int src,
-                                            uint8_t* o, int dst, int lit,
-                                            int32_t* R, int* nlong) {
-  if (lit < kShortRun) {
-    for (int k = 0; k < lit; ++k) o[dst + k] = row[src + k];
-    return;
-  }
-  const int r = atomicAdd(nlong, 1);
-  R[3 * r] = src;
-  R[3 * r + 1] = dst;
-  R[3 * r + 2] = lit;
-}
-
-// Bytes of the 255-escaped continuation of a length field whose token
-// nibble saturated: put_len's count for v = length - 15 >= 0.
-__device__ __forceinline__ int len_bytes(int v) {
-  return v >= 0 ? v / 255 + 1 : 0;
 }
 
 // Two-step lazy deferral (jax_block.py:684-710; lazy = HC only) into the
@@ -227,63 +185,17 @@ __device__ void match_mask(const int32_t* M, int blk, int lazy,
   __syncthreads();
 }
 
-// Greedy parse (jax_block.py:716-743): the lowest match row not yet
-// covered, again and again; from a chosen row p the next one is the first
-// match row at or after p + ml(p).  The warps stage that next row for
-// every match row of a kStage-row span into shared memory (imask and inext
-// from next_after_words find it); thread 0 follows the chain, one shared
-// load a chosen row, while warps 1.. stage the span after its own into the
-// other half of buf.  Lists each chosen row in L; returns the count on
-// every thread.  walk: 4 ints of shared memory, the walker's (row, count)
-// by the parity of the step, so that it can post a step's while the others
-// still read the last one's.
-__device__ int greedy_walk(const int32_t* M, const uint32_t* imask,
-                           const int* inext, int blk, int* buf, int32_t* L,
-                           int* walk) {
-  const int tid = threadIdx.x;
-  const int nstage = (blk + kStage - 1) / kStage;
-  auto stage = [&](int c, int t0, int nt) {
-    const int lo = c * kStage, hi = min(lo + kStage, blk);
-    int* dst = buf + (c & 1) * kStage - lo;
-#pragma unroll 4
-    for (int p = lo + t0; p < hi; p += nt)
-      if ((imask[p >> 5] >> (p & 31)) & 1u)
-        dst[p] = first_at_or_after(imask, inext, p + (M[p] & kMlMask));
-  };
-  int p = first_at_or_after(imask, inext, 0);
-  if (p >= blk) return 0;  // no match row
-  int cur = p / kStage, cnt = 0;
-  stage(cur, tid, kParseThreads);
-  __syncthreads();
-  for (int par = 0;; par ^= 2) {
-    if (tid == 0) {
-      const int hi = min((cur + 1) * kStage, blk);
-      const int* nx = buf + (cur & 1) * kStage - cur * kStage;
-      while (p < hi) {
-        L[cnt++] = p;
-        p = nx[p];
-      }
-      walk[par] = p;
-      walk[par + 1] = cnt;
-    } else if (tid >= 32 && cur + 1 < nstage) {
-      stage(cur + 1, tid - 32, kParseThreads - 32);
-    }
-    __syncthreads();
-    p = walk[par];
-    if (p >= blk) {
-      cnt = walk[par + 1];
-      break;
-    }
-    const int next = p / kStage;
-    if (next != cur + 1) {  // a match or a gap skipped the staged span
-      stage(next, tid, kParseThreads);
-      __syncthreads();
-    }
-    cur = next;
+// Entry i of enc_parse_emit's list: chosen row L[i] with its final length
+// and its candidate's offset and back count.
+struct ParseEntries {
+  const int32_t* L;
+  const int32_t* M;
+  Fields F;
+  __device__ __forceinline__ Entry operator()(int i) const {
+    const int p = L[i];
+    return {p, p + (M[p] & kMlMask), p - F.cand(p), F.pk[p] & 3};
   }
-  __syncthreads();
-  return cnt;
-}
+};
 
 __global__ void __launch_bounds__(kParseThreads)
 enc_parse_emit_kernel(const uint8_t* __restrict__ data,
@@ -296,7 +208,6 @@ enc_parse_emit_kernel(const uint8_t* __restrict__ data,
   extern __shared__ uint32_t sm[];
   __shared__ int tmp[kParseThreads / 32];
   __shared__ int s_walk[4];
-  __shared__ int s_nlong;
   const int nw = (blk + 31) >> 5;
   uint32_t* mask = sm;                         // boundaries, then match rows
   int* nxt = reinterpret_cast<int*>(sm + nw);  // the next set bit after a word
@@ -322,77 +233,8 @@ enc_parse_emit_kernel(const uint8_t* __restrict__ data,
                             : 0;
   ZL4_STOP_AFTER(3, )
 
-  // --- emission, in tiles of kParseThreads list entries (one a thread);
-  // a literal run shorter than kShortRun is copied by the thread that
-  // writes its header, a longer one is listed in R for the warps
-  if (tid == 0) s_nlong = 0;
-  int carry_head = -1, carry_out = 0;  // before this tile
-  for (int t0 = 0; t0 < cnt; t0 += kParseThreads) {
-    const int i = t0 + tid;
-    int p = 0, e = 0, off = 0;
-    bool head = false, last = false;
-    if (i < cnt) {
-      p = L[i];
-      e = p + (M[p] & kMlMask);
-      off = p - F.cand(p);
-      head = true;
-      if (i > 0) {  // continues the previous selection at the same offset
-        const int pp = L[i - 1];
-        head = !(pp + (M[pp] & kMlMask) == p && pp - F.cand(pp) == off);
-      }
-      last = true;
-      if (i + 1 < cnt) {
-        const int np = L[i + 1];
-        last = !(np == e && np - F.cand(np) == off);
-      }
-    }
-    int tot_h, tot_o;
-    const int h = max(carry_head,
-                      block_scan(head ? i : -1, tmp, MaxOp{}, tot_h));
-    int lit = 0, mml = 0, ls = 0, size = 0;
-    if (last) {  // the group h..i: one sequence
-      const int ph = L[h];
-      const int prev_end =
-          h > 0 ? max(L[h - 1] + (M[L[h - 1]] & kMlMask), start) : start;
-      const int bq = max(min(min(F.pk[ph] & 3, ph - prev_end), ph - off), 0);
-      ls = prev_end;
-      lit = ph - bq - prev_end;
-      mml = e - (ph - bq);
-      size = 1 + len_bytes(lit - 15) + lit + 2 + len_bytes(mml - 19);
-    }
-    int q = carry_out + block_scan(size, tmp, SumOp{}, tot_o) - size;
-    if (last) {
-      o[q++] = (uint8_t)((min(lit, 15) << 4) | min(mml - 4, 15));
-      if (lit >= 15) put_len(o, q, lit - 15);
-      literal_run(row, ls, o, q, lit, R, &s_nlong);
-      q += lit;
-      o[q++] = (uint8_t)(off & 0xFF);
-      o[q++] = (uint8_t)(off >> 8);
-      if (mml - 4 >= 15) put_len(o, q, mml - 19);
-    }
-    carry_head = max(carry_head, tot_h);
-    carry_out += tot_o;
-  }
-
-  // --- the tail literal run (one thread), then the long literal runs by
-  // all warps and zeros past out_len
-  if (tid == 0) {
-    int q = carry_out;
-    if (n > start) {
-      const int tail =
-          cnt > 0 ? max(L[cnt - 1] + (M[L[cnt - 1]] & kMlMask), start)
-                  : start;
-      const int lit = n - tail;
-      o[q++] = (uint8_t)(min(lit, 15) << 4);
-      if (lit >= 15) put_len(o, q, lit - 15);
-      literal_run(row, tail, o, q, lit, R, &s_nlong);
-      q += lit;
-    }
-    s_walk[0] = q;
-    out_len[b] = q;
-  }
-  __syncthreads();
-  copy_runs(row, R, s_nlong, o, s_walk[0], cap);
+  emit_entries(ParseEntries{L, M, F}, cnt, row, n, start, o, cap, R,
+               out_len + b, tmp);
 }
 
 }  // namespace
@@ -402,7 +244,7 @@ extern "C" int zl4_enc_match(const void* data, const void* lens, void* pk,
   if (B <= 0 || blk <= 0 || blk > kRadixMaxRows || hc < 1)
     return (int)cudaErrorInvalidValue;
   // the window words, the passes' histograms and the u16 order
-  const int nwords = (blk + kPad) / 4 + 1;
+  const int nwords = window_words(blk);
   const size_t smem = ((size_t)nwords + kRadixHistWords) * 4 +
                       (size_t)blk * 2;
   cudaError_t err = cudaFuncSetAttribute(
@@ -418,17 +260,21 @@ extern "C" int zl4_enc_match(const void* data, const void* lens, void* pk,
 extern "C" int zl4_enc_match_fast(const void* data, const void* lens,
                                   void* pk, int B, int blk, int nwin,
                                   int probes, void* stream) {
-  if (B <= 0 || blk <= 0 || blk > 65536 || nwin < 1 || nwin > kMaxW ||
-      probes < 1)
+  if (B <= 0 || blk <= 0 || blk > kRadixMaxRows || nwin < 1 ||
+      nwin > kMaxW || probes < 1)
     return (int)cudaErrorInvalidValue;
-  const MatchShape m = match_shape(blk);
+  // enc_match's layout: the window words, the passes' histograms and the
+  // u16 order over the blk rows
+  const int nwords = window_words(blk);
+  const size_t smem = ((size_t)nwords + kRadixHistWords) * 4 +
+                      (size_t)blk * 2;
   cudaError_t err = cudaFuncSetAttribute(
       enc_match_fast_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)m.smem);
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  enc_match_fast_kernel<<<B, kMatchThreads, m.smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)data, (const int32_t*)lens, (int32_t*)pk, blk, m.N,
-      m.nwords, nwin, probes);
+  enc_match_fast_kernel<<<B, kRadixThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)data, (const int32_t*)lens, (int32_t*)pk, blk, nwords,
+      nwin, probes);
   return (int)cudaGetLastError();
 }
 

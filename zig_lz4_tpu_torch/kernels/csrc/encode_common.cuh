@@ -1,12 +1,13 @@
 // Device code shared by the encoder kernels (encode_block.cu: levels 0-9,
 // encode_deep.cu: levels 10-12, and the wide finders): the window in shared
-// memory, the bitonic sort of positions (enc_match_fast; enc_match and
-// enc_deep_match sort by the radix passes of sort_radix.cuh), the probe of
-// one sorted neighbour (cand_at of the JAX reference,
-// ops/jax_block.py:379-426), the candidate pack, the per-position fields of
-// the parse, the position-parallel chain extension of enc_parse_emit and
-// enc_deep_dp, and the one-thread sequence emitter of enc_deep_emit
-// (enc_parse_emit runs a position-parallel emission, encode_block.cu).
+// memory, the probe of one sorted neighbour (cand_at of the JAX reference,
+// ops/jax_block.py:379-426) over an order that the radix passes of
+// sort_radix.cuh or radix_cluster.cuh made, the candidate pack, the
+// per-position fields of the parse, the position-parallel chain extension
+// of enc_parse_emit and enc_deep_dp, and what enc_parse_emit and
+// enc_deep_emit share: the block scans, the greedy walk through successors
+// staged in shared memory, and the emission placed by block scans over a
+// list of entries (emit_entries).
 
 #pragma once
 
@@ -17,7 +18,6 @@ namespace {
 
 constexpr int kMaxW = 8;         // u32 windows after s0 (jax_block.py:100)
 constexpr int kPad = 64;         // zero bytes past blk (reads reach 4W+7)
-constexpr int kMatchThreads = 1024;
 constexpr int kParseThreads = 256;
 constexpr int kImBit = 1 << 30;  // is_match / take flag beside ml
 constexpr int kCapEndBit = 1 << 29;  // the row's chain ends at a capped row
@@ -38,25 +38,6 @@ struct Window {
     return p < 0 ? 0u : (w[p >> 2] >> ((p & 3) * 8)) & 0xFFu;
   }
 };
-
-// Sorted position order; rows >= blk are padding that sorts last.
-template <class Less>
-__device__ void bitonic_sort(uint16_t* s, int N, Less less) {
-  for (int k = 2; k <= N; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int q = threadIdx.x; q < (N >> 1); q += blockDim.x) {
-        const int i = ((q & ~(j - 1)) << 1) | (q & (j - 1));
-        const int l = i + j;
-        const int a = s[i], c = s[l];
-        if ((i & k) == 0 ? less(c, a) : less(a, c)) {
-          s[i] = (uint16_t)c;
-          s[l] = (uint16_t)a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
 
 struct Cand {
   int cand, ml, back;
@@ -93,9 +74,9 @@ __device__ __forceinline__ int pack(const Cand& c) {
   return c.cand >= 0 ? ((c.cand + 1) << 12) | (c.ml << 6) | c.back : 0;
 }
 
-// The identity order over N rows.
-__device__ void identity_order(uint16_t* s, int N) {
-  for (int i = threadIdx.x; i < N; i += blockDim.x) s[i] = (uint16_t)i;
+// The identity order over the rows.
+__device__ void identity_order(uint16_t* s, int rows) {
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) s[i] = (uint16_t)i;
   __syncthreads();
 }
 
@@ -112,30 +93,11 @@ __device__ void load_words(const uint8_t* row, int n, uint32_t* words,
   }
 }
 
-// The window words, and the identity order over N >= blk rows.
+// The window words, and the identity order over the rows.
 __device__ void load_window(const uint8_t* row, int n, uint32_t* words,
-                            int nwords, uint16_t* s, int N) {
+                            int nwords, uint16_t* s, int rows) {
   load_words(row, n, words, nwords);
-  identity_order(s, N);
-}
-
-// Order by s0 alone, ties by position: within a group of equal 4-byte
-// strings the rows before t are the nearest previous occurrences.  Rows at
-// or past blk are padding and sort last.
-struct LessS0 {
-  Window W;
-  int blk;
-  __device__ __forceinline__ bool operator()(int p, int q) const {
-    if (p >= blk || q >= blk) return p < q;
-    const uint32_t a = W.s0(p), c = W.s0(q);
-    if (a != c) return a < c;
-    return p < q;
-  }
-};
-
-__device__ void sort_by_s0(const Window& W, uint16_t* s, int N, int blk) {
-  LessS0 less{W, blk};
-  bitonic_sort(s, N, less);
+  identity_order(s, rows);
 }
 
 // Probes +1..+probes of sorted row t; a later probe wins only when
@@ -308,63 +270,6 @@ __device__ __forceinline__ void put_len(uint8_t* o, int& op, int v) {
   o[op++] = (uint8_t)v;
 }
 
-// Sequence emission by one thread (jax_block.py:871-1103): selections that
-// continue each other at one offset merge into one match, each head extends
-// back over <= ``back`` literals, 255-escapes, LE offsets, then the tail
-// literal run.  Headers are written here; literal runs are recorded as
-// (src, dst, len) in R for the block's warps to copy.
-struct Emitter {
-  uint8_t* o;
-  int32_t* R;
-  int start;
-  int op = 0, nr = 0;
-  int last_e = -1;
-  bool have = false;
-  int h_ls = 0, h_ms = 0, h_off = 0, h_e = 0;
-
-  __device__ __forceinline__ void run(int src, int lit) {
-    if (lit > 0) {
-      R[3 * nr] = src;
-      R[3 * nr + 1] = op;
-      R[3 * nr + 2] = lit;
-      ++nr;
-      op += lit;
-    }
-  }
-  __device__ __forceinline__ void flush() {
-    const int lit = h_ms - h_ls, mml = h_e - h_ms;
-    o[op++] = (uint8_t)((min(lit, 15) << 4) | min(mml - 4, 15));
-    if (lit >= 15) put_len(o, op, lit - 15);
-    run(h_ls, lit);
-    o[op++] = (uint8_t)(h_off & 0xFF);
-    o[op++] = (uint8_t)(h_off >> 8);
-    if (mml - 4 >= 15) put_len(o, op, mml - 19);
-  }
-  // the selection at p, ending at e, with its offset and back count
-  __device__ __forceinline__ void add(int p, int e, int off, int back) {
-    if (have && last_e == p && h_off == off) {
-      h_e = e;  // continues the previous match at the same offset
-    } else {
-      if (have) flush();
-      const int prev_end = max(last_e, start);
-      const int bq = max(min(min(back, p - prev_end), p - off), 0);
-      h_ls = prev_end;
-      h_ms = p - bq;
-      h_off = off;
-      h_e = e;
-      have = true;
-    }
-    last_e = e;
-  }
-  __device__ __forceinline__ void finish(int n) {
-    if (have) flush();
-    const int tail = max(last_e, start), lit = n - tail;
-    o[op++] = (uint8_t)(min(lit, 15) << 4);
-    if (lit >= 15) put_len(o, op, lit - 15);
-    run(tail, lit);
-  }
-};
-
 // The recorded literal runs, one warp each, and zeros past out_len.
 __device__ void copy_runs(const uint8_t* row, const int32_t* R, int nr,
                           uint8_t* o, int olen, int cap) {
@@ -376,17 +281,224 @@ __device__ void copy_runs(const uint8_t* row, const int32_t* R, int nr,
   for (int k = olen + threadIdx.x; k < cap; k += blockDim.x) o[k] = 0;
 }
 
-// Sort width, window words and shared memory of a match kernel launch.
-struct MatchShape {
-  int N, nwords;
-  size_t smem;
+// Words of a window as the finders hold it: blk bytes and kPad zero
+// bytes past them, as LE u32.
+inline int window_words(int blk) { return (blk + kPad) / 4 + 1; }
+
+constexpr int kStage = 2048;   // rows of successors the walk stages at a time
+constexpr int kShortRun = 32;  // literal runs shorter go byte by byte
+
+struct MaxOp {
+  static constexpr int kId = -0x7FFFFFFF - 1;
+  __device__ __forceinline__ int operator()(int a, int b) const {
+    return max(a, b);
+  }
+};
+struct SumOp {
+  static constexpr int kId = 0;
+  __device__ __forceinline__ int operator()(int a, int b) const {
+    return a + b;
+  }
 };
 
-inline MatchShape match_shape(int blk) {
-  int N = 1;
-  while (N < blk) N <<= 1;
-  const int nwords = (blk + kPad) / 4 + 1;
-  return {N, nwords, (size_t)nwords * 4 + (size_t)N * 2};
+// Inclusive scan of v over the block's kParseThreads threads under op, with
+// the block's total, and where ``excl`` is given the exclusive scan (the
+// identity Op::kId before the first thread); tmp: kParseThreads / 32
+// elements of shared memory.
+template <class Op>
+__device__ __forceinline__ int block_scan(int v, int* tmp, Op op, int& total,
+                                          int* excl = nullptr) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int nw = kParseThreads / 32;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_up_sync(0xFFFFFFFFu, v, o);
+    if (lane >= o) v = op(v, x);
+  }
+  if (lane == 31) tmp[warp] = v;
+  __syncthreads();
+  int pre = tmp[0];
+  for (int k = 1; k < warp; ++k) pre = op(pre, tmp[k]);
+  if (excl) {  // the lane before's inclusive scan, after the warps before
+    const int x = __shfl_up_sync(0xFFFFFFFFu, v, 1);
+    const int ex = lane ? x : Op::kId;
+    *excl = warp > 0 ? op(pre, ex) : ex;
+  }
+  if (warp > 0) v = op(pre, v);
+  total = tmp[0];
+  for (int k = 1; k < nw; ++k) total = op(total, tmp[k]);
+  __syncthreads();
+  return v;
+}
+
+// The literal run of lit bytes from row[src] to o[dst]: copied here when
+// it is shorter than kShortRun, else listed in R (src, dst, len) for the
+// warps, at the index the shared counter nlong hands out.
+__device__ __forceinline__ void literal_run(const uint8_t* row, int src,
+                                            uint8_t* o, int dst, int lit,
+                                            int32_t* R, int* nlong) {
+  if (lit < kShortRun) {
+    for (int k = 0; k < lit; ++k) o[dst + k] = row[src + k];
+    return;
+  }
+  const int r = atomicAdd(nlong, 1);
+  R[3 * r] = src;
+  R[3 * r + 1] = dst;
+  R[3 * r + 2] = lit;
+}
+
+// Bytes of the 255-escaped continuation of a length field whose token
+// nibble saturated: put_len's count for v = length - 15 >= 0.
+__device__ __forceinline__ int len_bytes(int v) {
+  return v >= 0 ? v / 255 + 1 : 0;
+}
+
+// Greedy parse (jax_block.py:716-743): the lowest match row not yet
+// covered, again and again; from a chosen row p the next one is the first
+// match row at or after p + ml(p), ml(p) = M[p] & kMlMask.  The warps stage
+// that next row for every match row of a kStage-row span into shared
+// memory (imask and inext from next_after_words find it); thread 0 follows
+// the chain, one shared load a chosen row, while warps 1.. stage the span
+// after its own into the other half of buf.  Lists each chosen row in L;
+// returns the count on every thread.  walk: 4 ints of shared memory, the
+// walker's (row, count) by the parity of the step, so that it can post a
+// step's while the others still read the last one's.
+__device__ int greedy_walk(const int32_t* M, const uint32_t* imask,
+                           const int* inext, int blk, int* buf, int32_t* L,
+                           int* walk) {
+  const int tid = threadIdx.x;
+  const int nstage = (blk + kStage - 1) / kStage;
+  auto stage = [&](int c, int t0, int nt) {
+    const int lo = c * kStage, hi = min(lo + kStage, blk);
+    int* dst = buf + (c & 1) * kStage - lo;
+#pragma unroll 4
+    for (int p = lo + t0; p < hi; p += nt)
+      if ((imask[p >> 5] >> (p & 31)) & 1u)
+        dst[p] = first_at_or_after(imask, inext, p + (M[p] & kMlMask));
+  };
+  int p = first_at_or_after(imask, inext, 0);
+  if (p >= blk) return 0;  // no match row
+  int cur = p / kStage, cnt = 0;
+  stage(cur, tid, kParseThreads);
+  __syncthreads();
+  for (int par = 0;; par ^= 2) {
+    if (tid == 0) {
+      const int hi = min((cur + 1) * kStage, blk);
+      const int* nx = buf + (cur & 1) * kStage - cur * kStage;
+      while (p < hi) {
+        L[cnt++] = p;
+        p = nx[p];
+      }
+      walk[par] = p;
+      walk[par + 1] = cnt;
+    } else if (tid >= 32 && cur + 1 < nstage) {
+      stage(cur + 1, tid - 32, kParseThreads - 32);
+    }
+    __syncthreads();
+    p = walk[par];
+    if (p >= blk) {
+      cnt = walk[par + 1];
+      break;
+    }
+    const int next = p / kStage;
+    if (next != cur + 1) {  // a match or a gap skipped the staged span
+      stage(next, tid, kParseThreads);
+      __syncthreads();
+    }
+    cur = next;
+  }
+  __syncthreads();
+  return cnt;
+}
+
+// One entry of an emission list: a selection from p to e at offset off
+// whose sequence may extend back over <= back literals.
+struct Entry {
+  int p, e, off, back;
+};
+
+// Sequence emission (jax_block.py:871-1103) of one window from its cnt
+// entries E(0), ..., E(cnt - 1), in tiles of kParseThreads entries, one a
+// thread: an entry merges into the one before it when it starts at that
+// one's end at the same offset; the last entry of each merged group finds
+// its head by a block max-scan, computes the group's literal run (from the
+// previous entry's end, or start, extended back over <= back literals) and
+// its header bytes (255-escapes, LE offset), and a block sum-scan of the
+// groups' sizes places it.  A literal run shorter than kShortRun is copied
+// by the thread that writes its header; longer ones (the tail's too) are
+// listed in R (src, dst, len; blk / 4 + 2 runs at most) and copied by all
+// warps, with the zeros past out_len up to cap.  Writes *olen.  E is an
+// accessor: E(i) returns entry i; tmp: kParseThreads / 32 ints of shared
+// memory.
+template <class Entries>
+__device__ void emit_entries(const Entries& E, int cnt, const uint8_t* row,
+                             int n, int start, uint8_t* o, int cap,
+                             int32_t* R, int32_t* olen, int* tmp) {
+  __shared__ int s_nlong, s_olen;
+  const int tid = threadIdx.x;
+  if (tid == 0) s_nlong = 0;  // read after the next barrier
+  int carry_head = -1, carry_out = 0;  // before this tile
+  for (int t0 = 0; t0 < cnt; t0 += kParseThreads) {
+    const int i = t0 + tid;
+    Entry x{0, 0, 0, 0};
+    bool head = false, last = false;
+    if (i < cnt) {
+      x = E(i);
+      head = true;
+      if (i > 0) {  // continues the previous entry at the same offset
+        const Entry y = E(i - 1);
+        head = !(y.e == x.p && y.off == x.off);
+      }
+      last = true;
+      if (i + 1 < cnt) {
+        const Entry z = E(i + 1);
+        last = !(z.p == x.e && z.off == x.off);
+      }
+    }
+    int tot_h, tot_o;
+    const int h = max(carry_head,
+                      block_scan(head ? i : -1, tmp, MaxOp{}, tot_h));
+    int lit = 0, mml = 0, ls = 0, size = 0;
+    if (last) {  // the group h..i: one sequence
+      const Entry g = E(h);
+      const int prev_end = h > 0 ? max(E(h - 1).e, start) : start;
+      const int bq = max(min(min(g.back, g.p - prev_end), g.p - x.off), 0);
+      ls = prev_end;
+      lit = g.p - bq - prev_end;
+      mml = x.e - (g.p - bq);
+      size = 1 + len_bytes(lit - 15) + lit + 2 + len_bytes(mml - 19);
+    }
+    int q = carry_out + block_scan(size, tmp, SumOp{}, tot_o) - size;
+    if (last) {
+      o[q++] = (uint8_t)((min(lit, 15) << 4) | min(mml - 4, 15));
+      if (lit >= 15) put_len(o, q, lit - 15);
+      literal_run(row, ls, o, q, lit, R, &s_nlong);
+      q += lit;
+      o[q++] = (uint8_t)(x.off & 0xFF);
+      o[q++] = (uint8_t)(x.off >> 8);
+      if (mml - 4 >= 15) put_len(o, q, mml - 19);
+    }
+    carry_head = max(carry_head, tot_h);
+    carry_out += tot_o;
+  }
+
+  // the tail literal run (one thread), then the long literal runs by all
+  // warps and zeros past out_len
+  if (tid == 0) {
+    int q = carry_out;
+    if (n > start) {
+      const int tail = cnt > 0 ? max(E(cnt - 1).e, start) : start;
+      const int lit = n - tail;
+      o[q++] = (uint8_t)(min(lit, 15) << 4);
+      if (lit >= 15) put_len(o, q, lit - 15);
+      literal_run(row, tail, o, q, lit, R, &s_nlong);
+      q += lit;
+    }
+    s_olen = q;
+    *olen = q;
+  }
+  __syncthreads();
+  copy_runs(row, R, s_nlong, o, s_olen, cap);
 }
 
 }  // namespace

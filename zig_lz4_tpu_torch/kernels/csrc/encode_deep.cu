@@ -75,27 +75,50 @@
 //   Bound: the warp's chain of chunks, 2,048 a 64 KB window, each a few
 //   dependent shuffles a round.
 //
-// enc_deep_emit (one 256-thread block per window):
-//   the greedy parse over the take bits (:716-743) by one thread, which lists
-//   the chosen rows and pools the first P whose end is capped, with P = 512
-//   per 64 KB of window (min(512 * max(blk / 65536, 1), blk), :774); the
-//   pool's rows measure their exact extension in parallel, two rounds of
-//   four u32 compares at the match's own offset, word indices clipped to the
-//   window (:774-819); then one thread walks the chosen list with the
-//   running maximum of the extended ends (the absorb, :838-863): a covered
-//   match is dropped, one with >= 4 bytes left moves to its trimmed start
-//   with back = 0 -- only the first P moved matches, as the reference's pool
-//   (:857) -- and every kept selection goes to the one-thread emitter of
-//   encode_common.cuh (Emitter), whose bytes enc_parse_emit's parallel
-//   emission reproduces.  The take mask and the pool live in dynamic shared
-//   memory: 61,440 bytes at 327,680, past the default 48 KB.
+// enc_deep_emit (one 256-thread block per window of up to 2^19 bytes):
+//   1. the take rows as a bit mask, by warp ballots over the state words,
+//      and the next take row after each 32-row word (next_after_words);
+//   2. the greedy parse (:716-743) by greedy_walk of encode_common.cuh, as
+//      in enc_parse_emit: the warps stage each take row's successor (the
+//      first take row at or after its end) into shared memory, 2,048 rows
+//      at a time, and one thread follows the chain through them, one shared
+//      load a chosen row; it lists the chosen rows in device scratch;
+//   3. in tiles of 256 list entries, one a thread, with carries across
+//      tiles: the pool (:774-792), a chosen row whose chain ends at a capped
+//      row and whose exclusive rank among such rows (a block sum-scan) is
+//      under P = 512 per 64 KB of window (min(512 * max(blk / 65536, 1),
+//      blk)) -- the reference's first P by position; a pooled row's exact
+//      extension, two rounds of four u32 compares at the match's own offset,
+//      word indices clipped to the window, bytes zero past n (:774-819);
+//      the running cover prevcov, the exclusive block max-scan of the
+//      extended ends Ev = i + ml + e over EVERY chosen row, kept or dropped,
+//      as the reference's code takes it (:842-844; a dropped row can raise
+//      it by up to 3 bytes); keep (Ev - max(i, prevcov) >= 4) and move
+//      (prevcov > i), a moved row kept only while its exclusive rank among
+//      the moved rows is under P (:848-857); one sum-scan of
+//      moved | keep << 16 gives both ranks, and the compaction writes each
+//      kept row as an entry (p, e, off, back) -- (prevcov, Ev, off, 0) when
+//      moved, (i, Ev, off, pk & 3) otherwise -- into device scratch;
+//   4. the emission of enc_parse_emit over the entries (emit_entries of
+//      encode_common.cuh): an entry merges into the previous kept one when
+//      it starts at that one's end at the same offset; heads by a block
+//      max-scan, sizes placed by a block sum-scan.
+//   No loop over the chosen rows runs on one thread but the walk's, which
+//   reads shared memory only.  Shared memory: the take mask and the next
+//   take row after each word, 2 ceil(blk / 32) words, and the walk's two
+//   staged spans (16 KB): 32 KB at 64 KB, 96 KB at 327,680.  Bound: the
+//   walking thread's chain, a few tens of cycles a chosen row, and the
+//   scattered loads of the state words and candidates of the chosen rows;
+//   not the bytes it must move.
 //
 // Built with -DZL4_STOP=k (chip_smoke.py), enc_deep_match stops after phase
 // k and stores what it left: 1 window words, 2 the 32-byte sort, 3 its
 // class numbering, 4 the 256-byte rank's sort and 5 its numbering (deep 3;
 // at deep 1 and 2 these two cuts stop where cut 3 does), 6 the grand sort,
 // 7 the tier probes, 8 the s0 sort; 9 is the fallback probes.  Every cut
-// also stops enc_deep_dp after its chain extension (step 1).
+// also stops enc_deep_dp after its chain extension (step 1), and
+// enc_deep_emit after step 1 (cut 1), after the walk (cut 2) or after the
+// compaction (cuts 3-8); the emission is the rest.
 
 #include <assert.h>
 
@@ -415,124 +438,142 @@ enc_deep_dp_kernel(const int32_t* __restrict__ lens,
   }
 }
 
-__global__ void __launch_bounds__(kParseThreads)
-enc_deep_emit_kernel(const uint8_t* __restrict__ data,
-                     const int32_t* __restrict__ lens,
-                     const int32_t* __restrict__ starts,
-                     const int32_t* __restrict__ pk,
-                     const int32_t* __restrict__ st,
-                     int32_t* __restrict__ chosen, int32_t* __restrict__ runs,
-                     uint8_t* __restrict__ out, int32_t* __restrict__ out_len,
-                     int blk, int cap, int runcap, int chcap) {
-  extern __shared__ uint32_t imask[];  // then pool_i[P], pool_e[P]
-  __shared__ int s_nch, s_npool, s_nruns, s_olen;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int n = min(max(lens[b], 0), blk);
-  const int start = min(max(starts[b], 0), n);
-  const uint8_t* row = data + (size_t)b * blk;
-  const Fields F{pk + (size_t)b * blk, n, blk, 0, 0};
-  const int32_t* M = st + (size_t)b * blk;
-  int32_t* C = chosen + (size_t)b * chcap;
-  int32_t* R = runs + (size_t)b * runcap;
-  uint8_t* o = out + (size_t)b * cap;
-  const int P = ext_pool(blk);
-  int* pool_i = reinterpret_cast<int*>(imask + ((blk + 31) >> 5));
-  int* pool_e = pool_i + P;
-
-  // --- the take bits as a mask
-  const int lane = tid & 31, warp = tid >> 5;
-  for (int base = warp * 32; base < blk; base += kParseThreads) {
-    const int p = base + lane;
-    const unsigned bits =
-        __ballot_sync(0xFFFFFFFFu, p < blk && (M[p] & kImBit) != 0);
-    if (lane == 0) imask[base >> 5] = bits;
-  }
-  __syncthreads();
-
-  // --- greedy parse: the chosen rows, and the pool of capped ends
-  if (tid == 0) {
-    const int nw = (blk + 31) >> 5;
-    int nch = 0, npool = 0, pos = 0;
-    while (n > start) {
-      int wi = pos >> 5;
-      if (wi >= nw) break;
-      uint32_t bits = imask[wi] & (0xFFFFFFFFu << (pos & 31));
-      while (bits == 0 && ++wi < nw) bits = imask[wi];
-      if (bits == 0) break;
-      const int p = (wi << 5) + __ffs(bits) - 1;
-      const int v = M[p];
-      C[nch++] = p;
-      if ((v & kCapEndBit) && npool < P) pool_i[npool++] = p;
-      pos = p + (v & kMlMask);
-    }
-    s_nch = nch;
-    s_npool = npool;
-  }
-  __syncthreads();
-
-  // --- exact extension of the pooled ends
-  auto word = [&](int j) {  // LE u32 at the clipped index, zero past n
+// Exact extension of the pooled end E of a match at offset off
+// (jax_block.py:774-819): up to kExtBytes bytes, two rounds of four LE u32
+// compares; word indices clip to the window, bytes read zero past n, and
+// the extension stops 5 bytes before n.
+__device__ __forceinline__ int extend_end(const uint8_t* row, int n, int blk,
+                                          int E, int off) {
+  auto word = [&](int j) {
     j = min(max(j, 0), blk - 1);
     uint32_t v = 0;
     for (int k = 0; k < 4; ++k)
       if (j + k < n) v |= (uint32_t)row[j + k] << (8 * k);
     return v;
   };
-  for (int k = tid; k < s_npool; k += kParseThreads) {
-    const int i = pool_i[k];
-    const int E = i + (M[i] & kMlMask), off = i - F.cand(i);
-    const int capv = min(max(n - 5 - E, 0), kExtBytes);
-    int e = 0;
-    bool alive = capv > 0;
-    for (int round = 0; round < kExtBytes / 16; ++round) {
-      const int base = E + e;
-      int adv = 0;
-      bool still = true;
-      for (int w = 0; w < 4; ++w) {
-        const uint32_t x = word(base + 4 * w) ^ word(base - off + 4 * w);
-        if (still) adv += x == 0 ? 4 : (__ffs(x) - 1) >> 3;
-        still = still && x == 0;
-      }
-      adv = alive ? min(adv, capv - e) : 0;
-      e += adv;
-      alive = alive && still && e < capv;
+  const int capv = min(max(n - 5 - E, 0), kExtBytes);
+  int e = 0;
+  bool alive = capv > 0;
+  for (int round = 0; round < kExtBytes / 16; ++round) {
+    const int base = E + e;
+    int adv = 0;
+    bool still = true;
+    for (int w = 0; w < 4; ++w) {
+      const uint32_t x = word(base + 4 * w) ^ word(base - off + 4 * w);
+      if (still) adv += x == 0 ? 4 : (__ffs(x) - 1) >> 3;
+      still = still && x == 0;
     }
-    pool_e[k] = e;
+    adv = alive ? min(adv, capv - e) : 0;
+    e += adv;
+    alive = alive && still && e < capv;
+  }
+  return e;
+}
+
+// Entry i of enc_deep_emit's compacted list.
+struct DeepEntries {
+  const int4* X;
+  __device__ __forceinline__ Entry operator()(int i) const {
+    const int4 v = X[i];
+    return {v.x, v.y, v.z, v.w};
+  }
+};
+
+__global__ void __launch_bounds__(kParseThreads)
+enc_deep_emit_kernel(const uint8_t* __restrict__ data,
+                     const int32_t* __restrict__ lens,
+                     const int32_t* __restrict__ starts,
+                     const int32_t* __restrict__ pk,
+                     const int32_t* __restrict__ st,
+                     int32_t* __restrict__ chosen, int4* __restrict__ ents,
+                     int32_t* __restrict__ runs, uint8_t* __restrict__ out,
+                     int32_t* __restrict__ out_len, int blk, int cap,
+                     int runcap, int chcap) {
+  extern __shared__ uint32_t sm[];
+  __shared__ int tmp[kParseThreads / 32];
+  __shared__ int s_walk[4];
+  const int nw = (blk + 31) >> 5;
+  uint32_t* mask = sm;                         // the take rows
+  int* nxt = reinterpret_cast<int*>(sm + nw);  // the next take row after a word
+  int* buf = nxt + nw;                         // the walk's staged spans
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int n = min(max(lens[b], 0), blk);
+  const int start = min(max(starts[b], 0), n);
+  const uint8_t* row = data + (size_t)b * blk;
+  const Fields F{pk + (size_t)b * blk, n, blk, 0, 0};
+  const int32_t* M = st + (size_t)b * blk;
+  int32_t* L = chosen + (size_t)b * chcap;  // the chosen rows
+  int4* X = ents + (size_t)b * chcap;       // the kept entries
+  int32_t* R = runs + (size_t)b * runcap;   // literal runs (src, dst, len)
+  uint8_t* o = out + (size_t)b * cap;
+
+  // --- 1. the take rows as a mask, the next take row after each word
+#pragma unroll 4
+  for (int base = warp * 32; base < blk; base += kParseThreads) {
+    const int p = base + lane;
+    const unsigned bits =
+        __ballot_sync(0xFFFFFFFFu, p < blk && (M[p] & kImBit) != 0);
+    if (lane == 0) mask[base >> 5] = bits;
   }
   __syncthreads();
+  next_after_words(mask, nw, blk, nxt, tmp);
+  ZL4_STOP_AFTER(1, for (int w = tid; w < nw; w += kParseThreads)
+                        L[w] = nxt[w])
 
-  // --- absorb and emission (one thread): prevcov is the running maximum
-  // of the extended ends over the chosen rows before this one
-  if (tid == 0) {
-    Emitter em{o, R, start};
-    if (n > start) {
-      int prevcov = 0, pi = 0, moved = 0;
-      const int nch = s_nch, npool = s_npool;
-      for (int k = 0; k < nch; ++k) {
-        const int i = C[k];
-        int ml = M[i] & kMlMask;
-        if (pi < npool && pool_i[pi] == i) ml += pool_e[pi++];
-        const int Ev = i + ml;
-        if (Ev - max(i, prevcov) >= 4) {
-          const int off = i - F.cand(i);
-          if (prevcov > i) {  // moved to its trimmed start
-            if (moved++ < P) em.add(prevcov, Ev, off, 0);
-          } else {
-            em.add(i, Ev, off, F.pk[i] & 3);
-          }
-        }
-        prevcov = max(prevcov, Ev);
-      }
-      em.finish(n);
+  // --- 2. the greedy parse: the chosen rows in L
+  const int cnt = n > start ? greedy_walk(M, mask, nxt, blk, buf, L, s_walk)
+                            : 0;
+  ZL4_STOP_AFTER(2, )
+
+  // --- 3. pool, extension, cover, keep and move, compaction; in tiles of
+  // kParseThreads chosen rows, with the counts and the cover carried
+  const int P = ext_pool(blk);
+  int pooled_c = 0, cover_c = 0, moved_c = 0, keep_c = 0;
+  for (int t0 = 0; t0 < cnt; t0 += kParseThreads) {
+    const int k = t0 + tid;
+    int i = 0, v = 0;
+    if (k < cnt) {
+      i = L[k];
+      v = M[i];
     }
-    s_nruns = em.nr;
-    s_olen = em.op;
-    out_len[b] = em.op;
+    const int ce = k < cnt && (v & kCapEndBit) ? 1 : 0;
+    int tot;
+    const int rank = pooled_c + block_scan(ce, tmp, SumOp{}, tot) - ce;
+    pooled_c += tot;
+    int Ev = 0, off = 0;
+    if (k < cnt) {
+      off = i - F.cand(i);
+      Ev = i + (v & kMlMask);
+      if (ce && rank < P) Ev += extend_end(row, n, blk, Ev, off);
+    }
+    int prevcov;
+    block_scan(Ev, tmp, MaxOp{}, tot, &prevcov);
+    prevcov = max(prevcov, cover_c);
+    cover_c = max(cover_c, tot);
+    const bool keep = k < cnt && Ev - max(i, prevcov) >= 4;
+    const bool moved = keep && prevcov > i;
+    int before;  // moved and kept rows before this one in the tile
+    block_scan((int)moved | (int)keep << 16, tmp, SumOp{}, tot, &before);
+    const int moved_before = moved_c + (before & 0xFFFF);
+    if (keep && (!moved || moved_before < P)) {
+      const int at = keep_c + (before >> 16) - max(moved_before - P, 0);
+      X[at] = moved ? make_int4(prevcov, Ev, off, 0)
+                    : make_int4(i, Ev, off, F.pk[i] & 3);
+    }
+    moved_c += tot & 0xFFFF;
+    keep_c += tot >> 16;
   }
-  __syncthreads();
+  const int kept = keep_c - max(moved_c - P, 0);
+#if defined(ZL4_STOP) && ZL4_STOP >= 3
+  return;
+#endif
+  __syncthreads();  // the entries are in X
 
-  copy_runs(row, R, s_nruns, o, s_olen, cap);
+  // --- 4. the emission over the kept entries
+  emit_entries(DeepEntries{X}, kept, row, n, start, o, cap, R, out_len + b,
+               tmp);
 }
 
 }  // namespace
@@ -547,7 +588,7 @@ extern "C" int zl4_enc_deep_match(const void* data, const void* lens,
     return (int)cudaErrorInvalidValue;
   // the window words (at least blk bytes: the rank passes' digits go
   // there), the passes' histograms and the u16 order
-  const int nwords = (blk + kPad) / 4 + 1;
+  const int nwords = window_words(blk);
   const size_t smem = ((size_t)nwords + kRadixHistWords) * 4 +
                       (size_t)blk * 2;
   cudaError_t err = cudaFuncSetAttribute(
@@ -579,24 +620,30 @@ extern "C" int zl4_enc_deep_dp(const void* lens, const void* starts,
 
 extern "C" int zl4_enc_deep_emit(const void* data, const void* lens,
                                  const void* starts, const void* pk,
-                                 const void* st, void* chosen, void* runs,
-                                 void* out, void* out_len, int B, int blk,
-                                 int cap, int runcap, int chcap,
+                                 const void* st, void* chosen, void* ents,
+                                 void* runs, void* out, void* out_len, int B,
+                                 int blk, int cap, int runcap, int chcap,
                                  void* stream) {
-  // chosen: int32[B, chcap] scratch, one entry per selected match (at most
-  // blk / 4); runs: (src, dst, len) of each literal run, 3 ints a run
-  if (B <= 0 || blk <= 0 || blk >= (1 << 19) || runcap < 3 * (blk / 4 + 1) ||
-      chcap < blk / 4 + 1)
+  // chosen: int32[B, chcap] scratch, the chosen rows (at most blk / 4 + 1:
+  // each match covers >= 4 bytes); ents: int32[B, 4 chcap], the kept
+  // entries (p, e, off, back), 16-byte aligned; runs: (src, dst, len) of
+  // each long literal run, 3 ints a run, at most blk / 4 + 2 runs
+  if (B <= 0 || blk <= 0 || blk >= (1 << 19) ||
+      runcap < 3 * (blk / 4 + 2) || chcap < blk / 4 + 1 ||
+      reinterpret_cast<uintptr_t>(ents) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  // the take mask, then the extension pool's rows and extensions
-  const size_t smem = ((size_t)((blk + 31) / 32) + 2 * ext_pool(blk)) * 4;
+  // the take mask, the next take row after each of its words; the walk's
+  // two staged spans
+  const int nw = (blk + 31) / 32;
+  const size_t smem = (2 * (size_t)nw + 2 * kStage) * 4;
   cudaError_t err = cudaFuncSetAttribute(
       enc_deep_emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   enc_deep_emit_kernel<<<B, kParseThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)data, (const int32_t*)lens, (const int32_t*)starts,
-      (const int32_t*)pk, (const int32_t*)st, (int32_t*)chosen, (int32_t*)runs,
-      (uint8_t*)out, (int32_t*)out_len, blk, cap, runcap, chcap);
+      (const int32_t*)pk, (const int32_t*)st, (int32_t*)chosen, (int4*)ents,
+      (int32_t*)runs, (uint8_t*)out, (int32_t*)out_len, blk, cap, runcap,
+      chcap);
   return (int)cudaGetLastError();
 }

@@ -214,7 +214,7 @@ extern "C" int zl4_enc_deep_match_wide(const void* data, const void* lens,
   // int32[B, 2, blk] at deep == 3; C CTAs a window holding 1024 Jr rows
   // each
   if (B <= 0 || blk <= 0 || blk >= (1 << 19) ||
-      nwords != match_shape(blk).nwords || !wide_shape_ok(blk, C, Jr) ||
+      nwords != window_words(blk) || !wide_shape_ok(blk, C, Jr) ||
       hc < 1 || deep < 1 || deep > 3)
     return (int)cudaErrorInvalidValue;
   return (int)with_deep_kernel(Jr, [&](auto kernel, unsigned* raised, int J) {

@@ -127,7 +127,7 @@ extern "C" int zl4_enc_match_wide(const void* data, const void* lens,
   // words: u32[B, (blk + kPad) / 4 + 1]; C CTAs a window holding 1024 Jr
   // rows each; hc >= 1 takes all kMaxW windows
   if (B <= 0 || blk <= 0 || blk >= (1 << 19) ||
-      nwords != match_shape(blk).nwords || !wide_shape_ok(blk, C, Jr) ||
+      nwords != window_words(blk) || !wide_shape_ok(blk, C, Jr) ||
       hc < 0 || nwin < 1 || nwin > kMaxW || probes < 1)
     return (int)cudaErrorInvalidValue;
   return (int)with_match_kernel(Jr, [&](auto kernel, unsigned* raised,

@@ -269,7 +269,8 @@ struct WideKeyByte {
 
 // The lexicographic order of the nw words (s0, at(p+4), ..., at(p+4(nw-1)))
 // of each row, ties by position: 4 nw passes, the last word first, each
-// word from its low byte up (Less12: nw = 3; LessS0: 1; Less32: 8).
+// word from its low byte up (the 12-byte order: nw = 3; (s0, p): 1; the
+// 32-byte order: 8).
 template <int J>
 __device__ void wide_sort_window(const WideOrder& o, const uint8_t* row,
                                  int n, int nw) {

@@ -1,8 +1,8 @@
 // A bitonic network over int32 (key, payload) rows, each row resident in
 // the shared memory of one thread-block cluster.
 //
-// The network is the one of bitonic_sort in encode_common.cuh and of the JAX
-// package's probe (experiments/pallas_sort_probe.py): stages k = 2, 4, ..., N and, in each,
+// The network is the one of the JAX package's probe
+// (experiments/pallas_sort_probe.py): stages k = 2, 4, ..., N and, in each,
 // j = k/2, ..., 1; the pair (i, i + j) with bit j of i clear is ascending
 // when bit k of i is clear (so the last merge, k = N, is all ascending), and
 // its two pairs are exchanged only when the keys are strictly out of order,

@@ -16,8 +16,8 @@ and, for the deep levels, ``kernels/csrc/encode_deep.cu``):
   sort and its +1/+2 probes.  Both sorts are stable byte-digit radix
   passes (``kernels/csrc/sort_radix.cuh``), 12 and 4 of them.
 * ``enc_match_fast`` (``hc == 0``) -- window build, one grouping sort
-  by the 4-byte string (a bitonic network), probes +1..+probes over
-  ``W`` carried windows.
+  by the 4-byte string (the 4 byte passes of ``enc_match``'s fallback),
+  probes +1..+probes over ``W`` carried windows.
   Both write one packed candidate word per position,
   ``((cand + 1) << 12) | (fine ml << 6) | back`` (0 = no candidate),
   the same pack the reference unsorts (``jax_block.py:459-466``).
@@ -51,10 +51,12 @@ and, for the deep levels, ``kernels/csrc/encode_deep.cu``):
   ``jax_block.py:556-683``), relaxed as the reference does in chunks of
   32 positions, one warp a window and a position a lane: per position
   the final length, the ``take`` bit and the capped-end bit.
-* ``enc_deep_emit`` -- the greedy parse over ``take``, the pooled exact
-  extension of capped chosen ends and the one-pass absorb
-  (``jax_block.py:748-863``; 512 pooled rows per 64 KB of window), then
-  the same emission as ``enc_parse_emit``.
+* ``enc_deep_emit`` -- the greedy parse over ``take`` (the walk of
+  ``enc_parse_emit``), the pooled exact extension of capped chosen ends
+  and the absorb (``jax_block.py:748-863``; 512 pooled rows per 64 KB of
+  window), tile by tile over the chosen rows with block scans for the
+  pool rank, the running cover and the compaction, then the same
+  emission as ``enc_parse_emit``.
 
 Every level takes every window that ``device_encoder_supports`` takes.
 Each kernel has a plain version in this module
@@ -861,13 +863,16 @@ def deep_emit(blocks: torch.Tensor, lens: torch.Tensor,
     out = torch.empty((B, cap), dtype=torch.uint8, device=dev)
     out_len = torch.empty(B, dtype=torch.int32, device=dev)
     # per window: the chosen rows of the greedy parse (a window has at
-    # most blk // 4 matches) and the literal runs (src, dst, len)
-    chosen = torch.empty((B, blk // 4 + 1), dtype=torch.int32, device=dev)
+    # most blk // 4 + 1), the kept entries (p, e, off, back) and the long
+    # literal runs (src, dst, len; at most blk // 4 + 2)
+    chcap = blk // 4 + 1
+    chosen = torch.empty((B, chcap), dtype=torch.int32, device=dev)
+    ents = torch.empty((B, 4 * chcap), dtype=torch.int32, device=dev)
     runs = torch.empty((B, 3 * (blk // 4 + 2)), dtype=torch.int32,
                        device=dev)
     if B:
-        launch("enc_deep_emit", blocks, lens, starts, pk, st, chosen, runs,
-               out, out_len, B, blk, cap, runs.shape[1], chosen.shape[1])
+        launch("enc_deep_emit", blocks, lens, starts, pk, st, chosen, ents,
+               runs, out, out_len, B, blk, cap, runs.shape[1], chcap)
     return out, out_len
 
 
