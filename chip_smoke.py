@@ -111,6 +111,15 @@ between CUDA events, on tensors allocated before the capture.  It also
 prints the host microseconds a call of ``kernels.launch`` costs, beside
 those of the parent commit's wrapper (``parent_launch`` below).
 
+``seq_decode`` and ``frag_decode_chase``, which rebuild a block in shared
+memory (by pointer jumping; in a thread-block cluster's shared memory),
+are timed phase by phase from the cuts of ``seq_decode.cu`` and
+``frag_decode.cu`` (-DZL4_STOP=1..3), with their rounds a block, and
+held against plain on their worst cases: 64 KB chains through every
+sequence (with no history and into a 64 KB history) and a 65,535-byte
+run at offset 1; the chase at every configuration on 256 KB blocks (a
+cluster of 8) and 1 MB blocks (device scratch), with its launch shape.
+
 Run from the repository root, with one CUDA device:
 
     python3 chip_smoke.py
@@ -118,7 +127,10 @@ Run from the repository root, with one CUDA device:
 To compare the encoder kernels of two checkouts in one call (at the
 64 KB and the 1 MB paths' shapes), run ``python3 /path/to/chip_smoke.py
 --time-encoder-kernels`` from each checkout's root in turns
-(``time_encoder_kernels`` below).
+(``time_encoder_kernels`` below); ``--time-decode-kernels`` does the
+same for ``seq_decode`` (the level-12 frame's 672 blocks and 32 of
+them) and ``frag_decode_chase`` (the "chase" path's 141-block launch)
+(``time_decode_kernels``).
 
 Exits non-zero on any failed check.  Imports no JAX.  The last two
 lines of stdout are the card's name and power limit as nvidia-smi
@@ -159,6 +171,9 @@ CHILD_FLAG = "--decode-without-native"
 #: paths' shapes, with the package of the current directory
 #: (time_encoder_kernels)
 ENCODER_FLAG = "--time-encoder-kernels"
+#: the mode that times seq_decode and frag_decode_chase alone at the
+#: paths' shapes (time_decode_kernels)
+DECODE_FLAG = "--time-decode-kernels"
 DEEP_KERNELS = ("enc_deep_match", "enc_deep_dp", "enc_deep_emit")
 SEQ_PLAIN_BLOCKS = 32
 #: make_corpus(2) blocks (one per content type) with their JAX payloads
@@ -208,9 +223,15 @@ WIDE_DEEP_KERNELS = ("enc_deep_match_wide", "enc_deep_dp", "enc_deep_emit",
                      "tmap_gather")
 #: the phase cuts (-DZL4_STOP=1..k) built beside the library, by source:
 #: enc_match and enc_parse_emit (encode_block.cu), the two wide finders,
-#: and enc_deep_match with enc_deep_dp (encode_deep.cu)
+#: enc_deep_match with enc_deep_dp (encode_deep.cu), seq_decode and the
+#: cluster route of frag_decode_chase (frag_decode.cu)
 PHASE_CUTS = {"encode_block.cu": 4, "encode_wide.cu": 4,
-              "encode_deep_wide.cu": 8, "encode_deep.cu": 8}
+              "encode_deep_wide.cu": 8, "encode_deep.cu": 8,
+              "seq_decode.cu": 3, "frag_decode.cu": 3}
+#: phases of seq_decode and of frag_decode_chase's cluster route, one a
+#: cut (1, 2, 3) and the last the rest
+SEQ_PHASES = ("seg_start", "fill", "rounds", "write-out")
+CHASE_PHASES = ("one-hop sources", "dense rounds", "frontier", "final gather")
 #: phases of the wide finders and of enc_deep_match, one a cut and the
 #: last the rest
 WIDE_PHASES = ("window words", "12-byte sort", "probes +-9", "s0 sort",
@@ -227,7 +248,8 @@ PTXAS_KERNELS = ("enc_match_kernel", "enc_match_fast_kernel",
                  "enc_match_wide_kernel<20>", "enc_match_wide_kernel<32>",
                  "enc_deep_match_wide_kernel<20>",
                  "enc_deep_match_wide_kernel<32>", "enc_deep_match_kernel",
-                 "enc_deep_dp_kernel")
+                 "enc_deep_dp_kernel", "seq_decode_kernel",
+                 "frag_chase_cluster_kernel", "frag_decode_chase_kernel")
 #: n / frame bytes of the 1 MB-block paths (the reference's frames, whose
 #: SHA-256 the wide goldens hold, give the same)
 EXPECT_RATIO_WIDE = {"1 MB blocks, level 9": 3.253950,
@@ -829,6 +851,202 @@ def subspan_windows(np, data, block=1 << 20):
         windows[k, :len(h) + len(span)] = np.frombuffer(h + span, np.uint8)
         lens[k], starts[k] = len(h) + len(span), len(h)
     return windows, lens, starts
+
+
+def seq_worst_cases(np, blk=BLK):
+    """Tables of 64 KB blocks that are worst cases for seq_decode's
+    rounds: a chain in which each sequence is 1 literal and a 4-byte
+    match at offset 5, so that every match reads the one before it (its
+    chains run through every sequence), with its root in 4 literals or
+    in a 64 KB history; and a 65,535-byte match at offset 1.  Returns
+    [(name, (comp, lit_len, lit_src, mlen, off, nseq), history or
+    None)]."""
+    cases = []
+    rng = np.random.default_rng(65535)
+    for into_history in (False, True):
+        ns = blk // 5 if into_history else (blk - 4) // 5
+        comp = rng.integers(65, 91, (1, ns + 8), dtype=np.uint8)
+        lit = np.ones((1, ns), np.int32)
+        lsrc = (np.arange(ns, dtype=np.int32) + 4)[None]
+        if not into_history:
+            lit[0, 0], lsrc[0, 0] = 5, 0
+        tabs = (comp, lit, lsrc, np.full((1, ns), 4, np.int32),
+                np.full((1, ns), 5, np.int32), np.array([ns], np.int32))
+        hist = (rng.integers(0, 256, blk, dtype=np.uint8)
+                if into_history else None)
+        cases.append((f"chain of {ns} sequences"
+                      + (" into a 64 KB history" if into_history else ""),
+                      tabs, hist))
+    one = lambda v: np.array([[v]], np.int32)            # noqa: E731
+    cases.append(("65,535-byte run at offset 1",
+                  (np.array([[0x61, 0, 0, 0]], np.uint8), one(1), one(0),
+                   one(blk - 1), one(1), np.array([1], np.int32)), None))
+    return cases
+
+
+def seq_phase_split(libs, seq_in, blk, reps=5):
+    """Milliseconds of each phase cut of ``seq_decode``
+    (``seq_decode.cu`` -DZL4_STOP=1..3) on ``seq_in``, through ctypes
+    (not counted as launches): {k: median of ``reps``}."""
+    import ctypes
+
+    import torch
+    P, I = ctypes.c_void_p, ctypes.c_int
+    comp, ll, ls, ml, off, nseq = seq_in
+    B, ccap = comp.shape
+    cap = ll.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    ss = torch.empty((B, cap), dtype=torch.int32, device=comp.device)
+    out = torch.empty((B, blk), dtype=torch.uint8, device=comp.device)
+    olen, ok = (torch.empty(B, dtype=torch.int32, device=comp.device)
+                for _ in range(2))
+    ms = {}
+    for k, lib in libs["seq_decode.cu"].items():
+        fn = lib.zl4_seq_decode
+        fn.argtypes, fn.restype = [P] * 12 + [I] * 6 + [P], I
+
+        def cut():
+            check(fn(*(t.data_ptr() for t in (comp, comp, ll, ls, ml, off,
+                                              nseq, ss, out, olen, ok)),
+                     None, B, ccap, 0, 0, cap, blk, stream) == 0,
+                  f"seq_decode cut {k} did not launch")
+        cut()
+        ms[k] = statistics.median(cuda_ms(cut)[0] for _ in range(reps))
+    return ms
+
+
+def chase_phase_split(libs, a, kw, reps=5):
+    """Milliseconds of each phase cut of ``frag_decode_chase``'s cluster
+    route (``frag_decode.cu`` -DZL4_STOP=1..3) at a recorded call of
+    ``decode_blocks_frags_chase`` (arguments ``a``, ``kw``), through
+    ctypes (not counted): {k: median of ``reps``}."""
+    import ctypes
+    import inspect
+
+    import torch
+    from zig_lz4_tpu_torch.ops import torch_frags as tfr
+    P, I = ctypes.c_void_p, ctypes.c_int
+    bound_ = inspect.signature(tfr.decode_blocks_frags_chase).bind(*a, **kw)
+    bound_.apply_defaults()
+    arg = bound_.arguments
+    tables = [arg[k].contiguous() for k in ("comp", "fdst", "fsrc", "fper",
+                                            "fphase", "nfrag", "out_len")]
+    blk, dense, doublings = arg["blk"], arg["dense"], arg["doublings"]
+    q = min(tfr._chase_pool(blk, arg["qcap"]), blk) if doublings > 0 else 1
+    C = tfr.chase_cluster_size(blk)
+    check(C > 0, f"no cluster route at {blk}-byte blocks")
+    B = tables[0].shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty((B, blk), dtype=torch.uint8, device=tables[0].device)
+    ok = torch.empty(B, dtype=torch.int32, device=tables[0].device)
+    ms = {}
+    for k, lib in libs["frag_decode.cu"].items():
+        fn = lib.zl4_frag_decode_chase
+        fn.argtypes, fn.restype = [P] * 13 + [I] * 8 + [P], I
+
+        def cut():
+            check(fn(*(t.data_ptr() for t in tables), None, None, None,
+                     out.data_ptr(), ok.data_ptr(), None, B,
+                     tables[0].shape[1], tables[1].shape[1], blk, dense,
+                     doublings, q, C, stream) == 0,
+                  f"frag_decode_chase cut {k} did not launch")
+        cut()
+        ms[k] = statistics.median(cuda_ms(cut)[0] for _ in range(reps))
+    return ms
+
+
+def by_phase(names, cuts, whole):
+    """{phase: ms} from the cuts' times (a phase = the difference of two
+    cuts; the last phase the whole less the last cut)."""
+    t = [0.0] + [cuts[k] for k in sorted(cuts)] + [whole]
+    return {n: t[i + 1] - t[i] for i, n in enumerate(names)}
+
+
+def decode_inputs(torch, np, data, dev):
+    """What the two decoders' timing needs, made with the package of the
+    current directory from calls every version of the port has: the
+    level-12 frame's compressed blocks parsed into sequence tables on the
+    card, and the calls the level-9 frame's "chase" decode makes of
+    ``decode_blocks_frags_chase`` (recorded).  Returns (seq_in, chase
+    calls [(args, kwargs)])."""
+    from zig_lz4_tpu_torch import ShardedFrameCodec, native
+    from zig_lz4_tpu_torch import frame as lz4f
+    from zig_lz4_tpu_torch.constants import compress_bound
+    from zig_lz4_tpu_torch.ops import torch_decode as td
+    from zig_lz4_tpu_torch.parallel import sharded as sh
+    fr12 = ShardedFrameCodec(compression_level=12,
+                             device="cuda").compress_frame(data)
+    _idx, recs = frame_payloads(fr12, lz4f)
+    plen = np.array([len(p) for p in recs], np.int64)
+    offs = np.zeros_like(plen)
+    offs[1:] = np.cumsum(plen)[:-1]
+    tabs = native.native_parse_blocks(b"".join(recs), offs, plen,
+                                      td.MAX_SEQS(BLK))
+    comp = np.zeros((len(recs), compress_bound(BLK)), np.uint8)
+    for k, p_ in enumerate(recs):
+        comp[k, :len(p_)] = np.frombuffer(p_, np.uint8)
+    seq_in = [torch.from_numpy(x).to(dev) for x in (comp, *tabs)]
+    fr9 = ShardedFrameCodec(compression_level=9,
+                            device="cuda").compress_frame(data)
+    calls, real = [], sh.decode_blocks_frags_chase
+
+    def record(*a, **k):
+        calls.append((a, k))
+        return real(*a, **k)
+    sh.decode_blocks_frags_chase = record
+    try:
+        back = ShardedFrameCodec(device="cuda", decode_engine="chase"
+                                 ).decompress_frame(fr9)
+    finally:
+        sh.decode_blocks_frags_chase = real
+    check(back == data, "chase decode of the level-9 frame")
+    return seq_in, calls
+
+
+def time_decode_kernels():
+    """``python3 /path/to/chip_smoke.py --time-decode-kernels``: times
+    ``seq_decode`` and ``frag_decode_chase`` with the package of the
+    current directory first on the module path, so that two checkouts
+    (one unpacked from the parent commit with ``git archive``) can be
+    compared in turns in one call: ``decode_blocks`` over the level-12
+    frame's compressed 64 KB blocks of the bench corpus and over 32 of
+    them, and ``decode_blocks_frags_chase`` at the largest launch of the
+    level-9 frame's "chase" decode (141 blocks).  It uses only what every
+    version of the port has (``decode_inputs``).  Each time is the median
+    of 5 calls between CUDA events, after one warm-up call; it prints one
+    line."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    if not torch.cuda.is_available():
+        print("[device] FAIL: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from zig_lz4_tpu_torch.corpus import make_corpus
+    from zig_lz4_tpu_torch.ops import torch_decode as td
+    from zig_lz4_tpu_torch.ops import torch_frags as tfr
+    smi = nvidia_smi()
+    data = make_corpus(48)
+    data = data[:len(data) - len(data) % (BLK * BENCH_BATCH)]
+    seq_in, chase_calls = decode_inputs(torch, np, data, torch.device("cuda"))
+    step = max(seq_in[0].shape[0] // SEQ_PLAIN_BLOCKS, 1)
+    sub = [t[::step].contiguous() for t in seq_in]
+    a, kw = max(chase_calls, key=lambda c: c[0][0].shape[0])
+    calls = {f"seq_decode at {seq_in[0].shape[0]} x 64 KB":
+             lambda: td.decode_blocks(*seq_in, BLK),
+             f"seq_decode at {sub[0].shape[0]} x 64 KB":
+             lambda: td.decode_blocks(*sub, BLK),
+             f"frag_decode_chase at {a[0].shape[0]} blocks "
+             f"({list(a[7:])} {kw})":
+             lambda: tfr.decode_blocks_frags_chase(*a, **kw)}
+    ms = {}
+    for k, fn in calls.items():
+        fn()
+        ms[k] = statistics.median(cuda_ms(fn)[0] for _ in range(5))
+    print(f"[decode kernels] {smi}: package {os.path.dirname(td.__file__)}: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
+    return 0
 
 
 def time_encoder_kernels():
@@ -1622,6 +1840,48 @@ def main():
           f"staging {t_stage_s:.2f} ms); at {sub[0].shape[0]} blocks "
           f"{k_seq_sub:.3f} ms, plain {p_seq:.1f} ms")
 
+    # seq_decode by phase (the cuts of seq_decode.cu), its rounds, and its
+    # worst cases against plain: chains through every sequence and a
+    # 65,535-byte run
+    t_k6 = time.perf_counter()
+    phase_libs = finish_phase_builds(phase_jobs)
+    seq_rounds = torch.zeros(len(recs12), dtype=torch.int32, device=dev)
+    out_r = td.decode_blocks(*seq_in, BLK, rounds=seq_rounds)
+    check(torch.equal(out_r[0], out_s), "seq_decode with its rounds differs")
+    seq_phases = by_phase(SEQ_PHASES, seq_phase_split(phase_libs, seq_in, BLK),
+                          k_seq)
+    seq_phases_sub = by_phase(SEQ_PHASES,
+                              seq_phase_split(phase_libs, sub, BLK),
+                              k_seq_sub)
+    rounds_h = seq_rounds.cpu().numpy()
+    worst = {}
+    for what, tabs_w, hist_w in seq_worst_cases(np):
+        a_w = [torch.from_numpy(x).to(dev) for x in tabs_w]
+        h_w = None if hist_w is None else torch.from_numpy(hist_w).to(dev)
+        r_w = torch.zeros(1, dtype=torch.int32, device=dev)
+        got_w = td.decode_blocks(*a_w, BLK, hists=h_w, rounds=r_w)
+        want_w = td.decode_blocks_plain(*a_w, BLK, hists=h_w)
+        err_w = max(max_abs_err(x, y) for x, y in zip(got_w, want_w))
+        check(err_w == 0 and bool(got_w[2].all()),
+              f"seq_decode differs from plain on the {what}")
+        worst[what] = dict(max_abs_err=err_w, rounds=int(r_w[0]))
+    print(f"[K6] seq_decode on its worst cases vs plain: {worst} (these "
+          f"checks and the phase cuts {time.perf_counter() - t_k6:.1f} s)")
+    print(f"[time] {smi}: seq_decode at {len(recs12)} x 64 KB by phase (cuts "
+          "of seq_decode.cu, -DZL4_STOP=1..3): " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in seq_phases.items())
+          + f"; whole {k_seq:.4f} ms; at {sub[0].shape[0]} blocks: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in seq_phases_sub.items())
+          + f"; whole {k_seq_sub:.4f} ms; rounds a block: max "
+          f"{int(rounds_h.max())}, mean {float(rounds_h.mean()):.4f}")
+    results["seq_decode"].update(
+        ms_32_blocks=k_seq_sub, phase_ms=seq_phases,
+        phase_ms_32_blocks=seq_phases_sub, rounds_max=int(rounds_h.max()),
+        rounds_mean=float(rounds_h.mean()), worst_cases=worst,
+        max_abs_err=max(results["seq_decode"]["max_abs_err"],
+                        *(w["max_abs_err"] for w in worst.values())))
+    del out_r, seq_rounds
+
     # P1: the serial decoder over the same 672 blocks, counted; against
     # seq_decode's out (the other route for the same semantics), and
     # against its plain version on the same 32 blocks
@@ -1933,6 +2193,66 @@ def main():
                   tfr.decode_blocks_frags_win_plain, BLK)
     ladder_kernel("frag_decode_chase", "level-9 frame, chase", frame,
                   tfr.decode_blocks_frags_chase_plain, BLK)
+    # the chase by phase (cuts of frag_decode.cu, the cluster route), its
+    # rounds and launch shape at that launch; then both routes against
+    # plain at every chase configuration on 256 KB (a cluster of 8) and
+    # 1 MB blocks (device scratch)
+    t_k7 = time.perf_counter()
+    _k, a_c, kw_c, _b = max((c for c in probes["level-9 frame, chase"].calls
+                             if c[0] == "frag_decode_chase"),
+                            key=lambda c: c[1][0].shape[0])
+    r_c = torch.zeros(a_c[0].shape[0], dtype=torch.int32, device=dev)
+    got_c = tfr.decode_blocks_frags_chase(*a_c, **kw_c, rounds=r_c)
+    want_c = tfr.decode_blocks_frags_chase(*a_c, **kw_c)
+    check(all(torch.equal(x, y) for x, y in zip(got_c, want_c)),
+          "frag_decode_chase with its rounds differs")
+    r_h = r_c.cpu().numpy()
+    dense_r, front_r = r_h & 0xFFFF, r_h >> 16
+    chase_phases = by_phase(CHASE_PHASES,
+                            chase_phase_split(phase_libs, a_c, kw_c),
+                            results["frag_decode_chase"]["ms"])
+    chase_shape = {bs_: tfr.chase_launch_shape(bs_)
+                   for bs_ in (BLK, 262144, 1 << 20)}
+    check(all(v["active_clusters"] > 0 for v in chase_shape.values()
+              if v["ctas"]), f"the chase's cluster {chase_shape}")
+    route_err = {}
+    for what, fr_r, bs_ in (("256 KB blocks", frame256, 262144),
+                            ("1 MB blocks", frame1m, 1 << 20)):
+        pays_r = frame_payloads(fr_r, lz4f)[1]
+        args_r, _rd, nf_r = ladder_tables(pays_r, *LADDER_CHASE[0],
+                                          fcap=bs_, bs=bs_)
+        for cfg in LADDER_CHASE[1]:
+            cfg = {k: v for k, v in cfg.items() if k != "clears"}
+            got_r = tfr.decode_blocks_frags_chase(*args_r, bs_, **cfg)
+            want_r = tfr.decode_blocks_frags_chase_plain(*args_r, bs_, **cfg)
+            err_r = max(max_abs_err(x, y) for x, y in zip(got_r, want_r))
+            route_err[f"{what}, {cfg}"] = err_r
+            check(err_r == 0, f"frag_decode_chase differs from plain on "
+                  f"{what} at {cfg}")
+        del args_r
+    print(f"[K7] frag_decode_chase vs plain at every chase configuration "
+          f"on 256 KB blocks (a cluster of 8) and 1 MB blocks (device "
+          f"scratch): max_abs_err {route_err}; launch shape by block bytes "
+          f"(CTAs a cluster, 0 = device scratch; threads and shared bytes "
+          f"a CTA; clusters the card holds at once): {chase_shape} (these "
+          f"checks and the phase cuts {time.perf_counter() - t_k7:.1f} s)")
+    print(f"[time] {smi}: frag_decode_chase at {a_c[0].shape[0]} x 64 KB "
+          "(level-9 frame, chase) by phase (cuts of frag_decode.cu, "
+          "-DZL4_STOP=1..3): " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in chase_phases.items())
+          + f"; whole {results['frag_decode_chase']['ms']:.4f} ms; rounds "
+          f"a block: dense max {int(dense_r.max())} mean "
+          f"{float(dense_r.mean()):.4f}, frontier max {int(front_r.max())} "
+          f"mean {float(front_r.mean()):.4f}")
+    results["frag_decode_chase"].update(
+        phase_ms=chase_phases, dense_rounds_max=int(dense_r.max()),
+        dense_rounds_mean=float(dense_r.mean()),
+        frontier_rounds_max=int(front_r.max()),
+        frontier_rounds_mean=float(front_r.mean()),
+        launch_shape=chase_shape, routes_max_abs_err=route_err,
+        max_abs_err=max(results["frag_decode_chase"]["max_abs_err"],
+                        *route_err.values()))
+    del got_c, want_c, r_c
 
     def ladder_stages(what, cdc, fr, bs):
         """The path by stage: the host resolve as the path makes it, the
@@ -2096,7 +2416,6 @@ def main():
         lambda: tb.parse_emit(w_all, l_all, s_all, pk_fast, 0), 2)
     # the two redesigned kernels phase by phase, on the same inputs: each
     # ZL4_STOP cut of encode_block.cu against the whole kernel
-    phase_libs = finish_phase_builds(phase_jobs)
     cut_m, cut_e, cut_f, cut_order, cut_s0 = phase_split(
         phase_libs, w_all, l_all, s_all, pk_all, 9, 4 + 4 * 8)
     match_phases = dict(zip(
@@ -2709,7 +3028,9 @@ if __name__ == "__main__":
     try:
         sys.exit(decode_without_native() if sys.argv[1:] == [CHILD_FLAG]
                  else time_encoder_kernels()
-                 if sys.argv[1:] == [ENCODER_FLAG] else main())
+                 if sys.argv[1:] == [ENCODER_FLAG]
+                 else time_decode_kernels()
+                 if sys.argv[1:] == [DECODE_FLAG] else main())
     except Failed as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         sys.exit(1)

@@ -72,7 +72,7 @@ KERNELS = {
                          [_P] * 5 + [_I] * 4,
                          "ops/jax_decode.py:1123"),
     "seq_decode": ("zl4_seq_decode", "seq_decode.cu",
-                   [_P] * 11 + [_I] * 6,
+                   [_P] * 12 + [_I] * 6,
                    "ops/jax_decode.py:120"),
     "frag_decode": ("zl4_frag_decode", "frag_decode.cu",
                     [_P] * 11 + [_I] * 5,
@@ -81,7 +81,7 @@ KERNELS = {
                         [_P] * 12 + [_I] * 10,
                         "ops/jax_decode.py:461"),
     "frag_decode_chase": ("zl4_frag_decode_chase", "frag_decode.cu",
-                          [_P] * 12 + [_I] * 7,
+                          [_P] * 13 + [_I] * 8,
                           "ops/jax_decode.py:798"),
     "serial_decode": ("zl4_serial_decode", "serial_decode.cu",
                       [_P] * 7 + [_I] * 4,

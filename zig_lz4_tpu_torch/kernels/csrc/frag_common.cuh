@@ -4,12 +4,16 @@
 // one bit per output byte, a block-wide prefix count over such a mask,
 // and the round loop of the two value-state decoders.
 //
-// One thread block of kThreads threads rebuilds one LZ4 block.  Its
-// state (sources, masks, positions) lies in device scratch that the
-// wrapper allocates: a 64 KB block's 256-512 KB stay in the L2, and 256
-// KB and 1 MB blocks, which no SM's shared memory holds, take the same
-// code.  State that other threads of the block rewrite between barriers
-// is read with __ldcg (from the L2), never through a stale L1 line.
+// One thread block of kThreads threads rebuilds one LZ4 block, or, for
+// the chase of blocks up to 256 KB, one thread-block cluster of up to 8
+// (frag_decode.cu).  The byte-granular and windowed decoders, and the
+// chase of larger blocks, keep their state (sources, masks, positions)
+// in device scratch that the wrapper allocates: 256-512 KB a 64 KB
+// block, which the 50 MB L2 holds for one block but not for the 100-odd
+// blocks of a tier batch at once.  State that other threads of the block
+// rewrite between barriers is read with __ldcg (from the L2), never
+// through a stale L1 line.  A table's columns at or past nfrag are never
+// read: the search for a byte's fragment runs over the first nfrag.
 
 #pragma once
 
@@ -35,11 +39,11 @@ struct Block {
   int nfrag, out_len, fetch, blk, nwords;
 };
 
+// Block b's view of the batch.
 __device__ __forceinline__ Block
 block_view(const uint8_t* comp, const int32_t* fdst, const int32_t* fsrc,
            const int32_t* fper, const int32_t* fphase, const int32_t* nfrag,
-           const int32_t* out_len, int fetch, int ncol, int blk) {
-  const size_t b = blockIdx.x;
+           const int32_t* out_len, int fetch, int ncol, int blk, size_t b) {
   Block v;
   v.comp = comp + b * fetch;
   v.fdst = fdst + b * ncol;
@@ -54,36 +58,71 @@ block_view(const uint8_t* comp, const int32_t* fdst, const int32_t* fsrc,
   return v;
 }
 
-// Source of byte j: the covering fragment is the last one with
-// fdst <= j (the tables come in increasing fdst).  A LIT byte's source
-// is a fetch coordinate, a PER byte's an output coordinate; both are
-// clamped, so a malformed table reads nothing out of bounds.
-__device__ __forceinline__ int source_of(const Block& v, int j, bool* per) {
+// The view of the grid's block blockIdx.x.
+__device__ __forceinline__ Block
+block_view(const uint8_t* comp, const int32_t* fdst, const int32_t* fsrc,
+           const int32_t* fper, const int32_t* fphase, const int32_t* nfrag,
+           const int32_t* out_len, int fetch, int ncol, int blk) {
+  return block_view(comp, fdst, fsrc, fper, fphase, nfrag, out_len, fetch,
+                    ncol, blk, blockIdx.x);
+}
+
+// The fragment that covers byte j: the last one with fdst <= j among
+// the first nfrag (the tables come in increasing fdst), by bisection;
+// -1 when there is none.  On an unsorted table this is the bisection's
+// answer, as torch.searchsorted's.
+__device__ __forceinline__ int fragment_of(const Block& v, int j) {
   int lo = 0, hi = v.nfrag;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (__ldg(v.fdst + mid) <= j) lo = mid + 1; else hi = mid;
   }
+  return lo - 1;
+}
+
+// Source of byte j in fragment q (q < 0: none, the fetch byte 0).  A LIT
+// byte's source is a fetch coordinate, a PER byte's an output
+// coordinate; both are clamped, so a malformed table reads nothing out
+// of bounds.
+__device__ __forceinline__ int source_in(const Block& v, int j, int q,
+                                         bool* per) {
   *per = false;
-  if (lo == 0) return 0;
-  const int q = lo - 1;
+  if (q < 0) return 0;
   const int rel = j - __ldg(v.fdst + q);
   const int s = __ldg(v.fsrc + q), p = __ldg(v.fper + q);
   if (p > 0) {
     *per = true;
-    const long long ph = ((long long)__ldg(v.fphase + q) + rel) % p;
-    const long long t = (long long)s + (ph < 0 ? ph + p : ph);
+    const long long x = (long long)__ldg(v.fphase + q) + rel;
+    long long ph;
+    if (x >= 0 && x <= 0x7fffffffll) {  // a sound table's case, 32 bits
+      ph = (unsigned)x % (unsigned)p;
+    } else {
+      ph = x % p;
+      if (ph < 0) ph += p;
+    }
+    const long long t = (long long)s + ph;
     return (int)min(max(t, 0ll), (long long)v.blk - 1);
   }
   const long long t = (long long)s + rel;
   return (int)min(max(t, 0ll), (long long)v.fetch - 1);
 }
 
+// Source of byte j, its fragment found by bisection.
+__device__ __forceinline__ int source_of(const Block& v, int j, bool* per) {
+  return source_in(v, j, fragment_of(v, j), per);
+}
+
 // prefix[w] = number of set bits in words[0..w); returns the total.
 // Every thread of the block calls it, after a barrier behind the last
-// write of `words`; it ends on a barrier.
+// write of `words` (in shared memory when kShared, else in device
+// memory, read from the L2); it ends on a barrier.
+template <bool kShared = false>
 __device__ int prefix_popc(const uint32_t* words, int32_t* prefix,
                            int nwords) {
+  auto word = [&](int i) {
+    if constexpr (kShared) return words[i];
+    else return __ldcg(words + i);
+  };
   __shared__ int warp_sum[32];
   __shared__ int total_s;
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
@@ -91,7 +130,7 @@ __device__ int prefix_popc(const uint32_t* words, int32_t* prefix,
   const int lo = min(tid * per_thread, nwords);
   const int hi = min(lo + per_thread, nwords);
   int sum = 0;
-  for (int i = lo; i < hi; ++i) sum += __popc(__ldcg(words + i));
+  for (int i = lo; i < hi; ++i) sum += __popc(word(i));
   int x = sum;
   for (int o = 1; o < 32; o <<= 1) {
     const int y = __shfl_up_sync(kFull, x, o);
@@ -113,7 +152,7 @@ __device__ int prefix_popc(const uint32_t* words, int32_t* prefix,
   int run = warp_sum[wid] + x - sum;
   for (int i = lo; i < hi; ++i) {
     prefix[i] = run;
-    run += __popc(__ldcg(words + i));
+    run += __popc(word(i));
   }
   const int total = total_s;
   __syncthreads();

@@ -21,17 +21,52 @@
 //                      rounds then rounds over a frontier pool.
 //
 // Bound on the H100: device memory -- each fetch row, the four table
-// columns below nfrag and the output row cross it once; the state lives
-// in scratch that the L2 serves.  Design: one thread block of 1024
-// threads per LZ4 block, a block-wide barrier between dependency levels,
-// double-buffered state so that a round reads the state of its start
-// (known-bit masks for the value decoders, the position array for the
-// chase), and an early exit from the rounds once nothing changes.
+// columns below nfrag and the output row cross it once.  Design: one
+// thread block of 1024 threads per LZ4 block, a block-wide barrier
+// between dependency levels, double-buffered state so that a round reads
+// the state of its start (known-bit masks for the value decoders, the
+// position array for the chase), and an early exit from the rounds once
+// nothing changes.  The value decoders keep their state in device
+// scratch.  The chase keeps its position state nx, int32 a byte, in the
+// shared memory of one thread-block cluster a block for blocks up to
+// 256 KB (C = ceil(blk / 32768) CTAs of 1024 threads, 32,768 positions
+// and 128 KB a CTA: 2 at 64 KB, 8 at 256 KB), so that a round's dependent
+// load nx[nx[j]] goes to a CTA's shared memory, local or remote
+// (distributed shared memory), not to device memory.  Its rounds keep
+// their round-start semantics without a second buffer: each thread
+// reads the new values of its 32 positions, 16 into registers and 16
+// into a shared-memory staging row (64 KB a CTA; 32 registers spilled),
+// the cluster synchronises, the thread writes them back, and the cluster
+// synchronises again with the "unconverged" flag reduced over its CTAs.  The frontier
+// takes the first qcap open positions in position order: a CTA's open
+// bits are counted by a block scan, the CTAs' totals published in their
+// shared memory give each its offset, and a position is in the pool when
+// its rank is below qcap; the frontier rounds are the dense rounds
+// restricted to the pool.  Larger blocks (the 1 MB path's) keep their
+// state in device scratch (frag_decode_chase_kernel); the wrapper picks
+// the route from blk.  Built with -DZL4_STOP=k the cluster kernel stops
+// after its k-th phase (1 the one-hop sources, 2 the dense rounds, 3 the
+// frontier; the final gather is the rest) so that chip_smoke.py can time
+// the phases one by one; the library is built without it.
+
+#include <cooperative_groups.h>
 
 #include "frag_common.cuh"
 
+#ifdef ZL4_STOP
+#define ZL4_CHASE_STOP(k, keep) \
+  if (ZL4_STOP == (k)) {        \
+    keep;                       \
+    cluster.sync();             \
+    return;                     \
+  }
+#else
+#define ZL4_CHASE_STOP(k, keep)
+#endif
+
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace zl4frag;
 
 // ---------------------------------------------------------------------
@@ -204,8 +239,9 @@ frag_decode_chase_kernel(const uint8_t* comp, const int32_t* fdst,
                          const int32_t* fphase, const int32_t* nfrag,
                          const int32_t* out_len, int32_t* nx_all,
                          uint32_t* words_all, int32_t* pool_all,
-                         uint8_t* out_all, int32_t* ok, int fetch, int ncol,
-                         int blk, int dense, int doublings, int qcap) {
+                         uint8_t* out_all, int32_t* ok, int32_t* rounds,
+                         int fetch, int ncol, int blk, int dense,
+                         int doublings, int qcap) {
   const Block v = block_view(comp, fdst, fsrc, fper, fphase, nfrag, out_len,
                              fetch, ncol, blk);
   const size_t b = blockIdx.x;
@@ -233,7 +269,8 @@ frag_decode_chase_kernel(const uint8_t* comp, const int32_t* fdst,
   unconverged = __syncthreads_or(unconverged);
 
   // dense rounds: nx[j] = nx[nx[j]] from the state of the round's start
-  for (int r = 0; r < dense && unconverged; ++r) {
+  int nd = 0, nf = 0;
+  for (int r = 0; r < dense && unconverged; ++r, ++nd) {
     unconverged = 0;
     for (int j = threadIdx.x; j < blk; j += kThreads) {
       int p = __ldcg(cur + j);
@@ -271,7 +308,7 @@ frag_decode_chase_kernel(const uint8_t* comp, const int32_t* fdst,
     }
     __syncthreads();
     // nxt is free now: it holds the pool's new positions within a round
-    for (int r = 0; r < doublings && unconverged; ++r) {
+    for (int r = 0; r < doublings && unconverged; ++r, ++nf) {
       unconverged = 0;
       for (int k = threadIdx.x; k < n; k += kThreads) {
         int p = __ldcg(cur + __ldcg(pool + k));
@@ -296,7 +333,308 @@ frag_decode_chase_kernel(const uint8_t* comp, const int32_t* fdst,
     out[j] = j < v.out_len && conv ? v.comp[min(p - blk, fetch - 1)] : 0;
   }
   bad = __syncthreads_or(bad);
-  if (threadIdx.x == 0) ok[b] = !bad;
+  if (threadIdx.x == 0) {
+    ok[b] = !bad;
+    if (rounds) rounds[b] = nd | nf << 16;
+  }
+}
+
+// ---------------------------------------------------------------------
+// pointer doubling in a thread-block cluster's shared memory
+// ---------------------------------------------------------------------
+
+constexpr int kChaseRows = 1 << 15;               // positions a CTA holds
+constexpr int kChaseJ = kChaseRows / kThreads;    // positions a thread
+constexpr int kChaseMaxCluster = 8;               // the portable size
+
+constexpr int kChaseRegs = kChaseJ / 2;           // staged in registers
+
+// Dynamic shared memory of a CTA holding R positions: nx int32[R], the
+// open and pool bits and the prefix counts, one word each per 32, and
+// the round's staging of the positions past kChaseRegs a thread (the
+// rest stay in registers, which hold no more without spilling).
+__host__ __device__ constexpr size_t chase_smem(int R) {
+  return 4 * (size_t)R + 12 * (size_t)((R + 31) / 32) +
+         4 * (size_t)(R > kChaseRegs * kThreads ? R - kChaseRegs * kThreads
+                                                : 0);
+}
+
+// CTAs of the cluster that rebuilds a blk-byte block: 0 when the state
+// needs more than kChaseMaxCluster (the device-memory kernel's blocks).
+__host__ __device__ constexpr int chase_cluster(int blk) {
+  return blk <= kChaseMaxCluster * kChaseRows
+             ? (blk + kChaseRows - 1) / kChaseRows : 0;
+}
+
+// OR of v over the cluster's threads.  Every thread of the cluster calls
+// it; flags[2] lie in each CTA's shared memory and alternate between
+// calls, so that a CTA writes a slot only after every CTA has read it
+// (a cluster barrier lies between).
+__device__ int cluster_any(int v, int* flags, int& slot) {
+  cg::cluster_group cluster = cg::this_cluster();
+  v = __syncthreads_or(v);
+  if (threadIdx.x == 0) flags[slot] = v;
+  cluster.sync();
+  int any = 0;
+  for (int c = 0; c < (int)cluster.num_blocks(); ++c)
+    any |= cluster.map_shared_rank(flags, c)[slot];
+  slot ^= 1;
+  return any;
+}
+
+// One round over this CTA's positions whose bit is set in `sel` (every
+// position when sel is null): nx[j] = nx[nx[j]] for an unconverged j,
+// from the state of the round's start -- read into registers (the first
+// kChaseRegs of a thread) and `stage`, a cluster barrier, written back.
+// Returns whether some such j stays unconverged (this thread's, before
+// the reduction).
+__device__ __forceinline__ int chase_round(int32_t* nx, int32_t* stage,
+                                           const uint32_t* sel, int nloc,
+                                           int blk) {
+  cg::cluster_group cluster = cg::this_cluster();
+  int v[kChaseRegs];
+  int u = 0;
+#pragma unroll
+  for (int k = 0; k < kChaseJ; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    if (i < nloc && (!sel || (sel[i >> 5] >> (i & 31) & 1))) {
+      int p = nx[i];
+      if (p < blk) {
+        p = cluster.map_shared_rank(nx, p >> 15)[p & (kChaseRows - 1)];
+        u |= p < blk;
+      }
+      if (k < kChaseRegs) v[k] = p;
+      else stage[i - kChaseRegs * kThreads] = p;
+    }
+  }
+  cluster.sync();  // every read of the round's start done
+#pragma unroll
+  for (int k = 0; k < kChaseJ; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    if (i < nloc && (!sel || (sel[i >> 5] >> (i & 31) & 1)))
+      nx[i] = k < kChaseRegs ? v[k] : stage[i - kChaseRegs * kThreads];
+  }
+  return u;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+frag_chase_cluster_kernel(const uint8_t* comp, const int32_t* fdst,
+                          const int32_t* fsrc, const int32_t* fper,
+                          const int32_t* fphase, const int32_t* nfrag,
+                          const int32_t* out_len, uint8_t* out_all,
+                          int32_t* ok, int32_t* rounds, int fetch, int ncol,
+                          int blk, int dense, int doublings, int qcap) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
+  const size_t b = blockIdx.x / C;
+  const Block v = block_view(comp, fdst, fsrc, fper, fphase, nfrag, out_len,
+                             fetch, ncol, blk, b);
+  extern __shared__ __align__(16) int32_t cs[];
+  // this CTA's positions [j0, j0 + nloc), rows of the cluster's state:
+  // [0, blk) an output byte still to follow, [blk, blk + fetch) a fetch
+  // byte, which is a fixpoint
+  const int R = min(blk, kChaseRows), nw = (R + 31) >> 5;
+  const int j0 = r * kChaseRows, nloc = min(R, blk - j0);
+  int32_t* nx = cs;
+  uint32_t* open = reinterpret_cast<uint32_t*>(nx + R);
+  uint32_t* pool = open + nw;
+  int32_t* pre = reinterpret_cast<int32_t*>(pool + nw);
+  int32_t* stage = pre + nw;
+  __shared__ int flags[2], total_s;
+  int slot = 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // one-hop sources.  On a table in increasing fdst a byte's fragment
+  // is the largest index among the fragments that start at or before it:
+  // each fragment that starts in this CTA's positions writes its index
+  // there (atomicMax, for fragments of no bytes), a max-scan spreads
+  // them, and the fragments before the CTA's first position give the
+  // carry.  On any other table each byte bisects, as torch.searchsorted
+  // does.
+  // On a sorted table the fragments before the CTA's positions number
+  // q_lo, and those before its end q_hi: both are counted in the pass
+  // that checks the order.
+  __shared__ int span_pre[32], q_lo, q_hi;
+  if (tid == 0) q_lo = q_hi = 0;
+  __syncthreads();
+  int unsorted = 0, n_lo = 0, n_hi = 0;
+  for (int q = tid; q < v.nfrag; q += kThreads) {
+    const int d = __ldg(v.fdst + q);
+    if (q + 1 < v.nfrag) unsorted |= d > __ldg(v.fdst + q + 1);
+    n_lo += d < j0;
+    n_hi += d < j0 + nloc;
+  }
+  n_lo = __reduce_add_sync(kFull, n_lo);
+  n_hi = __reduce_add_sync(kFull, n_hi);
+  if (lane == 0) {
+    atomicAdd(&q_lo, n_lo);
+    atomicAdd(&q_hi, n_hi);
+  }
+  unsorted = __syncthreads_or(unsorted);
+  // warp w's span of positions: a power of two >= nloc / 32, >= 32
+  const int span_log = 32 - __clz(max((nloc + 31) >> 5, 32) - 1);
+  if (!unsorted) {
+    for (int i = tid; i < nloc; i += kThreads) nx[i] = -1;
+    __syncthreads();
+    for (int q = q_lo + tid; q < q_hi; q += kThreads)
+      atomicMax(nx + (__ldg(v.fdst + q) - j0), q);
+    __syncthreads();
+    // warp w scans positions [w << span_log, (w + 1) << span_log)
+    int run = q_lo - 1;
+    const int w_hi = min((warp + 1) << span_log, nloc);
+    for (int base = warp << span_log; base < w_hi; base += 32) {
+      const int i = base + lane;
+      int x = i < nloc ? nx[i] : -1;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, o);
+        if (lane >= o) x = max(x, y);
+      }
+      x = max(x, run);
+      if (i < nloc) nx[i] = x;
+      run = __shfl_sync(kFull, x, 31);
+    }
+    if (lane == 0) span_pre[warp] = run;
+    __syncthreads();
+    if (warp == 0) {  // the carry into each warp's span: a max-scan
+      int x = span_pre[lane];
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, o);
+        if (lane >= o) x = max(x, y);
+      }
+      const int before = __shfl_up_sync(kFull, x, 1);
+      span_pre[lane] = lane ? before : q_lo - 1;
+    }
+    __syncthreads();
+  }
+  // the tagged position of byte i of this CTA from its source t
+  int unc = 0;
+  auto tag = [&](int t, bool per) {
+    unc |= per;
+    return per ? t : t + blk;
+  };
+  if (unsorted) {
+    for (int i = tid; i < nloc; i += kThreads) {
+      bool per = false;
+      int p = blk;
+      if (j0 + i < v.out_len) {
+        const int t = source_of(v, j0 + i, &per);
+        p = tag(t, per);
+      }
+      nx[i] = p;
+    }
+  } else {
+    for (int i = tid; i < nloc; i += kThreads) {
+      bool per = false;
+      int p = blk;
+      if (j0 + i < v.out_len) {
+        const int q = max(nx[i], span_pre[i >> span_log]);
+        const int t = source_in(v, j0 + i, q, &per);
+        p = tag(t, per);
+      }
+      nx[i] = p;
+    }
+  }
+  unc = cluster_any(unc, flags, slot);
+  ZL4_CHASE_STOP(1, if (tid == 0) ok[b] = nx[0])
+
+  // dense rounds
+  int nd = 0, nf = 0;
+  for (; nd < dense && unc; ++nd)
+    unc = cluster_any(chase_round(nx, stage, nullptr, nloc, blk), flags,
+                      slot);
+  ZL4_CHASE_STOP(2, if (tid == 0) ok[b] = nx[0])
+
+  // the frontier: the first qcap open positions of the block in position
+  // order get `doublings` more rounds
+  if (doublings > 0 && unc) {
+    for (int w = warp; w < nw; w += kThreads / 32) {
+      const int i = (w << 5) + lane;
+      const uint32_t ow = __ballot_sync(kFull, i < nloc && nx[i] < blk);
+      if (lane == 0) open[w] = ow;
+    }
+    __syncthreads();
+    const int total = prefix_popc<true>(open, pre, nw);
+    if (tid == 0) total_s = total;
+    cluster.sync();  // every CTA's total published
+    int before = 0, all = 0;
+    for (int c = 0; c < C; ++c) {
+      const int t = *cluster.map_shared_rank(&total_s, c);
+      all += t;
+      before += c < r ? t : 0;
+    }
+    const int n = min(all, qcap);
+    const uint32_t below = (1u << lane) - 1u;
+    for (int w = warp; w < nw; w += kThreads / 32) {
+      const uint32_t ow = open[w];
+      const bool in = (ow >> lane & 1) &&
+                      before + pre[w] + __popc(ow & below) < n;
+      const uint32_t pw = __ballot_sync(kFull, in);
+      if (lane == 0) pool[w] = pw;
+    }
+    __syncthreads();
+    for (; nf < doublings && unc; ++nf)
+      unc = cluster_any(chase_round(nx, stage, pool, nloc, blk), flags,
+                        slot);
+  }
+  ZL4_CHASE_STOP(3, if (tid == 0) ok[b] = nx[0])
+
+  // the final gather, four bytes a thread and a store where blk allows
+  int bad = 0;
+  uint8_t* out = out_all + b * blk + j0;
+  auto byte_at = [&](int i, int p) -> uint32_t {
+    const bool conv = p >= blk;
+    bad |= !conv;
+    return j0 + i < v.out_len && conv
+               ? __ldg(v.comp + min(p - blk, fetch - 1)) : 0u;
+  };
+  if ((blk & 3) == 0) {
+    for (int i4 = tid; i4 < nloc >> 2; i4 += kThreads) {
+      const int4 p4 = reinterpret_cast<const int4*>(nx)[i4];
+      const int i = i4 << 2;
+      reinterpret_cast<uint32_t*>(out)[i4] =
+          byte_at(i, p4.x) | byte_at(i + 1, p4.y) << 8 |
+          byte_at(i + 2, p4.z) << 16 | byte_at(i + 3, p4.w) << 24;
+    }
+  } else {
+    for (int i = tid; i < nloc; i += kThreads) out[i] = byte_at(i, nx[i]);
+  }
+  bad = cluster_any(bad, flags, slot);
+  if (r == 0 && tid == 0) {
+    ok[b] = !bad;
+    if (rounds) rounds[b] = nd | nf << 16;
+  }
+  cluster.sync();  // no CTA leaves while another reads its flags
+}
+
+// The cluster launch of B blocks of blk bytes, with the kernel's
+// shared-memory limit raised once per device.
+cudaError_t chase_cluster_config(int B, int blk, cudaStream_t stream,
+                                 cudaLaunchConfig_t* cfg,
+                                 cudaLaunchAttribute* attr) {
+  static unsigned raised = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 32 || !(raised >> dev & 1u)) {
+    err = cudaFuncSetAttribute(frag_chase_cluster_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)chase_smem(kChaseRows));
+    if (err != cudaSuccess) return err;
+    if (dev < 32) raised |= 1u << dev;
+  }
+  const int C = chase_cluster(blk);
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)B * (unsigned)C);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = chase_smem(blk < kChaseRows ? blk : kChaseRows);
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -336,10 +674,46 @@ extern "C" int zl4_frag_decode_chase(
     const uint8_t* comp, const int32_t* fdst, const int32_t* fsrc,
     const int32_t* fper, const int32_t* fphase, const int32_t* nfrag,
     const int32_t* out_len, int32_t* nx, uint32_t* words, int32_t* pool,
-    uint8_t* out, int32_t* ok, int B, int fetch, int ncol, int blk, int dense,
-    int doublings, int qcap, cudaStream_t stream) {
-  frag_decode_chase_kernel<<<B, kThreads, 0, stream>>>(
-      comp, fdst, fsrc, fper, fphase, nfrag, out_len, nx, words, pool, out,
-      ok, fetch, ncol, blk, dense, doublings, qcap);
+    uint8_t* out, int32_t* ok, int32_t* rounds, int B, int fetch, int ncol,
+    int blk, int dense, int doublings, int qcap, int C,
+    cudaStream_t stream) {
+  // C: the cluster's CTAs (chase_cluster(blk)), the state in their shared
+  // memory; 0: the state in nx int32[B, 2, blk], words and pool, which
+  // the cluster route never reads.  rounds: int32[B], dense rounds | the
+  // frontier's << 16, or null.
+  if (B <= 0 || blk <= 0 || fetch <= 0 || C != chase_cluster(blk))
+    return (int)cudaErrorInvalidValue;
+  if (C == 0) {
+    frag_decode_chase_kernel<<<B, kThreads, 0, stream>>>(
+        comp, fdst, fsrc, fper, fphase, nfrag, out_len, nx, words, pool,
+        out, ok, rounds, fetch, ncol, blk, dense, doublings, qcap);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = chase_cluster_config(B, blk, stream, &cfg, &attr);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, frag_chase_cluster_kernel, comp, fdst, fsrc,
+                           fper, fphase, nfrag, out_len, out, ok, rounds,
+                           fetch, ncol, blk, dense, doublings, qcap);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The cluster route's launch shape for blk-byte blocks on the current
+// device: out[0] CTAs a cluster (0: the device-memory kernel), out[1]
+// shared-memory bytes a CTA, out[2] the clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0: the shape cannot be scheduled).
+extern "C" int zl4_frag_decode_chase_shape(int blk, int* out) {
+  if (blk <= 0) return (int)cudaErrorInvalidValue;
+  out[0] = chase_cluster(blk);
+  out[1] = out[2] = 0;
+  if (!out[0]) return (int)cudaSuccess;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = chase_cluster_config(1, blk, nullptr, &cfg, &attr);
+  if (err != cudaSuccess) return (int)err;
+  out[1] = (int)cfg.dynamicSmemBytes;
+  return (int)cudaOccupancyMaxActiveClusters(&out[2],
+                                             frag_chase_cluster_kernel, &cfg);
 }

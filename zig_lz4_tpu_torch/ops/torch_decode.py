@@ -38,6 +38,7 @@ import torch
 
 from ..errors import CorruptedData
 from ..kernels import launch
+from .torch_frags import _rounds_arg
 from .torch_frags import (decode_blocks_frags,  # noqa: F401  (re-exported)
                           decode_blocks_frags_chase,
                           decode_blocks_frags_chase_plain,
@@ -415,7 +416,8 @@ def decode_blocks_plain(comp: torch.Tensor, lit_len: torch.Tensor,
 def decode_blocks(comp: torch.Tensor, lit_len: torch.Tensor,
                   lit_src: torch.Tensor, mlen: torch.Tensor,
                   off: torch.Tensor, nseq: torch.Tensor, blk: int,
-                  hists: torch.Tensor | None = None):
+                  hists: torch.Tensor | None = None, *,
+                  rounds: torch.Tensor | None = None):
     """Rebuild blocks of up to ``blk`` bytes from parsed sequences,
     counterpart of ``decode_blocks_jax``: ``comp`` uint8[B, ccap] the
     payloads, ``lit_len``/``lit_src``/``mlen``/``off`` int32[B,
@@ -427,7 +429,10 @@ def decode_blocks(comp: torch.Tensor, lit_len: torch.Tensor,
     ``parse_sequences`` would not have produced for a block of at most
     ``blk`` bytes: sources outside the payload or before the history,
     or more than ``blk`` bytes of output.  The ``seq_decode`` kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    for CUDA tensors, the plain version for CPU tensors.  ``rounds``, an
+    int32[B] CUDA tensor, receives each block's number of pointer-jumping
+    rounds from the kernel (the plain version has no rounds: it is
+    ignored on the CPU)."""
     if comp.device.type == "cpu":
         return decode_blocks_plain(comp, lit_len, lit_src, mlen, off, nseq,
                                    blk, hists)
@@ -442,8 +447,9 @@ def decode_blocks(comp: torch.Tensor, lit_len: torch.Tensor,
     out_len = torch.empty(B, dtype=torch.int32, device=dev)
     ok = torch.empty(B, dtype=torch.int32, device=dev)
     seg_start = torch.empty((B, cap), dtype=torch.int32, device=dev)
+    rounds = _rounds_arg(rounds, B, dev)
     if B:
         launch("seq_decode", comp, hists, lit_len, lit_src, mlen, off, nseq,
-               seg_start, out, out_len, ok, B, ccap, hcap,
+               seg_start, out, out_len, ok, rounds, B, ccap, hcap,
                hcap if hists.dim() == 2 and hcap else 0, cap, blk)
     return out, out_len, ok

@@ -49,12 +49,13 @@ columns at or past a block's ``nfrag`` are never read.
 from __future__ import annotations
 
 import bisect
+import ctypes
 
 import torch
 
 from ..constants import compress_bound
 from ..errors import CorruptedData
-from ..kernels import launch
+from ..kernels import launch, library
 
 __all__ = ["device_frag_decoder_supports", "device_win_decoder_supports",
            "device_chase_decoder_supports", "win_tier_config",
@@ -384,6 +385,17 @@ def _scratch_words(B: int, rows: int, blk: int, dev) -> torch.Tensor:
                        device=dev)
 
 
+def _rounds_arg(rounds, B: int, dev):
+    """A kernel's optional rounds output: ``rounds`` (int32[B] on
+    ``dev``) or 0, the null pointer."""
+    if rounds is None:
+        return 0
+    if (rounds.dtype != torch.int32 or rounds.shape != (B,)
+            or rounds.device != dev):
+        raise TypeError("rounds must be int32[B] on the tables' device")
+    return rounds
+
+
 def _kernel_io(tables, blk: int):
     """(the checked tables, contiguous; out uint8[B, blk]; ok int32[B])
     for a kernel launch."""
@@ -537,8 +549,39 @@ def decode_blocks_frags_win(comp, fdst, fsrc, fper, fphase, nfrag, out_len,
 # pointer doubling
 # ---------------------------------------------------------------------
 
+#: positions of the chase state a CTA holds in shared memory, and the
+#: largest cluster (the portable size): blocks up to 256 KB keep their
+#: state in one cluster's shared memory (``frag_decode.cu``)
+_CHASE_ROWS = 1 << 15
+_CHASE_MAX_CLUSTER = 8
+
+
 def _chase_pool(blk: int, qcap: int) -> int:
     return int(qcap) or max(blk // 8, 1024)
+
+
+def chase_cluster_size(blk: int) -> int:
+    """CTAs of the thread-block cluster whose shared memory holds the
+    chase state of a ``blk``-byte block, ``ceil(blk / 32768)``; 0 when
+    that takes more than 8 CTAs, and the state lies in device scratch."""
+    C = -(-blk // _CHASE_ROWS)
+    return C if C <= _CHASE_MAX_CLUSTER else 0
+
+
+def chase_launch_shape(blk: int) -> dict:
+    """The chase kernel's launch for ``blk``-byte blocks on the current
+    CUDA device: CTAs a cluster (0: the device-memory route), threads
+    and shared-memory bytes a CTA, and the clusters the card holds at
+    once (``cudaOccupancyMaxActiveClusters``)."""
+    out = (ctypes.c_int * 3)()
+    fn = library().zl4_frag_decode_chase_shape
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(blk, out)
+    if err:
+        raise RuntimeError(f"chase launch shape: CUDA error {err}")
+    return {"ctas": out[0], "threads": 1024, "smem_bytes": out[1],
+            "active_clusters": out[2]}
 
 
 def decode_blocks_frags_chase_plain(comp, fdst, fsrc, fper, fphase, nfrag,
@@ -571,14 +614,19 @@ def decode_blocks_frags_chase_plain(comp, fdst, fsrc, fper, fphase, nfrag,
 
 def decode_blocks_frags_chase(comp, fdst, fsrc, fper, fphase, nfrag,
                               out_len, blk: int, dense: int = 2,
-                              doublings: int = 4, qcap: int = 0):
+                              doublings: int = 4, qcap: int = 0, *,
+                              rounds: torch.Tensor | None = None):
     """As ``decode_blocks_frags``, by pointer doubling (counterpart of
     ``_batched_frag_decoder_chase``): chains of up to ``2 ** dense``
     hops converge in the dense rounds; the first ``qcap`` bytes (0:
     ``max(blk / 8, 1024)``) still open after them get ``doublings``
     more.  ``ok`` is 0 for a block with a byte that did not converge.
-    The ``frag_decode_chase`` kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    The ``frag_decode_chase`` kernel for CUDA tensors -- its state in a
+    thread-block cluster's shared memory for blocks up to 256 KB
+    (``chase_cluster_size``), in device scratch for larger ones -- the
+    plain version for CPU tensors.  ``rounds``, an int32[B] CUDA tensor,
+    receives each block's dense rounds plus its frontier rounds << 16
+    from the kernel (ignored on the CPU)."""
     if comp.device.type == "cpu":
         return decode_blocks_frags_chase_plain(
             comp, fdst, fsrc, fper, fphase, nfrag, out_len, blk, dense,
@@ -586,12 +634,18 @@ def decode_blocks_frags_chase(comp, fdst, fsrc, fper, fphase, nfrag,
     tables, out, ok = _kernel_io(
         (comp, fdst, fsrc, fper, fphase, nfrag, out_len), blk)
     B, dev = out.shape[0], out.device
+    rounds = _rounds_arg(rounds, B, dev)
     if B:
         q = min(_chase_pool(blk, qcap), blk) if doublings > 0 else 1
-        nx = torch.empty((B, 2, blk), dtype=torch.int32, device=dev)
-        pool = torch.empty((B, q), dtype=torch.int32, device=dev)
-        launch("frag_decode_chase", *tables, nx,
-               _scratch_words(B, 2, blk, dev), pool, out, ok, B,
-               comp.shape[1], fdst.shape[1], blk, max(int(dense), 0),
-               max(int(doublings), 0), q)
+        C = chase_cluster_size(blk)
+        if C:       # the state in the cluster's shared memory: no scratch
+            nx = words = pool = 0
+        else:
+            nx = torch.empty((B, 2, blk), dtype=torch.int32, device=dev)
+            words = _scratch_words(B, 2, blk, dev)
+            pool = torch.empty((B, q), dtype=torch.int32, device=dev)
+        launch("frag_decode_chase", *tables, nx, words, pool, out, ok,
+               rounds, B, comp.shape[1],
+               fdst.shape[1], blk, max(int(dense), 0),
+               max(int(doublings), 0), q, C)
     return out, ok
