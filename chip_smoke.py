@@ -111,14 +111,20 @@ between CUDA events, on tensors allocated before the capture.  It also
 prints the host microseconds a call of ``kernels.launch`` costs, beside
 those of the parent commit's wrapper (``parent_launch`` below).
 
-``seq_decode`` and ``frag_decode_chase``, which rebuild a block in shared
-memory (by pointer jumping; in a thread-block cluster's shared memory),
-are timed phase by phase from the cuts of ``seq_decode.cu`` and
-``frag_decode.cu`` (-DZL4_STOP=1..3), with their rounds a block, and
-held against plain on their worst cases: 64 KB chains through every
-sequence (with no history and into a 64 KB history) and a 65,535-byte
-run at offset 1; the chase at every configuration on 256 KB blocks (a
-cluster of 8) and 1 MB blocks (device scratch), with its launch shape.
+``seq_decode``, ``serial_decode``, ``frag_decode_chase`` and
+``frag_decode_win``, which rebuild a block in shared memory (by pointer
+jumping; by a serial walk of the matches; the last two in a thread-block
+cluster's shared memory), are timed phase by phase from the cuts of
+``seq_decode.cu``, ``serial_decode.cu`` and ``frag_decode.cu``
+(-DZL4_STOP=1..3; 1..2 for the serial walk), and held against plain on
+their worst cases: 64 KB chains through every sequence (with no history
+and into a 64 KB history) and a 65,535-byte run at offset 1;
+``serial_decode`` also at 262,144-byte rows (its warp route, past the
+shared-memory row); the chase at every configuration on 256 KB blocks (a
+cluster of 8) and 1 MB blocks (device scratch), and the windowed decoder
+at every windowed configuration on 256 KB blocks (a cluster of 8) and
+512 KB rows (device scratch), at both launches of the level-9 "win"
+path, each with its launch shape and occupancy.
 
 Run from the repository root, with one CUDA device:
 
@@ -129,8 +135,9 @@ To compare the encoder kernels of two checkouts in one call (at the
 --time-encoder-kernels`` from each checkout's root in turns
 (``time_encoder_kernels`` below); ``--time-decode-kernels`` does the
 same for ``seq_decode`` (the level-12 frame's 672 blocks and 32 of
-them) and ``frag_decode_chase`` (the "chase" path's 141-block launch)
-(``time_decode_kernels``).
+them), ``serial_decode`` (the 672 blocks), ``frag_decode_chase`` (the
+"chase" path's 141-block launch) and ``frag_decode_win`` (both launches
+of the "win" path) (``time_decode_kernels``).
 
 Exits non-zero on any failed check.  Imports no JAX.  The last two
 lines of stdout are the card's name and power limit as nvidia-smi
@@ -171,8 +178,8 @@ CHILD_FLAG = "--decode-without-native"
 #: paths' shapes, with the package of the current directory
 #: (time_encoder_kernels)
 ENCODER_FLAG = "--time-encoder-kernels"
-#: the mode that times seq_decode and frag_decode_chase alone at the
-#: paths' shapes (time_decode_kernels)
+#: the mode that times the decode kernels alone at the paths' shapes
+#: (time_decode_kernels)
 DECODE_FLAG = "--time-decode-kernels"
 DEEP_KERNELS = ("enc_deep_match", "enc_deep_dp", "enc_deep_emit")
 SEQ_PLAIN_BLOCKS = 32
@@ -223,15 +230,19 @@ WIDE_DEEP_KERNELS = ("enc_deep_match_wide", "enc_deep_dp", "enc_deep_emit",
                      "tmap_gather")
 #: the phase cuts (-DZL4_STOP=1..k) built beside the library, by source:
 #: enc_match and enc_parse_emit (encode_block.cu), the two wide finders,
-#: enc_deep_match with enc_deep_dp (encode_deep.cu), seq_decode and the
-#: cluster route of frag_decode_chase (frag_decode.cu)
+#: enc_deep_match with enc_deep_dp (encode_deep.cu), seq_decode, the
+#: shared-memory route of serial_decode, and the cluster routes of
+#: frag_decode_chase and frag_decode_win (frag_decode.cu)
 PHASE_CUTS = {"encode_block.cu": 4, "encode_wide.cu": 4,
               "encode_deep_wide.cu": 8, "encode_deep.cu": 8,
-              "seq_decode.cu": 3, "frag_decode.cu": 3}
-#: phases of seq_decode and of frag_decode_chase's cluster route, one a
-#: cut (1, 2, 3) and the last the rest
+              "seq_decode.cu": 3, "frag_decode.cu": 3, "serial_decode.cu": 2}
+#: phases of seq_decode, of serial_decode's shared-memory route and of
+#: the cluster routes of frag_decode_chase and frag_decode_win, one a cut
+#: (1, 2, 3) and the last the rest
 SEQ_PHASES = ("seg_start", "fill", "rounds", "write-out")
+SERIAL_PHASES = ("literals", "walk", "write-out")
 CHASE_PHASES = ("one-hop sources", "dense rounds", "frontier", "final gather")
+WIN_PHASES = ("sources and coverage", "pools", "rounds", "ok and store")
 #: phases of the wide finders and of enc_deep_match, one a cut and the
 #: last the rest
 WIDE_PHASES = ("window words", "12-byte sort", "probes +-9", "s0 sort",
@@ -249,7 +260,10 @@ PTXAS_KERNELS = ("enc_match_kernel", "enc_match_fast_kernel",
                  "enc_deep_match_wide_kernel<20>",
                  "enc_deep_match_wide_kernel<32>", "enc_deep_match_kernel",
                  "enc_deep_dp_kernel", "seq_decode_kernel",
-                 "frag_chase_cluster_kernel", "frag_decode_chase_kernel")
+                 "frag_chase_cluster_kernel", "frag_decode_chase_kernel",
+                 "serial_smem_kernel", "serial_decode_kernel",
+                 "frag_win_cluster_kernel<8>", "frag_win_cluster_kernel<16>",
+                 "frag_decode_win_kernel<8>", "frag_decode_win_kernel<16>")
 #: n / frame bytes of the 1 MB-block paths (the reference's frames, whose
 #: SHA-256 the wide goldens hold, give the same)
 EXPECT_RATIO_WIDE = {"1 MB blocks, level 9": 3.253950,
@@ -955,6 +969,81 @@ def chase_phase_split(libs, a, kw, reps=5):
     return ms
 
 
+def serial_phase_split(libs, seq_in, blk, reps=5):
+    """Milliseconds of each phase cut of ``serial_decode``'s shared-memory
+    route (``serial_decode.cu`` -DZL4_STOP=1..2) on ``seq_in``, and of the
+    library's kernel launched the same way (key "whole": the kernel
+    without its wrapper's host work and out_len), through ctypes (not
+    counted as launches): {k: median of ``reps``}."""
+    import ctypes
+
+    import torch
+    from zig_lz4_tpu_torch.kernels import library
+    P, I = ctypes.c_void_p, ctypes.c_int
+    comp, ll, ls, ml, off, nseq = seq_in
+    B, ccap = comp.shape
+    out = torch.empty((B, blk), dtype=torch.uint8, device=comp.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = {}
+    for k, lib in [*libs["serial_decode.cu"].items(), ("whole", library())]:
+        fn = lib.zl4_serial_decode
+        fn.argtypes, fn.restype = [P] * 7 + [I] * 5 + [P], I
+
+        def cut():
+            check(fn(*(t.data_ptr() for t in (comp, ll, ls, ml, off, nseq,
+                                              out)),
+                     B, ccap, ll.shape[1], blk, 1, stream) == 0,
+                  f"serial_decode cut {k} did not launch")
+        cut()
+        ms[k] = statistics.median(cuda_ms(cut)[0] for _ in range(reps))
+    return ms
+
+
+def win_phase_split(libs, a, kw, reps=5):
+    """Milliseconds of each phase cut of ``frag_decode_win``'s cluster
+    route (``frag_decode.cu`` -DZL4_STOP=1..3) at a recorded call of
+    ``decode_blocks_frags_win`` (arguments ``a``, ``kw``), and of the
+    library's kernel launched the same way (key "whole"), through ctypes
+    (not counted): {k: median of ``reps``}."""
+    import ctypes
+    import inspect
+
+    import torch
+    from zig_lz4_tpu_torch.kernels import library
+    from zig_lz4_tpu_torch.ops import torch_frags as tfr
+    P, I = ctypes.c_void_p, ctypes.c_int
+    bound_ = inspect.signature(tfr.decode_blocks_frags_win).bind(*a, **kw)
+    bound_.apply_defaults()
+    arg = bound_.arguments
+    tables = [arg[k].contiguous() for k in ("comp", "fdst", "fsrc", "fper",
+                                            "fphase", "nfrag", "out_len")]
+    blk, rounds, g = arg["blk"], max(int(arg["rounds"]), 0), arg["g"]
+    cfg = tfr._win_config(blk, arg["fcap"] or tables[1].shape[1], rounds,
+                          arg["wins"], arg["pool"], arg["lit_wins"],
+                          arg["lit_pool"], g)
+    C = tfr.win_cluster_size(blk)
+    check(C > 0, f"no cluster route at {blk}-byte blocks")
+    B = tables[0].shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty((B, blk), dtype=torch.uint8, device=tables[0].device)
+    ok = torch.empty(B, dtype=torch.int32, device=tables[0].device)
+    ms = {}
+    for k, lib in [*libs["frag_decode.cu"].items(), ("whole", library())]:
+        fn = lib.zl4_frag_decode_win
+        fn.argtypes, fn.restype = [P] * 12 + [I] * 11 + [P], I
+
+        def cut():
+            check(fn(*(t.data_ptr() for t in tables), None, None, None,
+                     out.data_ptr(), ok.data_ptr(), B, tables[0].shape[1],
+                     tables[1].shape[1], blk, rounds, g, cfg["wins"],
+                     cfg["pool"], cfg["lit_wins"], cfg["lit_pool"], C,
+                     stream) == 0,
+                  f"frag_decode_win cut {k} did not launch")
+        cut()
+        ms[k] = statistics.median(cuda_ms(cut)[0] for _ in range(reps))
+    return ms
+
+
 def by_phase(names, cuts, whole):
     """{phase: ms} from the cuts' times (a phase = the difference of two
     cuts; the last phase the whole less the last cut)."""
@@ -967,8 +1056,9 @@ def decode_inputs(torch, np, data, dev):
     current directory from calls every version of the port has: the
     level-12 frame's compressed blocks parsed into sequence tables on the
     card, and the calls the level-9 frame's "chase" decode makes of
-    ``decode_blocks_frags_chase`` (recorded).  Returns (seq_in, chase
-    calls [(args, kwargs)])."""
+    ``decode_blocks_frags_chase`` and its "win" decode of
+    ``decode_blocks_frags_win`` (recorded).  Returns (seq_in, chase calls,
+    win calls), each call (args, kwargs)."""
     from zig_lz4_tpu_torch import ShardedFrameCodec, native
     from zig_lz4_tpu_torch import frame as lz4f
     from zig_lz4_tpu_torch.constants import compress_bound
@@ -988,33 +1078,39 @@ def decode_inputs(torch, np, data, dev):
     seq_in = [torch.from_numpy(x).to(dev) for x in (comp, *tabs)]
     fr9 = ShardedFrameCodec(compression_level=9,
                             device="cuda").compress_frame(data)
-    calls, real = [], sh.decode_blocks_frags_chase
+    calls = {}
+    for engine in ("chase", "win"):
+        attr = f"decode_blocks_frags_{engine}"
+        real, got = getattr(sh, attr), calls.setdefault(engine, [])
 
-    def record(*a, **k):
-        calls.append((a, k))
-        return real(*a, **k)
-    sh.decode_blocks_frags_chase = record
-    try:
-        back = ShardedFrameCodec(device="cuda", decode_engine="chase"
-                                 ).decompress_frame(fr9)
-    finally:
-        sh.decode_blocks_frags_chase = real
-    check(back == data, "chase decode of the level-9 frame")
-    return seq_in, calls
+        def record(*a, _real=real, _got=got, **k):
+            _got.append((a, k))
+            return _real(*a, **k)
+        setattr(sh, attr, record)
+        try:
+            back = ShardedFrameCodec(device="cuda", decode_engine=engine
+                                     ).decompress_frame(fr9)
+        finally:
+            setattr(sh, attr, real)
+        check(back == data, f"{engine} decode of the level-9 frame")
+    return seq_in, calls["chase"], calls["win"]
 
 
 def time_decode_kernels():
     """``python3 /path/to/chip_smoke.py --time-decode-kernels``: times
-    ``seq_decode`` and ``frag_decode_chase`` with the package of the
-    current directory first on the module path, so that two checkouts
-    (one unpacked from the parent commit with ``git archive``) can be
-    compared in turns in one call: ``decode_blocks`` over the level-12
-    frame's compressed 64 KB blocks of the bench corpus and over 32 of
-    them, and ``decode_blocks_frags_chase`` at the largest launch of the
-    level-9 frame's "chase" decode (141 blocks).  It uses only what every
-    version of the port has (``decode_inputs``).  Each time is the median
-    of 5 calls between CUDA events, after one warm-up call; it prints one
-    line."""
+    ``seq_decode``, ``serial_decode``, ``frag_decode_chase`` and
+    ``frag_decode_win`` with the package of the current directory first
+    on the module path, so that two checkouts (one unpacked from the
+    parent commit with ``git archive``) can be compared in turns in one
+    call: ``decode_blocks`` over the level-12 frame's compressed 64 KB
+    blocks of the bench corpus and over 32 of them,
+    ``decode_blocks_serial`` over the same 672 blocks,
+    ``decode_blocks_frags_chase`` at the largest launch of the level-9
+    frame's "chase" decode (141 blocks) and ``decode_blocks_frags_win`` at
+    both launches of its "win" decode (g 16 and g 8).  It uses only what
+    every version of the port has (``decode_inputs``).  Each time is the
+    median of 5 calls between CUDA events, after one warm-up call; it
+    prints one line."""
     sys.path.insert(0, os.getcwd())
     import torch
     if not torch.cuda.is_available():
@@ -1026,10 +1122,12 @@ def time_decode_kernels():
     from zig_lz4_tpu_torch.corpus import make_corpus
     from zig_lz4_tpu_torch.ops import torch_decode as td
     from zig_lz4_tpu_torch.ops import torch_frags as tfr
+    from zig_lz4_tpu_torch.probes import serial_decode as sd
     smi = nvidia_smi()
     data = make_corpus(48)
     data = data[:len(data) - len(data) % (BLK * BENCH_BATCH)]
-    seq_in, chase_calls = decode_inputs(torch, np, data, torch.device("cuda"))
+    seq_in, chase_calls, win_calls = decode_inputs(torch, np, data,
+                                                   torch.device("cuda"))
     step = max(seq_in[0].shape[0] // SEQ_PLAIN_BLOCKS, 1)
     sub = [t[::step].contiguous() for t in seq_in]
     a, kw = max(chase_calls, key=lambda c: c[0][0].shape[0])
@@ -1037,9 +1135,16 @@ def time_decode_kernels():
              lambda: td.decode_blocks(*seq_in, BLK),
              f"seq_decode at {sub[0].shape[0]} x 64 KB":
              lambda: td.decode_blocks(*sub, BLK),
+             f"serial_decode at {seq_in[0].shape[0]} x 64 KB":
+             lambda: sd.decode_blocks_serial(*seq_in, BLK),
              f"frag_decode_chase at {a[0].shape[0]} blocks "
              f"({list(a[7:])} {kw})":
              lambda: tfr.decode_blocks_frags_chase(*a, **kw)}
+    for a_w, kw_w in win_calls:
+        calls[f"frag_decode_win at {a_w[0].shape[0]} blocks "
+              f"({list(a_w[7:])} {kw_w})"] = (
+            lambda a_w=a_w, kw_w=kw_w:
+            tfr.decode_blocks_frags_win(*a_w, **kw_w))
     ms = {}
     for k, fn in calls.items():
         fn()
@@ -1902,15 +2007,52 @@ def main():
           f"{err_p1}")
     check(err_p1_k6 == 0 and err_p1 == 0,
           "P1 differs from seq_decode or from plain")
+    # its phases (the cuts of serial_decode.cu), its launch shape, and the
+    # warp route (blocks past the shared-memory row) against plain on the
+    # same 32 blocks
+    serial_cuts = serial_phase_split(phase_libs, seq_in, BLK)
+    serial_raw = serial_cuts.pop("whole")
+    serial_phases = by_phase(SERIAL_PHASES, serial_cuts, serial_raw)
+    serial_shape = sd.serial_launch_shape(BLK)
+    check(serial_shape["shared_row"] and serial_shape["ctas_per_sm"] > 0,
+          f"serial_decode's shared-memory route at 64 KB: {serial_shape}")
+    big = 4 * BLK
+    check(not sd.serial_launch_shape(big)["shared_row"],
+          f"serial_decode keeps {big}-byte rows in shared memory")
+    k_big, kern_big = cuda_ms(lambda: sd.decode_blocks_serial(*sub, big))
+    plain_big = sd.decode_blocks_serial_plain(*sub, big)
+    err_big = max(max_abs_err(a, b) for a, b in zip(kern_big, plain_big))
+    check(err_big == 0, "serial_decode's warp route differs from plain")
+    # the walk's work: matches of one round of a byte a lane (at most 32
+    # bytes, not overlapping themselves) and the others, with their bytes
+    ns_h = seq_in[5].cpu().numpy().astype(np.int64)
+    live_h = np.arange(seq_in[1].shape[1])[None, :] < ns_h[:, None]
+    m_h = np.where(live_h, np.maximum(seq_in[3].cpu().numpy(), 0), 0)
+    one_h = live_h & (m_h <= 32) & (m_h <= np.maximum(
+        seq_in[4].cpu().numpy(), 1))
+    walk = {"one_round": int(one_h.sum()),
+            "one_round_bytes": int(m_h[one_h].sum()),
+            "longer": int((live_h & ~one_h & (m_h > 0)).sum()),
+            "longer_bytes": int(m_h[~one_h].sum()),
+            "sequences_max_a_block": int(ns_h.max())}
+    print(f"[P1] serial_decode launch shape at 64 KB {serial_shape}; the warp "
+          f"route ({big}-byte rows) on {sub[0].shape[0]} blocks vs plain "
+          f"max_abs_err {err_big}, {k_big:.3f} ms; the walk's matches {walk}")
     results["serial_decode"].update(
-        max_abs_err=max(err_p1, err_p1_k6), ms=k_p1, plain_ms=p_p1,
+        max_abs_err=max(err_p1, err_p1_k6, err_big), ms=k_p1, plain_ms=p_p1,
         plain_blocks=int(sub[0].shape[0]), bound_ms=b_seq[0],
-        bound_by=b_seq[1], library_ms=None, seq_decode_ms=k_seq)
+        bound_by=b_seq[1], library_ms=None, seq_decode_ms=k_seq,
+        kernel_ms=serial_raw, phase_ms=serial_phases,
+        launch_shape=serial_shape, warp_route_ms_32_blocks=k_big,
+        walk=walk)
     print(f"[time] {smi}: serial_decode at {len(recs12)} x 64 KB "
           f"{k_p1:.3f} ms (bound {b_seq[0]:.4f} ms by {b_seq[1]}; seq_decode "
           f"on the same blocks {k_seq:.3f} ms), plain at {sub[0].shape[0]} "
-          f"blocks {p_p1:.1f} ms")
+          f"blocks {p_p1:.1f} ms; the kernel alone {serial_raw:.4f} ms, by "
+          "phase (cuts of serial_decode.cu, -DZL4_STOP=1..2): " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in serial_phases.items()))
     del seq_in, out_s, sub, kern_s, plain_s, out_p1, kern_p1, plain_p1
+    del kern_big, plain_big
 
     # a frame of every 12th block, decoded by a child process that runs
     # without the native host runtime: seq_decode instead of tmap_gather
@@ -2253,6 +2395,64 @@ def main():
         max_abs_err=max(results["frag_decode_chase"]["max_abs_err"],
                         *route_err.values()))
     del got_c, want_c, r_c
+
+    # the windowed decoder at both launches of the level-9 "win" path, by
+    # phase at the largest (cuts of frag_decode.cu, the cluster route), its
+    # launch shape, and both routes against plain at every windowed
+    # configuration on 256 KB blocks (a cluster of 8) and on 512 KB rows
+    # (device scratch)
+    t_k7b = time.perf_counter()
+    win_calls = [c for c in probes["level-9 frame, win"].calls
+                 if c[0] == "frag_decode_win"]
+    win_ms = []
+    for _k, a_w, kw_w, _b in win_calls:
+        ms_w, _ = cuda_ms(lambda: tfr.decode_blocks_frags_win(*a_w, **kw_w),
+                          5)
+        win_ms.append(dict(blocks=int(a_w[0].shape[0]), g=kw_w.get("g", 8),
+                           args=[int(x) for x in a_w[7:]], ms=ms_w))
+    _k, a_w, kw_w, _b = max(win_calls, key=lambda c: c[1][0].shape[0])
+    win_cuts = win_phase_split(phase_libs, a_w, kw_w)
+    win_raw = win_cuts.pop("whole")
+    win_phases = by_phase(WIN_PHASES, win_cuts, win_raw)
+    win_shape = {f"{bs_} g{g_}": tfr.win_launch_shape(bs_, g_)
+                 for bs_ in (BLK, 2 * BLK, 262080, 1 << 19) for g_ in (8, 16)}
+    check(all(v["active_clusters"] > 0 for v in win_shape.values()
+              if v["ctas"]), f"the windowed decoder's cluster {win_shape}")
+    win_route_err = {}
+    for bs_ in (262144, 1 << 19):
+        args_r, _rd, _nf = ladder_tables(frame_payloads(frame256, lz4f)[1],
+                                         *LADDER_WIN[0], fcap=bs_, bs=bs_)
+        for cfg in LADDER_WIN[1]:
+            cfg = {k: v for k, v in cfg.items() if k != "clears"}
+            kw_r = {k: v for k, v in cfg.items() if k != "rounds"}
+            got_r = tfr.decode_blocks_frags_win(*args_r, cfg["rounds"], bs_,
+                                                **kw_r)
+            want_r = tfr.decode_blocks_frags_win_plain(*args_r,
+                                                       cfg["rounds"], bs_,
+                                                       **kw_r)
+            err_r = max(max_abs_err(x, y) for x, y in zip(got_r, want_r))
+            win_route_err[f"{bs_}, {cfg}"] = err_r
+            check(err_r == 0, f"frag_decode_win differs from plain at "
+                  f"{bs_}-byte rows at {cfg}")
+        del args_r
+    print(f"[K7] frag_decode_win vs plain at every windowed configuration on "
+          f"the 256 KB frame's blocks at 262,144-byte rows (a cluster of 8) "
+          f"and 524,288 (device scratch): max_abs_err {win_route_err}; "
+          f"launch shape by block bytes and g (CTAs a cluster, 0 = device "
+          f"scratch; threads and shared bytes a CTA; clusters the card "
+          f"holds at once): {win_shape} (these checks and the phase cuts "
+          f"{time.perf_counter() - t_k7b:.1f} s)")
+    print(f"[time] {smi}: frag_decode_win at each launch of the level-9 "
+          f"frame's win path: {win_ms}; at {a_w[0].shape[0]} x 64 KB by "
+          "phase (cuts of frag_decode.cu, -DZL4_STOP=1..3): " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in win_phases.items())
+          + f"; the kernel alone {win_raw:.4f} ms, with its wrapper "
+          f"{results['frag_decode_win']['ms']:.4f} ms")
+    results["frag_decode_win"].update(
+        kernel_ms=win_raw, phase_ms=win_phases, launches_ms=win_ms,
+        launch_shape=win_shape, routes_max_abs_err=win_route_err,
+        max_abs_err=max(results["frag_decode_win"]["max_abs_err"],
+                        *win_route_err.values()))
 
     def ladder_stages(what, cdc, fr, bs):
         """The path by stage: the host resolve as the path makes it, the

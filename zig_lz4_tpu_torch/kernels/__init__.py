@@ -78,13 +78,13 @@ KERNELS = {
                     [_P] * 11 + [_I] * 5,
                     "ops/jax_decode.py:342"),
     "frag_decode_win": ("zl4_frag_decode_win", "frag_decode.cu",
-                        [_P] * 12 + [_I] * 10,
+                        [_P] * 12 + [_I] * 11,
                         "ops/jax_decode.py:461"),
     "frag_decode_chase": ("zl4_frag_decode_chase", "frag_decode.cu",
                           [_P] * 13 + [_I] * 8,
                           "ops/jax_decode.py:798"),
     "serial_decode": ("zl4_serial_decode", "serial_decode.cu",
-                      [_P] * 7 + [_I] * 4,
+                      [_P] * 7 + [_I] * 5,
                       "experiments/pallas_decode.py:127"),
     "bitonic_sort2": ("zl4_bitonic_sort2", "sort_probe.cu",
                       [_P] * 4 + [_I] * 2,

@@ -1,19 +1,22 @@
 // Shared by the three fragment-ladder decoders (frag_decode.cu): the
 // one-hop source of an output byte from the resolver's fragment table
-// (the reference's merge A, ops/jax_decode.py:371-416), bit masks of
-// one bit per output byte, a block-wide prefix count over such a mask,
-// and the round loop of the two value-state decoders.
+// (the reference's merge A, ops/jax_decode.py:371-416), found by
+// bisection or, for the cluster kernels on a table in increasing fdst, by
+// a scan of the fragment starts over a CTA's positions; bit masks of one
+// bit per output byte, a block-wide prefix count over such a mask, and the
+// round loop of the byte-granular decoder.
 //
 // One thread block of kThreads threads rebuilds one LZ4 block, or, for
-// the chase of blocks up to 256 KB, one thread-block cluster of up to 8
-// (frag_decode.cu).  The byte-granular and windowed decoders, and the
-// chase of larger blocks, keep their state (sources, masks, positions)
-// in device scratch that the wrapper allocates: 256-512 KB a 64 KB
-// block, which the 50 MB L2 holds for one block but not for the 100-odd
-// blocks of a tier batch at once.  State that other threads of the block
-// rewrite between barriers is read with __ldcg (from the L2), never
-// through a stale L1 line.  A table's columns at or past nfrag are never
-// read: the search for a byte's fragment runs over the first nfrag.
+// the windowed decoder and the chase of blocks up to 256 KB, one
+// thread-block cluster of up to 8 whose CTAs hold the state in shared
+// memory (frag_decode.cu).  Device scratch that the wrapper allocates
+// holds the state of the byte-granular decoder, and of the windowed
+// decoder and the chase above 256 KB: 256-512 KB a 64 KB block, which the
+// 50 MB L2 holds for one block but not for the 100-odd blocks of a tier
+// batch at once.  State that other threads of the block rewrite between
+// barriers is read there with __ldcg (from the L2), never through a stale
+// L1 line.  A table's columns at or past nfrag are never read: the search
+// for a byte's fragment runs over the first nfrag.
 
 #pragma once
 
@@ -159,7 +162,90 @@ __device__ int prefix_popc(const uint32_t* words, int32_t* prefix,
   return total;
 }
 
-// The rounds of the value-state decoders.  src[j] is the output
+// The fragments of a CTA's positions [j0, j0 + nloc) of block v, for the
+// cluster kernels.  On a table in increasing fdst a byte's fragment is the
+// largest index among the fragments that start at or before it: each
+// fragment that starts in the CTA's positions writes its index there
+// (atomicMax, for fragments of no bytes), a warp max-scan over each
+// warp's span of positions spreads them, and the fragments before the
+// CTA's first position give the carry; the fragments before the CTA's
+// positions (q_lo) and before its end (q_hi) are counted in the pass that
+// checks the order.  Position i's fragment is then max(idx[i],
+// span_pre[i >> span_log]) (scanned_fragment).  On any other table
+// `unsorted` is set, idx is not written, and each byte bisects
+// (fragment_of), as torch.searchsorted does.  Every thread of the CTA
+// calls it; it ends on a barrier.
+struct FragScan {
+  int unsorted, span_log;
+  const int* span_pre;
+};
+
+__device__ __forceinline__ FragScan fragment_scan(const Block& v, int j0,
+                                                  int nloc, int32_t* idx) {
+  __shared__ int span_pre[32], q_lo, q_hi;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) q_lo = q_hi = 0;
+  __syncthreads();
+  int unsorted = 0, n_lo = 0, n_hi = 0;
+  for (int q = tid; q < v.nfrag; q += kThreads) {
+    const int d = __ldg(v.fdst + q);
+    if (q + 1 < v.nfrag) unsorted |= d > __ldg(v.fdst + q + 1);
+    n_lo += d < j0;
+    n_hi += d < j0 + nloc;
+  }
+  n_lo = __reduce_add_sync(kFull, n_lo);
+  n_hi = __reduce_add_sync(kFull, n_hi);
+  if (lane == 0) {
+    atomicAdd(&q_lo, n_lo);
+    atomicAdd(&q_hi, n_hi);
+  }
+  unsorted = __syncthreads_or(unsorted);
+  // warp w's span of positions: a power of two >= nloc / 32, >= 32
+  const int span_log = 32 - __clz(max((nloc + 31) >> 5, 32) - 1);
+  if (!unsorted) {
+    for (int i = tid; i < nloc; i += kThreads) idx[i] = -1;
+    __syncthreads();
+    for (int q = q_lo + tid; q < q_hi; q += kThreads)
+      atomicMax(idx + (__ldg(v.fdst + q) - j0), q);
+    __syncthreads();
+    // warp w scans positions [w << span_log, (w + 1) << span_log)
+    int run = q_lo - 1;
+    const int w_hi = min((warp + 1) << span_log, nloc);
+    for (int base = warp << span_log; base < w_hi; base += 32) {
+      const int i = base + lane;
+      int x = i < nloc ? idx[i] : -1;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, o);
+        if (lane >= o) x = max(x, y);
+      }
+      x = max(x, run);
+      if (i < nloc) idx[i] = x;
+      run = __shfl_sync(kFull, x, 31);
+    }
+    if (lane == 0) span_pre[warp] = run;
+    __syncthreads();
+    if (warp == 0) {  // the carry into each warp's span: a max-scan
+      int x = span_pre[lane];
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, o);
+        if (lane >= o) x = max(x, y);
+      }
+      const int before = __shfl_up_sync(kFull, x, 1);
+      span_pre[lane] = lane ? before : q_lo - 1;
+    }
+    __syncthreads();
+  }
+  return FragScan{unsorted, span_log, span_pre};
+}
+
+// Position i's fragment after fragment_scan on a sorted table.
+__device__ __forceinline__ int scanned_fragment(const FragScan& f,
+                                                const int32_t* idx, int i) {
+  return max(idx[i], f.span_pre[i >> f.span_log]);
+}
+
+// The rounds of the byte-granular decoder and of the windowed decoder's
+// device-scratch kernel.  src[j] is the output
 // coordinate a still unknown byte j copies from, or -1 when it can
 // never resolve; cur holds the known bits at entry.  In each round a
 // byte becomes known when its source was known at the START of the

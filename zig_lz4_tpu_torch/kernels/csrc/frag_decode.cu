@@ -7,10 +7,11 @@
 // fetch buffer; PER: a periodic copy of earlier output); the TPU versions
 // spread the table over the bytes with a sort and a packed cummax, and
 // follow the copies with more sorts, because gathers are slow there.
-// Here every output byte finds its fragment by binary search and follows
-// its copy by a gather.  What each engine resolves, and when, is the
-// reference's exactly (see ops/torch_frags.py), so `ok` -- which decides
-// a block's route -- is the same in both.
+// Here every output byte finds its fragment by binary search (or a scan
+// of the fragment starts) and follows its copy by a gather.  What each
+// engine resolves, and when, is the reference's exactly (see
+// ops/torch_frags.py), so `ok` -- which decides a block's route -- is the
+// same in both.
 //
 //   frag_decode        rounds over the value state, one dependency level
 //                      a round;
@@ -22,46 +23,67 @@
 //
 // Bound on the H100: device memory -- each fetch row, the four table
 // columns below nfrag and the output row cross it once.  Design: one
-// thread block of 1024 threads per LZ4 block, a block-wide barrier
-// between dependency levels, double-buffered state so that a round reads
-// the state of its start (known-bit masks for the value decoders, the
-// position array for the chase), and an early exit from the rounds once
-// nothing changes.  The value decoders keep their state in device
-// scratch.  The chase keeps its position state nx, int32 a byte, in the
-// shared memory of one thread-block cluster a block for blocks up to
-// 256 KB (C = ceil(blk / 32768) CTAs of 1024 threads, 32,768 positions
-// and 128 KB a CTA: 2 at 64 KB, 8 at 256 KB), so that a round's dependent
-// load nx[nx[j]] goes to a CTA's shared memory, local or remote
-// (distributed shared memory), not to device memory.  Its rounds keep
-// their round-start semantics without a second buffer: each thread
-// reads the new values of its 32 positions, 16 into registers and 16
-// into a shared-memory staging row (64 KB a CTA; 32 registers spilled),
-// the cluster synchronises, the thread writes them back, and the cluster
-// synchronises again with the "unconverged" flag reduced over its CTAs.  The frontier
-// takes the first qcap open positions in position order: a CTA's open
-// bits are counted by a block scan, the CTAs' totals published in their
-// shared memory give each its offset, and a position is in the pool when
-// its rank is below qcap; the frontier rounds are the dense rounds
-// restricted to the pool.  Larger blocks (the 1 MB path's) keep their
-// state in device scratch (frag_decode_chase_kernel); the wrapper picks
-// the route from blk.  Built with -DZL4_STOP=k the cluster kernel stops
-// after its k-th phase (1 the one-hop sources, 2 the dense rounds, 3 the
-// frontier; the final gather is the rest) so that chip_smoke.py can time
-// the phases one by one; the library is built without it.
+// thread block of 1024 threads per LZ4 block, or one thread-block
+// cluster, a barrier between dependency levels, double-buffered state so
+// that a round reads the state of its start (known-bit masks for the
+// value decoders, the position array for the chase), and an early exit
+// from the rounds once nothing changes.
+//
+// The byte-granular decoder keeps its state in device scratch.  The
+// windowed decoder and the chase keep theirs, for blocks up to 256 KB, in
+// the shared memory of one thread-block cluster a block: C = ceil(blk /
+// 32768) CTAs of 1024 threads (2 at 64 KB, 8 at 256 KB), 32,768
+// positions a CTA, so that a round's dependent loads go to a CTA's shared
+// memory, local or remote (distributed shared memory), not to device
+// memory.  Both find the one-hop sources with fragment_scan
+// (frag_common.cuh): on a table in increasing fdst a scatter of the
+// fragment starts and a max-scan, bisection otherwise.  Larger blocks
+// (the 1 MB path's chase; the windowed decoder's direct callers past
+// 8 x 32,768 bytes) keep their state in device scratch
+// (frag_decode_chase_kernel, frag_decode_win_kernel); the wrapper picks
+// the route from blk.
+//
+// The windowed cluster kernel holds, a CTA, the source word of each
+// position (int32: the source << 2 | covered | PER), `out`, the masks
+// cur, nxt, unc_lit, unc_per and the prefix counts of the two uncovered
+// masks: 188,416 bytes.  A pool rank is the CTA's own prefix count plus
+// the totals of the lower-ranked CTAs, which each CTA publishes in its
+// shared memory before a cluster barrier; in a round a byte reads the
+// known bit and the value of its source in the CTA that holds it, and
+// the masks are double-buffered, so no staging row is needed.
+//
+// The chase keeps its position state nx, int32 a byte (128 KB a CTA).
+// Its rounds keep their round-start semantics without a second buffer:
+// each thread reads the new values of its 32 positions, 16 into registers
+// and 16 into a shared-memory staging row (64 KB a CTA; 32 registers
+// spilled), the cluster synchronises, the thread writes them back, and
+// the cluster synchronises again with the "unconverged" flag reduced over
+// its CTAs.  The frontier takes the first qcap open positions in position
+// order: a CTA's open bits are counted by a block scan, the CTAs' totals
+// published in their shared memory give each its offset, and a position
+// is in the pool when its rank is below qcap; the frontier rounds are the
+// dense rounds restricted to the pool.
+//
+// Built with -DZL4_STOP=k both cluster kernels stop after their k-th
+// phase -- the chase after 1 the one-hop sources, 2 the dense rounds, 3
+// the frontier (the final gather is the rest); the windowed decoder after
+// 1 the sources and coverage, 2 the pools, 3 the rounds (ok and the
+// row's store are the rest) -- so that chip_smoke.py can time the phases
+// one by one; the library is built without it.
 
 #include <cooperative_groups.h>
 
 #include "frag_common.cuh"
 
 #ifdef ZL4_STOP
-#define ZL4_CHASE_STOP(k, keep) \
+#define ZL4_CLUSTER_STOP(k, keep) \
   if (ZL4_STOP == (k)) {        \
     keep;                       \
     cluster.sync();             \
     return;                     \
   }
 #else
-#define ZL4_CHASE_STOP(k, keep)
+#define ZL4_CLUSTER_STOP(k, keep)
 #endif
 
 namespace {
@@ -343,9 +365,9 @@ frag_decode_chase_kernel(const uint8_t* comp, const int32_t* fdst,
 // pointer doubling in a thread-block cluster's shared memory
 // ---------------------------------------------------------------------
 
-constexpr int kChaseRows = 1 << 15;               // positions a CTA holds
-constexpr int kChaseJ = kChaseRows / kThreads;    // positions a thread
-constexpr int kChaseMaxCluster = 8;               // the portable size
+constexpr int kClusterRows = 1 << 15;             // positions a CTA holds
+constexpr int kChaseJ = kClusterRows / kThreads;  // positions a thread
+constexpr int kMaxCluster = 8;                    // the portable size
 
 constexpr int kChaseRegs = kChaseJ / 2;           // staged in registers
 
@@ -360,10 +382,10 @@ __host__ __device__ constexpr size_t chase_smem(int R) {
 }
 
 // CTAs of the cluster that rebuilds a blk-byte block: 0 when the state
-// needs more than kChaseMaxCluster (the device-memory kernel's blocks).
-__host__ __device__ constexpr int chase_cluster(int blk) {
-  return blk <= kChaseMaxCluster * kChaseRows
-             ? (blk + kChaseRows - 1) / kChaseRows : 0;
+// needs more than kMaxCluster (the device-memory kernel's blocks).
+__host__ __device__ constexpr int cluster_ctas(int blk) {
+  return blk <= kMaxCluster * kClusterRows
+             ? (blk + kClusterRows - 1) / kClusterRows : 0;
 }
 
 // OR of v over the cluster's threads.  Every thread of the cluster calls
@@ -400,7 +422,7 @@ __device__ __forceinline__ int chase_round(int32_t* nx, int32_t* stage,
     if (i < nloc && (!sel || (sel[i >> 5] >> (i & 31) & 1))) {
       int p = nx[i];
       if (p < blk) {
-        p = cluster.map_shared_rank(nx, p >> 15)[p & (kChaseRows - 1)];
+        p = cluster.map_shared_rank(nx, p >> 15)[p & (kClusterRows - 1)];
         u |= p < blk;
       }
       if (k < kChaseRegs) v[k] = p;
@@ -433,8 +455,8 @@ frag_chase_cluster_kernel(const uint8_t* comp, const int32_t* fdst,
   // this CTA's positions [j0, j0 + nloc), rows of the cluster's state:
   // [0, blk) an output byte still to follow, [blk, blk + fetch) a fetch
   // byte, which is a fixpoint
-  const int R = min(blk, kChaseRows), nw = (R + 31) >> 5;
-  const int j0 = r * kChaseRows, nloc = min(R, blk - j0);
+  const int R = min(blk, kClusterRows), nw = (R + 31) >> 5;
+  const int j0 = r * kClusterRows, nloc = min(R, blk - j0);
   int32_t* nx = cs;
   uint32_t* open = reinterpret_cast<uint32_t*>(nx + R);
   uint32_t* pool = open + nw;
@@ -444,75 +466,16 @@ frag_chase_cluster_kernel(const uint8_t* comp, const int32_t* fdst,
   int slot = 0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  // one-hop sources.  On a table in increasing fdst a byte's fragment
-  // is the largest index among the fragments that start at or before it:
-  // each fragment that starts in this CTA's positions writes its index
-  // there (atomicMax, for fragments of no bytes), a max-scan spreads
-  // them, and the fragments before the CTA's first position give the
-  // carry.  On any other table each byte bisects, as torch.searchsorted
-  // does.
-  // On a sorted table the fragments before the CTA's positions number
-  // q_lo, and those before its end q_hi: both are counted in the pass
-  // that checks the order.
-  __shared__ int span_pre[32], q_lo, q_hi;
-  if (tid == 0) q_lo = q_hi = 0;
-  __syncthreads();
-  int unsorted = 0, n_lo = 0, n_hi = 0;
-  for (int q = tid; q < v.nfrag; q += kThreads) {
-    const int d = __ldg(v.fdst + q);
-    if (q + 1 < v.nfrag) unsorted |= d > __ldg(v.fdst + q + 1);
-    n_lo += d < j0;
-    n_hi += d < j0 + nloc;
-  }
-  n_lo = __reduce_add_sync(kFull, n_lo);
-  n_hi = __reduce_add_sync(kFull, n_hi);
-  if (lane == 0) {
-    atomicAdd(&q_lo, n_lo);
-    atomicAdd(&q_hi, n_hi);
-  }
-  unsorted = __syncthreads_or(unsorted);
-  // warp w's span of positions: a power of two >= nloc / 32, >= 32
-  const int span_log = 32 - __clz(max((nloc + 31) >> 5, 32) - 1);
-  if (!unsorted) {
-    for (int i = tid; i < nloc; i += kThreads) nx[i] = -1;
-    __syncthreads();
-    for (int q = q_lo + tid; q < q_hi; q += kThreads)
-      atomicMax(nx + (__ldg(v.fdst + q) - j0), q);
-    __syncthreads();
-    // warp w scans positions [w << span_log, (w + 1) << span_log)
-    int run = q_lo - 1;
-    const int w_hi = min((warp + 1) << span_log, nloc);
-    for (int base = warp << span_log; base < w_hi; base += 32) {
-      const int i = base + lane;
-      int x = i < nloc ? nx[i] : -1;
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(kFull, x, o);
-        if (lane >= o) x = max(x, y);
-      }
-      x = max(x, run);
-      if (i < nloc) nx[i] = x;
-      run = __shfl_sync(kFull, x, 31);
-    }
-    if (lane == 0) span_pre[warp] = run;
-    __syncthreads();
-    if (warp == 0) {  // the carry into each warp's span: a max-scan
-      int x = span_pre[lane];
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(kFull, x, o);
-        if (lane >= o) x = max(x, y);
-      }
-      const int before = __shfl_up_sync(kFull, x, 1);
-      span_pre[lane] = lane ? before : q_lo - 1;
-    }
-    __syncthreads();
-  }
+  // one-hop sources: a scan of the fragment starts over this CTA's
+  // positions on a table in increasing fdst, bisection on any other
+  const FragScan fs = fragment_scan(v, j0, nloc, nx);
   // the tagged position of byte i of this CTA from its source t
   int unc = 0;
   auto tag = [&](int t, bool per) {
     unc |= per;
     return per ? t : t + blk;
   };
-  if (unsorted) {
+  if (fs.unsorted) {
     for (int i = tid; i < nloc; i += kThreads) {
       bool per = false;
       int p = blk;
@@ -527,7 +490,7 @@ frag_chase_cluster_kernel(const uint8_t* comp, const int32_t* fdst,
       bool per = false;
       int p = blk;
       if (j0 + i < v.out_len) {
-        const int q = max(nx[i], span_pre[i >> span_log]);
+        const int q = scanned_fragment(fs, nx, i);
         const int t = source_in(v, j0 + i, q, &per);
         p = tag(t, per);
       }
@@ -535,14 +498,14 @@ frag_chase_cluster_kernel(const uint8_t* comp, const int32_t* fdst,
     }
   }
   unc = cluster_any(unc, flags, slot);
-  ZL4_CHASE_STOP(1, if (tid == 0) ok[b] = nx[0])
+  ZL4_CLUSTER_STOP(1, if (tid == 0) ok[b] = nx[0])
 
   // dense rounds
   int nd = 0, nf = 0;
   for (; nd < dense && unc; ++nd)
     unc = cluster_any(chase_round(nx, stage, nullptr, nloc, blk), flags,
                       slot);
-  ZL4_CHASE_STOP(2, if (tid == 0) ok[b] = nx[0])
+  ZL4_CLUSTER_STOP(2, if (tid == 0) ok[b] = nx[0])
 
   // the frontier: the first qcap open positions of the block in position
   // order get `doublings` more rounds
@@ -576,7 +539,7 @@ frag_chase_cluster_kernel(const uint8_t* comp, const int32_t* fdst,
       unc = cluster_any(chase_round(nx, stage, pool, nloc, blk), flags,
                         slot);
   }
-  ZL4_CHASE_STOP(3, if (tid == 0) ok[b] = nx[0])
+  ZL4_CLUSTER_STOP(3, if (tid == 0) ok[b] = nx[0])
 
   // the final gather, four bytes a thread and a store where blk allows
   int bad = 0;
@@ -606,27 +569,29 @@ frag_chase_cluster_kernel(const uint8_t* comp, const int32_t* fdst,
   cluster.sync();  // no CTA leaves while another reads its flags
 }
 
-// The cluster launch of B blocks of blk bytes, with the kernel's
-// shared-memory limit raised once per device.
-cudaError_t chase_cluster_config(int B, int blk, cudaStream_t stream,
-                                 cudaLaunchConfig_t* cfg,
-                                 cudaLaunchAttribute* attr) {
-  static unsigned raised = 0;
+// The cluster launch of B blocks of blk bytes through `kernel`, smem
+// bytes a CTA, with the kernel's shared-memory limit raised to `limit`
+// once per device (`raised`: a bit a device, one word a kernel).
+template <typename Kernel>
+cudaError_t cluster_config(Kernel kernel, unsigned& raised, size_t limit,
+                           size_t smem, int B, int blk, cudaStream_t stream,
+                           cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= 32 || !(raised >> dev & 1u)) {
-    err = cudaFuncSetAttribute(frag_chase_cluster_kernel,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)chase_smem(kChaseRows));
+                               (int)limit);
     if (err != cudaSuccess) return err;
     if (dev < 32) raised |= 1u << dev;
   }
-  const int C = chase_cluster(blk);
+  const int C = cluster_ctas(blk);
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3((unsigned)B * (unsigned)C);
   cfg->blockDim = dim3(kThreads);
-  cfg->dynamicSmemBytes = chase_smem(blk < kChaseRows ? blk : kChaseRows);
+  cfg->dynamicSmemBytes = smem;
   cfg->stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = (unsigned)C;
@@ -635,6 +600,216 @@ cudaError_t chase_cluster_config(int B, int blk, cudaStream_t stream,
   cfg->attrs = attr;
   cfg->numAttrs = 1;
   return cudaSuccess;
+}
+
+cudaError_t chase_cluster_config(int B, int blk, cudaStream_t stream,
+                                 cudaLaunchConfig_t* cfg,
+                                 cudaLaunchAttribute* attr) {
+  static unsigned raised = 0;
+  return cluster_config(frag_chase_cluster_kernel, raised,
+                        chase_smem(kClusterRows),
+                        chase_smem(blk < kClusterRows ? blk : kClusterRows),
+                        B, blk, stream, cfg, attr);
+}
+
+// ---------------------------------------------------------------------
+// windowed rounds in a thread-block cluster's shared memory
+// ---------------------------------------------------------------------
+
+// Dynamic shared memory of a CTA holding R positions (R % 64 == 0): the
+// source words int32[R]; the masks cur, nxt, unc_lit and unc_per and the
+// prefix counts pre_lit and pre_per, one word each per 32; out uint8[R].
+__host__ __device__ constexpr size_t win_smem(int R) {
+  return 5 * (size_t)R + 24 * (size_t)(R / 32);
+}
+
+// The windowed decoder with a block's state in the shared memory of one
+// cluster of cluster_ctas(blk) CTAs, kClusterRows positions a CTA.  The
+// phases are the device-scratch kernel's (frag_decode_win_kernel): the
+// sources and window coverage; the pools, a byte's rank its CTA's prefix
+// count plus the totals of the lower-ranked CTAs; the rounds, each byte
+// reading the known bit and the value of its source in the CTA that
+// holds it; then `ok` over the cluster and the row stored.
+template <int G>
+__global__ void __launch_bounds__(kThreads, 1)
+frag_win_cluster_kernel(const uint8_t* comp, const int32_t* fdst,
+                        const int32_t* fsrc, const int32_t* fper,
+                        const int32_t* fphase, const int32_t* nfrag,
+                        const int32_t* out_len, uint8_t* out_all,
+                        int32_t* ok, int fetch, int ncol, int blk,
+                        int rounds, int wins, int pool, int lit_wins,
+                        int lit_pool) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
+  const size_t b = blockIdx.x / C;
+  const Block v = block_view(comp, fdst, fsrc, fper, fphase, nfrag, out_len,
+                             fetch, ncol, blk, b);
+  extern __shared__ __align__(16) int32_t cs[];
+  // this CTA's positions [j0, j0 + nloc); blk % 64 == 0, so nloc is a
+  // whole number of warps and no G-byte group straddles two CTAs
+  const int R = min(blk, kClusterRows), nw = R >> 5;
+  const int j0 = r * kClusterRows, nloc = min(R, blk - j0), nwl = nloc >> 5;
+  int32_t* src = cs;
+  uint32_t* cur = reinterpret_cast<uint32_t*>(src + R);
+  uint32_t* nxt = cur + nw;
+  uint32_t* unc_lit = nxt + nw;
+  uint32_t* unc_per = unc_lit + nw;
+  int32_t* pre_lit = reinterpret_cast<int32_t*>(unc_per + nw);
+  int32_t* pre_per = pre_lit + nw;
+  uint8_t* out = reinterpret_cast<uint8_t*>(pre_per + nw);
+  __shared__ int flags[2], totals[2];
+  int slot = 0;
+  const int tid = threadIdx.x, lane = tid & 31;
+
+  // pass 1: sources and window coverage; src[i] = the source << 2 | 2 if
+  // covered | 1 if PER
+  const FragScan fs = fragment_scan(v, j0, nloc, src);
+  for (int i = tid; i < nloc; i += kThreads) {  // whole warps
+    const int j = j0 + i, w = i >> 5;
+    const bool live = j < v.out_len;
+    bool per = false;
+    int t = 0;
+    if (live) {
+      const int q = fs.unsorted ? fragment_of(v, j)
+                                : scanned_fragment(fs, src, i);
+      t = source_in(v, j, q, &per);
+    }
+    const bool lit = live && !per;
+    const bool cov_lit = lit_wins ? covered<G>(t, lit, lit_wins) : true;
+    const bool cov_per = covered<G>(t, live && per, wins);
+    const bool cov = per ? cov_per : cov_lit;
+    src[i] = (t << 2) | (cov ? 2 : 0) | (per ? 1 : 0);
+    const uint32_t ul = __ballot_sync(kFull, lit && !cov_lit);
+    const uint32_t up = __ballot_sync(kFull, live && per && !cov_per);
+    if (lane == 0) { unc_lit[w] = ul; unc_per[w] = up; }
+  }
+  __syncthreads();
+  ZL4_CLUSTER_STOP(1, if (tid == 0) ok[b] = src[0])
+
+  // pass 2: the pools take the first uncovered bytes of the block in
+  // position order; literal bytes that are reached are copied, the
+  // others never resolve
+  const int n_lit = lit_wins ? prefix_popc<true>(unc_lit, pre_lit, nwl) : 0;
+  const int n_per = prefix_popc<true>(unc_per, pre_per, nwl);
+  if (tid == 0) { totals[0] = n_lit; totals[1] = n_per; }
+  cluster.sync();  // every CTA's totals published
+  int before_lit = 0, before_per = 0;
+  for (int c = 0; c < r; ++c) {
+    const int* t = cluster.map_shared_rank(totals, c);
+    before_lit += t[0];
+    before_per += t[1];
+  }
+  const uint32_t below = (1u << lane) - 1u;
+  for (int i = tid; i < nloc; i += kThreads) {
+    const int w = i >> 5;
+    bool known = true;
+    uint8_t val = 0;
+    if (j0 + i < v.out_len) {
+      const int s = src[i], t = s >> 2;
+      const bool per = s & 1;
+      bool reach = s & 2;
+      if (!reach && (per || lit_wins)) {
+        const uint32_t uw = (per ? unc_per : unc_lit)[w];
+        const int rank = (per ? before_per + pre_per[w]
+                              : before_lit + pre_lit[w]) +
+                         __popc(uw & below);
+        reach = rank < (per ? pool : lit_pool);
+      }
+      if (per) {
+        src[i] = reach ? t : -1;
+        known = false;
+      } else if (reach) {
+        val = __ldg(v.comp + t);
+      } else {
+        src[i] = -1;
+        known = false;
+      }
+    }
+    out[i] = val;
+    const uint32_t kw = __ballot_sync(kFull, known);
+    if (lane == 0) cur[w] = kw;
+  }
+  cluster.sync();  // the state in place before any CTA reads it
+  ZL4_CLUSTER_STOP(2, if (tid == 0) ok[b] = out[0])
+
+  // the rounds: a byte becomes known when its source was known at the
+  // start of the round; a byte written in a round is unknown in `cur`,
+  // so no thread of the cluster reads it in that round
+  for (int k = 0; k < rounds; ++k) {
+    int progress = 0;
+    for (int i = tid; i < nloc; i += kThreads) {
+      const int w = i >> 5;
+      uint32_t kw = cur[w];
+      if (kw != kFull) {
+        bool newly = false;
+        if (!(kw >> lane & 1)) {
+          const int s = src[i];
+          if (s >= 0) {
+            const int c = s >> 15, sl = s & (kClusterRows - 1);
+            if (cluster.map_shared_rank(cur, c)[sl >> 5] >> (sl & 31) & 1) {
+              out[i] = cluster.map_shared_rank(out, c)[sl];
+              newly = true;
+            }
+          }
+        }
+        const uint32_t got = __ballot_sync(kFull, newly);
+        kw |= got;
+        progress |= got != 0;
+      }
+      if (lane == 0) nxt[w] = kw;
+    }
+    const int any = cluster_any(progress, flags, slot);
+    uint32_t* t = cur; cur = nxt; nxt = t;
+    if (!any) break;
+  }
+  ZL4_CLUSTER_STOP(3, if (tid == 0) ok[b] = cur[0])
+
+  // ok: every bit of the cluster's mask set (dead bytes count as known);
+  // the row is zero where a byte is unknown or past out_len already
+  int bad = 0;
+  for (int w = tid; w < nwl; w += kThreads) bad |= cur[w] != kFull;
+  bad = cluster_any(bad, flags, slot);
+  uint8_t* dst = out_all + b * blk + j0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    for (int i = tid; i < nloc >> 4; i += kThreads)
+      reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(out)[i];
+  } else {
+    for (int i = tid; i < nloc; i += kThreads) dst[i] = out[i];
+  }
+  if (r == 0 && tid == 0) ok[b] = !bad;
+  cluster.sync();  // no CTA leaves while another reads its shared memory
+}
+
+template <int G>
+cudaError_t win_cluster_config(int B, int blk, cudaStream_t stream,
+                               cudaLaunchConfig_t* cfg,
+                               cudaLaunchAttribute* attr) {
+  static unsigned raised = 0;
+  return cluster_config(frag_win_cluster_kernel<G>, raised,
+                        win_smem(kClusterRows),
+                        win_smem(blk < kClusterRows ? blk : kClusterRows), B,
+                        blk, stream, cfg, attr);
+}
+
+template <int G>
+cudaError_t win_cluster_launch(const uint8_t* comp, const int32_t* fdst,
+                               const int32_t* fsrc, const int32_t* fper,
+                               const int32_t* fphase, const int32_t* nfrag,
+                               const int32_t* out_len, uint8_t* out,
+                               int32_t* ok, int B, int fetch, int ncol,
+                               int blk, int rounds, int wins, int pool,
+                               int lit_wins, int lit_pool,
+                               cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = win_cluster_config<G>(B, blk, stream, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, frag_win_cluster_kernel<G>, comp, fdst,
+                           fsrc, fper, fphase, nfrag, out_len, out, ok,
+                           fetch, ncol, blk, rounds, wins, pool, lit_wins,
+                           lit_pool);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -656,9 +831,18 @@ extern "C" int zl4_frag_decode_win(
     const int32_t* fper, const int32_t* fphase, const int32_t* nfrag,
     const int32_t* out_len, int32_t* src, uint32_t* known, uint32_t* words,
     uint8_t* out, int32_t* ok, int B, int fetch, int ncol, int blk,
-    int rounds, int g, int wins, int pool, int lit_wins, int lit_pool,
+    int rounds, int g, int wins, int pool, int lit_wins, int lit_pool, int C,
     cudaStream_t stream) {
-  if ((g != 8 && g != 16) || blk % 64) return (int)cudaErrorInvalidValue;
+  // C: the cluster's CTAs (cluster_ctas(blk)), the state in their shared
+  // memory; 0: the state in src int32[B, blk], known uint32[B, 2, nwords]
+  // and words uint32[B, 4, nwords], which the cluster route never reads.
+  if ((g != 8 && g != 16) || B <= 0 || blk <= 0 || blk % 64 || fetch <= 0 ||
+      C != cluster_ctas(blk))
+    return (int)cudaErrorInvalidValue;
+  if (C)
+    return (int)(g == 8 ? win_cluster_launch<8> : win_cluster_launch<16>)(
+        comp, fdst, fsrc, fper, fphase, nfrag, out_len, out, ok, B, fetch,
+        ncol, blk, rounds, wins, pool, lit_wins, lit_pool, stream);
   if (g == 8)
     frag_decode_win_kernel<8><<<B, kThreads, 0, stream>>>(
         comp, fdst, fsrc, fper, fphase, nfrag, out_len, src, known, words,
@@ -677,11 +861,11 @@ extern "C" int zl4_frag_decode_chase(
     uint8_t* out, int32_t* ok, int32_t* rounds, int B, int fetch, int ncol,
     int blk, int dense, int doublings, int qcap, int C,
     cudaStream_t stream) {
-  // C: the cluster's CTAs (chase_cluster(blk)), the state in their shared
+  // C: the cluster's CTAs (cluster_ctas(blk)), the state in their shared
   // memory; 0: the state in nx int32[B, 2, blk], words and pool, which
   // the cluster route never reads.  rounds: int32[B], dense rounds | the
   // frontier's << 16, or null.
-  if (B <= 0 || blk <= 0 || fetch <= 0 || C != chase_cluster(blk))
+  if (B <= 0 || blk <= 0 || fetch <= 0 || C != cluster_ctas(blk))
     return (int)cudaErrorInvalidValue;
   if (C == 0) {
     frag_decode_chase_kernel<<<B, kThreads, 0, stream>>>(
@@ -706,7 +890,7 @@ extern "C" int zl4_frag_decode_chase(
 // (cudaOccupancyMaxActiveClusters; 0: the shape cannot be scheduled).
 extern "C" int zl4_frag_decode_chase_shape(int blk, int* out) {
   if (blk <= 0) return (int)cudaErrorInvalidValue;
-  out[0] = chase_cluster(blk);
+  out[0] = cluster_ctas(blk);
   out[1] = out[2] = 0;
   if (!out[0]) return (int)cudaSuccess;
   cudaLaunchConfig_t cfg;
@@ -716,4 +900,27 @@ extern "C" int zl4_frag_decode_chase_shape(int blk, int* out) {
   out[1] = (int)cfg.dynamicSmemBytes;
   return (int)cudaOccupancyMaxActiveClusters(&out[2],
                                              frag_chase_cluster_kernel, &cfg);
+}
+
+// The windowed decoder's cluster route for blk-byte blocks and group
+// width g on the current device, as zl4_frag_decode_chase_shape gives the
+// chase's: out[0] CTAs a cluster (0: the device-scratch kernel), out[1]
+// shared-memory bytes a CTA, out[2] the clusters the card holds at once.
+extern "C" int zl4_frag_decode_win_shape(int blk, int g, int* out) {
+  if (blk <= 0 || blk % 64 || (g != 8 && g != 16))
+    return (int)cudaErrorInvalidValue;
+  out[0] = cluster_ctas(blk);
+  out[1] = out[2] = 0;
+  if (!out[0]) return (int)cudaSuccess;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = g == 8 ? win_cluster_config<8>(1, blk, nullptr, &cfg, &attr)
+                           : win_cluster_config<16>(1, blk, nullptr, &cfg,
+                                                    &attr);
+  if (err != cudaSuccess) return (int)err;
+  out[1] = (int)cfg.dynamicSmemBytes;
+  return (int)(g == 8 ? cudaOccupancyMaxActiveClusters(
+                            &out[2], frag_win_cluster_kernel<8>, &cfg)
+                      : cudaOccupancyMaxActiveClusters(
+                            &out[2], frag_win_cluster_kernel<16>, &cfg));
 }

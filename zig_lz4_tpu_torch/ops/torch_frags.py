@@ -433,6 +433,37 @@ def decode_blocks_frags(comp, fdst, fsrc, fper, fphase, nfrag, out_len,
 
 
 # ---------------------------------------------------------------------
+# the cluster routes of the windowed decoder and the chase
+# ---------------------------------------------------------------------
+
+#: positions of a block's state that one CTA holds in shared memory, and
+#: the largest cluster (the portable size): the windowed decoder and the
+#: chase keep the state of blocks up to 256 KB in one cluster's shared
+#: memory (``frag_decode.cu``)
+_CLUSTER_ROWS = 1 << 15
+_MAX_CLUSTER = 8
+
+
+def _cluster_ctas(blk: int) -> int:
+    C = -(-blk // _CLUSTER_ROWS)
+    return C if C <= _MAX_CLUSTER else 0
+
+
+def _cluster_shape(entry: str, blk: int, *extra) -> dict:
+    """A cluster route's launch for ``blk``-byte blocks on the current
+    CUDA device, from the C entry point ``entry``."""
+    out = (ctypes.c_int * 3)()
+    fn = getattr(library(), entry)
+    fn.argtypes = [ctypes.c_int] * (1 + len(extra)) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(blk, *extra, out)
+    if err:
+        raise RuntimeError(f"{entry}({blk}): CUDA error {err}")
+    return {"ctas": out[0], "threads": 1024, "smem_bytes": out[1],
+            "active_clusters": out[2]}
+
+
+# ---------------------------------------------------------------------
 # windowed rounds
 # ---------------------------------------------------------------------
 
@@ -523,8 +554,10 @@ def decode_blocks_frags_win(comp, fdst, fsrc, fper, fphase, nfrag, out_len,
     that the keyword arguments do not give; ``g`` is the group width, 8
     or 16.  ``ok`` is 0 for a block with a byte that no window and no
     pool slot covers, or that ``rounds`` rounds did not reach.  The
-    ``frag_decode_win`` kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+    ``frag_decode_win`` kernel for CUDA tensors -- its state in a
+    thread-block cluster's shared memory for blocks up to 256 KB
+    (``win_cluster_size``), in device scratch for larger ones -- the
+    plain version for CPU tensors."""
     if comp.device.type == "cpu":
         return decode_blocks_frags_win_plain(
             comp, fdst, fsrc, fper, fphase, nfrag, out_len, rounds, blk,
@@ -536,25 +569,39 @@ def decode_blocks_frags_win(comp, fdst, fsrc, fper, fphase, nfrag, out_len,
                       lit_wins, lit_pool, g)
     B, dev = out.shape[0], out.device
     if B:
-        src = torch.empty((B, blk), dtype=torch.int32, device=dev)
-        launch("frag_decode_win", *tables, src,
-               _scratch_words(B, 2, blk, dev), _scratch_words(B, 4, blk, dev),
-               out, ok, B, comp.shape[1], fdst.shape[1], blk,
-               max(int(rounds), 0), g, cfg["wins"], cfg["pool"],
-               cfg["lit_wins"], cfg["lit_pool"])
+        C = win_cluster_size(blk)
+        if C:       # the state in the cluster's shared memory: no scratch
+            src = known = words = 0
+        else:
+            src = torch.empty((B, blk), dtype=torch.int32, device=dev)
+            known = _scratch_words(B, 2, blk, dev)
+            words = _scratch_words(B, 4, blk, dev)
+        launch("frag_decode_win", *tables, src, known, words, out, ok, B,
+               comp.shape[1], fdst.shape[1], blk, max(int(rounds), 0), g,
+               cfg["wins"], cfg["pool"], cfg["lit_wins"], cfg["lit_pool"], C)
     return out, ok
+
+
+def win_cluster_size(blk: int) -> int:
+    """CTAs of the thread-block cluster whose shared memory holds the
+    windowed decoder's state of a ``blk``-byte block, ``ceil(blk /
+    32768)``; 0 when that takes more than 8 CTAs (past every block that
+    ``device_win_decoder_supports`` admits), and the state lies in device
+    scratch."""
+    return _cluster_ctas(blk)
+
+
+def win_launch_shape(blk: int, g: int = 8) -> dict:
+    """The windowed kernel's launch for ``blk``-byte blocks and group
+    width ``g`` on the current CUDA device: CTAs a cluster (0: the
+    device-scratch route), threads and shared-memory bytes a CTA, and the
+    clusters the card holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    return _cluster_shape("zl4_frag_decode_win_shape", blk, g)
 
 
 # ---------------------------------------------------------------------
 # pointer doubling
 # ---------------------------------------------------------------------
-
-#: positions of the chase state a CTA holds in shared memory, and the
-#: largest cluster (the portable size): blocks up to 256 KB keep their
-#: state in one cluster's shared memory (``frag_decode.cu``)
-_CHASE_ROWS = 1 << 15
-_CHASE_MAX_CLUSTER = 8
-
 
 def _chase_pool(blk: int, qcap: int) -> int:
     return int(qcap) or max(blk // 8, 1024)
@@ -564,8 +611,7 @@ def chase_cluster_size(blk: int) -> int:
     """CTAs of the thread-block cluster whose shared memory holds the
     chase state of a ``blk``-byte block, ``ceil(blk / 32768)``; 0 when
     that takes more than 8 CTAs, and the state lies in device scratch."""
-    C = -(-blk // _CHASE_ROWS)
-    return C if C <= _CHASE_MAX_CLUSTER else 0
+    return _cluster_ctas(blk)
 
 
 def chase_launch_shape(blk: int) -> dict:
@@ -573,15 +619,7 @@ def chase_launch_shape(blk: int) -> dict:
     CUDA device: CTAs a cluster (0: the device-memory route), threads
     and shared-memory bytes a CTA, and the clusters the card holds at
     once (``cudaOccupancyMaxActiveClusters``)."""
-    out = (ctypes.c_int * 3)()
-    fn = library().zl4_frag_decode_chase_shape
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(blk, out)
-    if err:
-        raise RuntimeError(f"chase launch shape: CUDA error {err}")
-    return {"ctas": out[0], "threads": 1024, "smem_bytes": out[1],
-            "active_clusters": out[2]}
+    return _cluster_shape("zl4_frag_decode_chase_shape", blk)
 
 
 def decode_blocks_frags_chase_plain(comp, fdst, fsrc, fper, fphase, nfrag,

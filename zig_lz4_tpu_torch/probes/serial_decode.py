@@ -12,7 +12,11 @@ end of what is written, ``avail`` starting at ``off`` and growing by
 what each round wrote (``:108-120``), so a match that overlaps itself
 (``off < mlen``) is exact.  There is no history, and bytes from the end
 of the last sequence on are zero.  The CUDA kernel is
-``kernels/csrc/serial_decode.cu`` (``serial_decode``): one warp a block.
+``kernels/csrc/serial_decode.cu`` (``serial_decode``): for blocks up to
+``ROW_MAX`` bytes one CTA a block holds the block's row in shared memory,
+places every literal at once, and one warp walks the matches in order;
+larger blocks go to one warp a block writing device memory directly.
+The route depends on ``blk`` alone.
 
 The probe's ``_BCHUNK = 4`` blocks per ``pallas_call`` (``:176``) and its
 rounding of the sequence axis up to a multiple of 512 (``:190-193``) are
@@ -28,11 +32,18 @@ negative length counts as 0.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from ..kernels import launch
+from ..kernels import launch, library
 
-__all__ = ["decode_blocks_serial", "decode_blocks_serial_plain"]
+__all__ = ["ROW_MAX", "decode_blocks_serial", "decode_blocks_serial_plain",
+           "serial_launch_shape"]
+
+#: the largest block whose row the kernel keeps in shared memory
+#: (``serial_decode.cu`` kRowMax); larger blocks take the warp route
+ROW_MAX = 220 * 1024
 
 
 def _check(comp, lit, lsrc, ml, off, nseq, blk: int) -> None:
@@ -125,5 +136,21 @@ def decode_blocks_serial(comp: torch.Tensor, lit: torch.Tensor,
     out = torch.empty((B, blk), dtype=torch.uint8, device=comp.device)
     if B:
         launch("serial_decode", comp, lit, lsrc, ml, off, nseq, out, B,
-               comp.shape[1], ncap, blk)
+               comp.shape[1], ncap, blk, int(blk <= ROW_MAX))
     return out, _out_len(lit, ml, nseq)
+
+
+def serial_launch_shape(blk: int) -> dict:
+    """The kernel's launch for ``blk``-byte blocks on the current CUDA
+    device: whether the row lies in shared memory (else one warp a block
+    in device memory), its shared-memory bytes a CTA of 256 threads, and
+    the CTAs an SM holds at once."""
+    out = (ctypes.c_int * 3)()
+    fn = library().zl4_serial_decode_shape
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(blk, out)
+    if err:
+        raise RuntimeError(f"serial launch shape: CUDA error {err}")
+    return {"shared_row": bool(out[0]), "threads": 256,
+            "smem_bytes": out[1], "ctas_per_sm": out[2]}
