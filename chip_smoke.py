@@ -111,20 +111,23 @@ between CUDA events, on tensors allocated before the capture.  It also
 prints the host microseconds a call of ``kernels.launch`` costs, beside
 those of the parent commit's wrapper (``parent_launch`` below).
 
-``seq_decode``, ``serial_decode``, ``frag_decode_chase`` and
-``frag_decode_win``, which rebuild a block in shared memory (by pointer
-jumping; by a serial walk of the matches; the last two in a thread-block
-cluster's shared memory), are timed phase by phase from the cuts of
-``seq_decode.cu``, ``serial_decode.cu`` and ``frag_decode.cu``
-(-DZL4_STOP=1..3; 1..2 for the serial walk), and held against plain on
-their worst cases: 64 KB chains through every sequence (with no history
-and into a 64 KB history) and a 65,535-byte run at offset 1;
-``serial_decode`` also at 262,144-byte rows (its warp route, past the
-shared-memory row); the chase at every configuration on 256 KB blocks (a
-cluster of 8) and 1 MB blocks (device scratch), and the windowed decoder
-at every windowed configuration on 256 KB blocks (a cluster of 8) and
-512 KB rows (device scratch), at both launches of the level-9 "win"
-path, each with its launch shape and occupancy.
+``seq_decode``, ``serial_decode``, ``frag_decode_chase``,
+``frag_decode_win`` and ``frag_decode``, which rebuild a block in shared
+memory (by pointer jumping; by a serial walk of the matches; the last
+three in a thread-block cluster's shared memory), are timed phase by
+phase from the cuts of ``seq_decode.cu``, ``serial_decode.cu`` and
+``frag_decode.cu`` (-DZL4_STOP=1..3; 1..2 for the serial walk and the
+byte-granular decoder), and held against plain on their worst cases:
+64 KB chains through every sequence (with no history and into a 64 KB
+history) and a 65,535-byte run at offset 1; ``serial_decode`` also at
+262,144-byte rows (its warp route, past the shared-memory row); the chase
+at every configuration on 256 KB blocks (a cluster of 8) and 1 MB blocks
+(device scratch), the windowed decoder at every windowed configuration
+and the byte-granular decoder at every byte-granular one on 256 KB
+blocks (a cluster of 8) and 512 KB rows (device scratch), at both
+launches of the level-9 "win" path and at the 256 KB "win" path's
+launch, each with its launch shape and occupancy; the 256 KB "win" path
+also by stage.
 
 Run from the repository root, with one CUDA device:
 
@@ -136,8 +139,9 @@ To compare the encoder kernels of two checkouts in one call (at the
 (``time_encoder_kernels`` below); ``--time-decode-kernels`` does the
 same for ``seq_decode`` (the level-12 frame's 672 blocks and 32 of
 them), ``serial_decode`` (the 672 blocks), ``frag_decode_chase`` (the
-"chase" path's 141-block launch) and ``frag_decode_win`` (both launches
-of the "win" path) (``time_decode_kernels``).
+"chase" path's 141-block launch), ``frag_decode_win`` (both launches
+of the "win" path) and ``frag_decode`` (the 256 KB "win" path's launch)
+(``time_decode_kernels``).
 
 Exits non-zero on any failed check.  Imports no JAX.  The last two
 lines of stdout are the card's name and power limit as nvidia-smi
@@ -232,7 +236,7 @@ WIDE_DEEP_KERNELS = ("enc_deep_match_wide", "enc_deep_dp", "enc_deep_emit",
 #: enc_match and enc_parse_emit (encode_block.cu), the two wide finders,
 #: enc_deep_match with enc_deep_dp (encode_deep.cu), seq_decode, the
 #: shared-memory route of serial_decode, and the cluster routes of
-#: frag_decode_chase and frag_decode_win (frag_decode.cu)
+#: frag_decode, frag_decode_chase and frag_decode_win (frag_decode.cu)
 PHASE_CUTS = {"encode_block.cu": 4, "encode_wide.cu": 4,
               "encode_deep_wide.cu": 8, "encode_deep.cu": 8,
               "seq_decode.cu": 3, "frag_decode.cu": 3, "serial_decode.cu": 2}
@@ -243,6 +247,9 @@ SEQ_PHASES = ("seg_start", "fill", "rounds", "write-out")
 SERIAL_PHASES = ("literals", "walk", "write-out")
 CHASE_PHASES = ("one-hop sources", "dense rounds", "frontier", "final gather")
 WIN_PHASES = ("sources and coverage", "pools", "rounds", "ok and store")
+#: phases of frag_decode's cluster route, one a cut (1, 2) and the last the
+#: rest
+FRAG_PHASES = ("sources and literals", "rounds", "ok and store")
 #: phases of the wide finders and of enc_deep_match, one a cut and the
 #: last the rest
 WIDE_PHASES = ("window words", "12-byte sort", "probes +-9", "s0 sort",
@@ -263,7 +270,8 @@ PTXAS_KERNELS = ("enc_match_kernel", "enc_match_fast_kernel",
                  "frag_chase_cluster_kernel", "frag_decode_chase_kernel",
                  "serial_smem_kernel", "serial_decode_kernel",
                  "frag_win_cluster_kernel<8>", "frag_win_cluster_kernel<16>",
-                 "frag_decode_win_kernel<8>", "frag_decode_win_kernel<16>")
+                 "frag_decode_win_kernel<8>", "frag_decode_win_kernel<16>",
+                 "frag_win_cluster_kernel<0>", "frag_decode_kernel")
 #: n / frame bytes of the 1 MB-block paths (the reference's frames, whose
 #: SHA-256 the wide goldens hold, give the same)
 EXPECT_RATIO_WIDE = {"1 MB blocks, level 9": 3.253950,
@@ -1044,6 +1052,51 @@ def win_phase_split(libs, a, kw, reps=5):
     return ms
 
 
+def frag_phase_split(libs, a, kw, reps=5):
+    """Milliseconds of each phase cut of ``frag_decode``'s cluster route
+    (``frag_decode.cu`` -DZL4_STOP=1..2; its cut 3 is the whole kernel) at
+    a recorded call of ``decode_blocks_frags`` (arguments ``a``, ``kw``),
+    and of the library's kernel launched the same way (key "whole"), and
+    at ``rounds`` 0, 1, 2 and 4 (keys ("rounds", r)), through ctypes (not
+    counted): {k: median of ``reps``}."""
+    import ctypes
+    import inspect
+
+    import torch
+    from zig_lz4_tpu_torch.kernels import library
+    from zig_lz4_tpu_torch.ops import torch_frags as tfr
+    P, I = ctypes.c_void_p, ctypes.c_int
+    bound_ = inspect.signature(tfr.decode_blocks_frags).bind(*a, **kw)
+    arg = bound_.arguments
+    tables = [arg[k].contiguous() for k in ("comp", "fdst", "fsrc", "fper",
+                                            "fphase", "nfrag", "out_len")]
+    blk, rounds = arg["blk"], max(int(arg["rounds"]), 0)
+    C = tfr.frag_cluster_size(blk)
+    check(C > 0, f"no cluster route at {blk}-byte blocks")
+    B = tables[0].shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty((B, blk), dtype=torch.uint8, device=tables[0].device)
+    ok = torch.empty(B, dtype=torch.int32, device=tables[0].device)
+    cuts = {k: lib for k, lib in libs["frag_decode.cu"].items()
+            if k < len(FRAG_PHASES)}
+    runs = [(k, lib, rounds) for k, lib in cuts.items()] + [
+        ("whole", library(), rounds)] + [
+        (("rounds", r), library(), r) for r in (0, 1, 2, 4) if r < rounds]
+    ms = {}
+    for k, lib, r in runs:
+        fn = lib.zl4_frag_decode
+        fn.argtypes, fn.restype = [P] * 11 + [I] * 6 + [P], I
+
+        def cut():
+            check(fn(*(t.data_ptr() for t in tables), None, None,
+                     out.data_ptr(), ok.data_ptr(), B, tables[0].shape[1],
+                     tables[1].shape[1], blk, r, C, stream) == 0,
+                  f"frag_decode cut {k} did not launch")
+        cut()
+        ms[k] = statistics.median(cuda_ms(cut)[0] for _ in range(reps))
+    return ms
+
+
 def by_phase(names, cuts, whole):
     """{phase: ms} from the cuts' times (a phase = the difference of two
     cuts; the last phase the whole less the last cut)."""
@@ -1056,9 +1109,10 @@ def decode_inputs(torch, np, data, dev):
     current directory from calls every version of the port has: the
     level-12 frame's compressed blocks parsed into sequence tables on the
     card, and the calls the level-9 frame's "chase" decode makes of
-    ``decode_blocks_frags_chase`` and its "win" decode of
-    ``decode_blocks_frags_win`` (recorded).  Returns (seq_in, chase calls,
-    win calls), each call (args, kwargs)."""
+    ``decode_blocks_frags_chase``, its "win" decode of
+    ``decode_blocks_frags_win`` and the "win" decode of a frame of 256 KB
+    blocks of ``decode_blocks_frags`` (recorded).  Returns (seq_in, chase
+    calls, win calls, byte-granular calls), each call (args, kwargs)."""
     from zig_lz4_tpu_torch import ShardedFrameCodec, native
     from zig_lz4_tpu_torch import frame as lz4f
     from zig_lz4_tpu_torch.constants import compress_bound
@@ -1078,10 +1132,18 @@ def decode_inputs(torch, np, data, dev):
     seq_in = [torch.from_numpy(x).to(dev) for x in (comp, *tabs)]
     fr9 = ShardedFrameCodec(compression_level=9,
                             device="cuda").compress_frame(data)
+    part256 = data[:16 << 20]
+    fr256 = lz4f.compress_frame(part256, lz4f.Preferences(
+        frame_info=lz4f.FrameInfo(
+            block_size_id=lz4f.BlockSizeID.max256KB,
+            block_mode=lz4f.BlockMode.independent, content_checksum=True),
+        compression_level=9))
     calls = {}
-    for engine in ("chase", "win"):
-        attr = f"decode_blocks_frags_{engine}"
-        real, got = getattr(sh, attr), calls.setdefault(engine, [])
+    for engine, attr, fr, want in (
+            ("chase", "decode_blocks_frags_chase", fr9, data),
+            ("win", "decode_blocks_frags_win", fr9, data),
+            ("win", "decode_blocks_frags", fr256, part256)):
+        real, got = getattr(sh, attr), calls.setdefault(attr, [])
 
         def record(*a, _real=real, _got=got, **k):
             _got.append((a, k))
@@ -1089,11 +1151,12 @@ def decode_inputs(torch, np, data, dev):
         setattr(sh, attr, record)
         try:
             back = ShardedFrameCodec(device="cuda", decode_engine=engine
-                                     ).decompress_frame(fr9)
+                                     ).decompress_frame(fr)
         finally:
             setattr(sh, attr, real)
-        check(back == data, f"{engine} decode of the level-9 frame")
-    return seq_in, calls["chase"], calls["win"]
+        check(back == want, f"{engine} decode through {attr}")
+    return (seq_in, calls["decode_blocks_frags_chase"],
+            calls["decode_blocks_frags_win"], calls["decode_blocks_frags"])
 
 
 def time_decode_kernels():
@@ -1106,11 +1169,15 @@ def time_decode_kernels():
     blocks of the bench corpus and over 32 of them,
     ``decode_blocks_serial`` over the same 672 blocks,
     ``decode_blocks_frags_chase`` at the largest launch of the level-9
-    frame's "chase" decode (141 blocks) and ``decode_blocks_frags_win`` at
-    both launches of its "win" decode (g 16 and g 8).  It uses only what
+    frame's "chase" decode (141 blocks), ``decode_blocks_frags_win`` at
+    both launches of its "win" decode (g 16 and g 8) and
+    ``decode_blocks_frags`` at the launch of the "win" decode of 16 MB in
+    256 KB blocks (23 blocks).  It uses only what
     every version of the port has (``decode_inputs``).  Each time is the
-    median of 5 calls between CUDA events, after one warm-up call; it
-    prints one line."""
+    median of 5 calls between CUDA events, after one warm-up call, and
+    beside it the median of 5 means of 20 calls back to back, in which
+    the wrapper's host work overlaps the kernels before it; it prints one
+    line."""
     sys.path.insert(0, os.getcwd())
     import torch
     if not torch.cuda.is_available():
@@ -1126,8 +1193,8 @@ def time_decode_kernels():
     smi = nvidia_smi()
     data = make_corpus(48)
     data = data[:len(data) - len(data) % (BLK * BENCH_BATCH)]
-    seq_in, chase_calls, win_calls = decode_inputs(torch, np, data,
-                                                   torch.device("cuda"))
+    seq_in, chase_calls, win_calls, frag_calls = decode_inputs(
+        torch, np, data, torch.device("cuda"))
     step = max(seq_in[0].shape[0] // SEQ_PLAIN_BLOCKS, 1)
     sub = [t[::step].contiguous() for t in seq_in]
     a, kw = max(chase_calls, key=lambda c: c[0][0].shape[0])
@@ -1145,12 +1212,18 @@ def time_decode_kernels():
               f"({list(a_w[7:])} {kw_w})"] = (
             lambda a_w=a_w, kw_w=kw_w:
             tfr.decode_blocks_frags_win(*a_w, **kw_w))
+    for a_f, kw_f in frag_calls:
+        calls[f"frag_decode at {a_f[0].shape[0]} blocks "
+              f"({list(a_f[7:])} {kw_f})"] = (
+            lambda a_f=a_f, kw_f=kw_f: tfr.decode_blocks_frags(*a_f, **kw_f))
     ms = {}
     for k, fn in calls.items():
         fn()
-        ms[k] = statistics.median(cuda_ms(fn)[0] for _ in range(5))
+        ms[k] = (statistics.median(cuda_ms(fn)[0] for _ in range(5)),
+                 statistics.median(cuda_ms(fn, 20)[0] for _ in range(5)))
     print(f"[decode kernels] {smi}: package {os.path.dirname(td.__file__)}: "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
+          + ", ".join(f"{k} {v:.4f} ms ({v20:.4f} back to back)"
+                      for k, (v, v20) in ms.items()), flush=True)
     return 0
 
 
@@ -2454,6 +2527,75 @@ def main():
         max_abs_err=max(results["frag_decode_win"]["max_abs_err"],
                         *win_route_err.values()))
 
+    # the byte-granular decoder at the 256 KB "win" path's launch by phase
+    # (cuts of frag_decode.cu, the cluster route), its launch shape, and
+    # both routes against plain at every byte-granular configuration on
+    # the 256 KB frame's blocks at 262,144-byte rows (a cluster of 8) and
+    # 524,288 (device scratch)
+    t_k7a = time.perf_counter()
+    _k, a_f, kw_f, _b = max((c for c in probes["256 KB blocks, win"].calls
+                             if c[0] == "frag_decode"),
+                            key=lambda c: c[1][0].shape[0])
+    frag_cuts = frag_phase_split(phase_libs, a_f, kw_f)
+    frag_raw = frag_cuts.pop("whole")
+    frag_by_rounds = {k[1]: frag_cuts.pop(k) for k in list(frag_cuts)
+                      if isinstance(k, tuple)}
+    frag_by_rounds[int(a_f[7])] = frag_raw
+    frag_phases = by_phase(FRAG_PHASES, frag_cuts, frag_raw)
+    # where the PER bytes' sources lie: in the byte's own CTA or another
+    T_f, per_f, live_f = tfr._sources(*a_f[:7], int(a_f[8]))
+    per_f &= live_f
+    j_f = torch.arange(int(a_f[8]), device=dev)
+    per_n = int(per_f.sum())
+    per_remote = int((per_f & ((T_f >> 15) != (j_f >> 15))).sum())
+    del T_f, per_f, live_f
+    frag_shape = {bs_: tfr.frag_launch_shape(bs_)
+                  for bs_ in (BLK, 2 * BLK, 262144, 1 << 19)}
+    check(all(v["active_clusters"] > 0 for v in frag_shape.values()
+              if v["ctas"]) and frag_shape[262144]["ctas"] == 8,
+          f"the byte-granular decoder's cluster {frag_shape}")
+    frag_route_err = {}
+    for bs_ in (262144, 1 << 19):
+        args_r, _rd, _nf = ladder_tables(frame_payloads(frame256, lz4f)[1],
+                                         *LADDER_FRAGS[0], fcap=bs_, bs=bs_)
+        for cfg in LADDER_FRAGS[1]:
+            cfg = dict(cfg)
+            clears = cfg.pop("clears", None)
+            got_r = tfr.decode_blocks_frags(*args_r, cfg["rounds"], bs_)
+            want_r = tfr.decode_blocks_frags_plain(*args_r, cfg["rounds"],
+                                                   bs_)
+            err_r = max(max_abs_err(x, y) for x, y in zip(got_r, want_r))
+            frag_route_err[f"{bs_}, {cfg}"] = err_r
+            check(err_r == 0, f"frag_decode differs from plain at "
+                  f"{bs_}-byte rows at {cfg}")
+            check(clears is None or not bool(got_r[1].all()),
+                  f"frag_decode at {bs_}-byte rows at {cfg}: ok is "
+                  f"{got_r[1].tolist()}")
+        del args_r
+    print(f"[K7] frag_decode vs plain at every byte-granular configuration "
+          f"on the 256 KB frame's blocks at 262,144-byte rows (a cluster of "
+          f"8) and 524,288 (device scratch): max_abs_err {frag_route_err}; "
+          f"launch shape by block bytes (CTAs a cluster, 0 = device "
+          f"scratch; threads and shared bytes a CTA; clusters the card "
+          f"holds at once): {frag_shape} (these checks and the phase cuts "
+          f"{time.perf_counter() - t_k7a:.1f} s)")
+    print(f"[time] {smi}: frag_decode at {a_f[0].shape[0]} x "
+          f"{int(a_f[8])} bytes (256 KB blocks, win) by phase (cuts of "
+          "frag_decode.cu, -DZL4_STOP=1..2): " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in frag_phases.items())
+          + f"; the kernel alone {frag_raw:.4f} ms, with its wrapper "
+          f"{results['frag_decode']['ms']:.4f} ms; the kernel alone by "
+          f"rounds: {frag_by_rounds}; {per_n} PER bytes of "
+          f"{int(a_f[6].sum())} live, {per_remote} of them with a source "
+          f"in another CTA")
+    results["frag_decode"].update(
+        kernel_ms=frag_raw, phase_ms=frag_phases, launch_shape=frag_shape,
+        kernel_ms_by_rounds=frag_by_rounds, per_bytes=per_n,
+        per_bytes_remote=per_remote,
+        routes_max_abs_err=frag_route_err,
+        max_abs_err=max(results["frag_decode"]["max_abs_err"],
+                        *frag_route_err.values()))
+
     def ladder_stages(what, cdc, fr, bs):
         """The path by stage: the host resolve as the path makes it, the
         staging of what it staged, every ladder launch again."""
@@ -2503,6 +2645,7 @@ def main():
     ladder_stages("level-9 frame, win", engine_codec("win"), frame, BLK)
     ladder_stages("level-9 frame, chase", engine_codec("chase"), frame, BLK)
     ladder_stages("level-0 frame, mixed", engine_codec("mixed"), frame0, BLK)
+    ladder_stages("256 KB blocks, win", engine_codec("win"), frame256, 262144)
     probes.clear()
 
     # --- phase 7c: P2, the bitonic probe: bitonic_sort2 at 1 and 64 rows

@@ -280,6 +280,20 @@ def group_coverage(T, unres, nwins, g):
     return cov.reshape(-1)
 
 
+def bisection(tab, j):
+    """fragment_of for every byte j: the kernel's bisection over ``tab``,
+    step for step, so that it gives the kernel's answer on an unsorted
+    table too (that of torch.searchsorted)."""
+    lo, hi = np.zeros(len(j), np.int64), np.full(len(j), len(tab), np.int64)
+    while (lo < hi).any():
+        go = lo < hi
+        mid = (lo + hi) >> 1
+        right = go & (tab[np.minimum(mid, len(tab) - 1)] <= j)
+        lo = np.where(right, mid + 1, lo)
+        hi = np.where(go & ~right, mid, hi)
+    return lo - 1
+
+
 def one_hop(comp, fdst, fsrc, fper, fphase, nfrag, out_len, blk, rows):
     """(T, per, live) of one block: the fragment of each byte by the
     cluster kernel's scan on a sorted table, by bisection otherwise, then
@@ -290,7 +304,7 @@ def one_hop(comp, fdst, fsrc, fper, fphase, nfrag, out_len, blk, rows):
     if (tab[:-1] <= tab[1:]).all():
         q = tds.fragment_scan(fdst, n, blk, rows)
     else:
-        q = np.searchsorted(tab, j, side="right") - 1
+        q = bisection(tab, j)
     found = q >= 0
     qc = np.clip(q, 0, None)
     rel = j - fdst[qc].astype(np.int64)
@@ -313,6 +327,29 @@ def pool_ranks(unc, parts):
         rank[p0:p1] = before + np.cumsum(unc[p0:p1]) - 1
         before += int(unc[p0:p1].sum())
     return np.where(unc, rank, -1)
+
+
+def partition_rounds(value, known, src, parts, rounds):
+    """(value, known, rounds run) after the cluster kernels' rounds over
+    one block: every partition reads the state of the round's start; a
+    byte with source -1 never resolves; the rounds stop after the first
+    that changes nothing."""
+    r = 0
+    while r < max(rounds, 0):
+        new_known, new_value = known.copy(), value.copy()
+        progress = False
+        for p0, p1 in parts:
+            s = src[p0:p1]
+            got = ~known[p0:p1] & (s >= 0) & known[np.clip(s, 0, None)]
+            new_value[p0:p1] = np.where(got, value[np.clip(s, 0, None)],
+                                        value[p0:p1])
+            new_known[p0:p1] |= got
+            progress |= bool(got.any())
+        known, value = new_known, new_value
+        r += 1
+        if not progress:
+            break
+    return value, known, r
 
 
 def win_model(comp, fdst, fsrc, fper, fphase, nfrag, out_len, rounds, blk,
@@ -342,24 +379,9 @@ def win_model(comp, fdst, fsrc, fper, fphase, nfrag, out_len, rounds, blk,
         rank = pool_ranks(per & ~cov, parts)
         per_reach = per & (cov | ((rank >= 0) & (rank < cfg["pool"])))
         value = np.where(lit_reach, comp[b, np.where(lit_reach, T, 0)], 0)
-        known = ~live | lit_reach
-        src = np.where(per_reach, T, -1)
-        # the rounds: every partition reads the state of the round's start
-        r = 0
-        while r < max(rounds, 0):
-            new_known, new_value = known.copy(), value.copy()
-            progress = False
-            for p0, p1 in parts:
-                s = src[p0:p1]
-                got = ~known[p0:p1] & (s >= 0) & known[np.clip(s, 0, None)]
-                new_value[p0:p1] = np.where(got, value[np.clip(s, 0, None)],
-                                            value[p0:p1])
-                new_known[p0:p1] |= got
-                progress |= bool(got.any())
-            known, value = new_known, new_value
-            r += 1
-            if not progress:
-                break
+        value, known, r = partition_rounds(value, ~live | lit_reach,
+                                           np.where(per_reach, T, -1), parts,
+                                           rounds)
         out[b] = np.where(known & live, value, 0)
         ok[b] = known.all()
         ran.append(r)

@@ -75,7 +75,7 @@ KERNELS = {
                    [_P] * 12 + [_I] * 6,
                    "ops/jax_decode.py:120"),
     "frag_decode": ("zl4_frag_decode", "frag_decode.cu",
-                    [_P] * 11 + [_I] * 5,
+                    [_P] * 11 + [_I] * 6,
                     "ops/jax_decode.py:342"),
     "frag_decode_win": ("zl4_frag_decode_win", "frag_decode.cu",
                         [_P] * 12 + [_I] * 11,

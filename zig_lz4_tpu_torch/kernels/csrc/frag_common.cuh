@@ -4,16 +4,16 @@
 // bisection or, for the cluster kernels on a table in increasing fdst, by
 // a scan of the fragment starts over a CTA's positions; bit masks of one
 // bit per output byte, a block-wide prefix count over such a mask, and the
-// round loop of the byte-granular decoder.
+// round loop of the value decoders' device-scratch kernels.
 //
-// One thread block of kThreads threads rebuilds one LZ4 block, or, for
-// the windowed decoder and the chase of blocks up to 256 KB, one
-// thread-block cluster of up to 8 whose CTAs hold the state in shared
-// memory (frag_decode.cu).  Device scratch that the wrapper allocates
-// holds the state of the byte-granular decoder, and of the windowed
-// decoder and the chase above 256 KB: 256-512 KB a 64 KB block, which the
-// 50 MB L2 holds for one block but not for the 100-odd blocks of a tier
-// batch at once.  State that other threads of the block rewrite between
+// One thread-block cluster of up to 8 CTAs of kThreads threads rebuilds
+// one LZ4 block of up to 256 KB, its state in the CTAs' shared memory
+// (frag_decode.cu), in each of the three decoders.  Device scratch that
+// the wrapper allocates holds the state of the blocks a cluster does not
+// take, one thread block of kThreads threads a block: those over 256 KB,
+// and for the byte-granular and the windowed decoder those whose size is
+// not a multiple of 64: 4-8 bytes a position, which the 50 MB L2 holds
+// for a few blocks but not for a tier batch at once.  State that other threads of the block rewrite between
 // barriers is read there with __ldcg (from the L2), never through a stale
 // L1 line.  A table's columns at or past nfrag are never read: the search
 // for a byte's fragment runs over the first nfrag.
@@ -244,8 +244,8 @@ __device__ __forceinline__ int scanned_fragment(const FragScan& f,
   return max(idx[i], f.span_pre[i >> f.span_log]);
 }
 
-// The rounds of the byte-granular decoder and of the windowed decoder's
-// device-scratch kernel.  src[j] is the output
+// The rounds of the device-scratch kernels of the byte-granular and the
+// windowed decoder.  src[j] is the output
 // coordinate a still unknown byte j copies from, or -1 when it can
 // never resolve; cur holds the known bits at entry.  In each round a
 // byte becomes known when its source was known at the START of the

@@ -29,19 +29,18 @@
 // value decoders, the position array for the chase), and an early exit
 // from the rounds once nothing changes.
 //
-// The byte-granular decoder keeps its state in device scratch.  The
-// windowed decoder and the chase keep theirs, for blocks up to 256 KB, in
-// the shared memory of one thread-block cluster a block: C = ceil(blk /
-// 32768) CTAs of 1024 threads (2 at 64 KB, 8 at 256 KB), 32,768
-// positions a CTA, so that a round's dependent loads go to a CTA's shared
-// memory, local or remote (distributed shared memory), not to device
-// memory.  Both find the one-hop sources with fragment_scan
-// (frag_common.cuh): on a table in increasing fdst a scatter of the
-// fragment starts and a max-scan, bisection otherwise.  Larger blocks
-// (the 1 MB path's chase; the windowed decoder's direct callers past
-// 8 x 32,768 bytes) keep their state in device scratch
-// (frag_decode_chase_kernel, frag_decode_win_kernel); the wrapper picks
-// the route from blk.
+// All three keep their state, for blocks up to 256 KB, in the shared
+// memory of one thread-block cluster a block: C = ceil(blk / 32768) CTAs
+// of 1024 threads (2 at 64 KB, 8 at 256 KB), 32,768 positions a CTA, so
+// that a round's dependent loads go to a CTA's shared memory, local or
+// remote (distributed shared memory), not to device memory.  All find
+// the one-hop sources with fragment_scan (frag_common.cuh): on a table
+// in increasing fdst a scatter of the fragment starts and a max-scan,
+// bisection otherwise.  Larger blocks (the 1 MB path's chase; direct
+// callers past 8 x 32,768 bytes) and, for the two value decoders, blocks
+// whose size is not a multiple of 64 keep their state in device scratch
+// (frag_decode_kernel, frag_decode_win_kernel, frag_decode_chase_kernel);
+// the wrapper picks the route from blk.
 //
 // The windowed cluster kernel holds, a CTA, the source word of each
 // position (int32: the source << 2 | covered | PER), `out`, the masks
@@ -50,7 +49,10 @@
 // the totals of the lower-ranked CTAs, which each CTA publishes in its
 // shared memory before a cluster barrier; in a round a byte reads the
 // known bit and the value of its source in the CTA that holds it, and
-// the masks are double-buffered, so no staging row is needed.
+// the masks are double-buffered, so no staging row is needed.  The
+// byte-granular decoder is the same kernel with every byte covered and
+// no pools (frag_win_cluster_kernel<0>): the source of each PER byte,
+// `out`, cur and nxt, 172,032 bytes a CTA.
 //
 // The chase keeps its position state nx, int32 a byte (128 KB a CTA).
 // Its rounds keep their round-start semantics without a second buffer:
@@ -64,12 +66,13 @@
 // is in the pool when its rank is below qcap; the frontier rounds are the
 // dense rounds restricted to the pool.
 //
-// Built with -DZL4_STOP=k both cluster kernels stop after their k-th
+// Built with -DZL4_STOP=k the cluster kernels stop after their k-th
 // phase -- the chase after 1 the one-hop sources, 2 the dense rounds, 3
 // the frontier (the final gather is the rest); the windowed decoder after
 // 1 the sources and coverage, 2 the pools, 3 the rounds (ok and the
-// row's store are the rest) -- so that chip_smoke.py can time the phases
-// one by one; the library is built without it.
+// row's store are the rest); the byte-granular decoder after 1 the
+// sources and literals, 2 the rounds -- so that chip_smoke.py can time
+// the phases one by one; the library is built without it.
 
 #include <cooperative_groups.h>
 
@@ -92,7 +95,8 @@ namespace cg = cooperative_groups;
 using namespace zl4frag;
 
 // ---------------------------------------------------------------------
-// byte-granular rounds
+// byte-granular rounds in device scratch (blocks the cluster does not
+// take; the cluster route is frag_win_cluster_kernel<0>)
 // ---------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
@@ -617,11 +621,15 @@ cudaError_t chase_cluster_config(int B, int blk, cudaStream_t stream,
 // ---------------------------------------------------------------------
 
 // Dynamic shared memory of a CTA holding R positions (R % 64 == 0): the
-// source words int32[R]; the masks cur, nxt, unc_lit and unc_per and the
-// prefix counts pre_lit and pre_per, one word each per 32; out uint8[R].
-__host__ __device__ constexpr size_t win_smem(int R) {
-  return 5 * (size_t)R + 24 * (size_t)(R / 32);
+// source words int32[R]; `rows` bit rows, one word each per 32 -- the
+// masks cur and nxt, and for the windowed decoder unc_lit, unc_per and
+// the prefix counts pre_lit and pre_per; out uint8[R].
+__host__ __device__ constexpr size_t cluster_smem(int R, int rows) {
+  return 5 * (size_t)R + 4 * (size_t)rows * (size_t)(R / 32);
 }
+
+// Bit rows of frag_win_cluster_kernel<G>'s shared memory.
+__host__ __device__ constexpr int cluster_rows(int G) { return G ? 6 : 2; }
 
 // The windowed decoder with a block's state in the shared memory of one
 // cluster of cluster_ctas(blk) CTAs, kClusterRows positions a CTA.  The
@@ -630,6 +638,12 @@ __host__ __device__ constexpr size_t win_smem(int R) {
 // count plus the totals of the lower-ranked CTAs; the rounds, each byte
 // reading the known bit and the value of its source in the CTA that
 // holds it; then `ok` over the cluster and the row stored.
+//
+// G == 0 is the byte-granular decoder (frag_decode_kernel's function):
+// every byte is covered and there are no pools, so one pass finds the
+// sources, copies the literals and keeps each PER byte's source, and the
+// rounds, `ok` and the store are the windowed decoder's.  Its cuts stop
+// after 1 the sources and literals, 2 the rounds.
 template <int G>
 __global__ void __launch_bounds__(kThreads, 1)
 frag_win_cluster_kernel(const uint8_t* comp, const int32_t* fdst,
@@ -652,85 +666,115 @@ frag_win_cluster_kernel(const uint8_t* comp, const int32_t* fdst,
   int32_t* src = cs;
   uint32_t* cur = reinterpret_cast<uint32_t*>(src + R);
   uint32_t* nxt = cur + nw;
-  uint32_t* unc_lit = nxt + nw;
-  uint32_t* unc_per = unc_lit + nw;
-  int32_t* pre_lit = reinterpret_cast<int32_t*>(unc_per + nw);
-  int32_t* pre_per = pre_lit + nw;
-  uint8_t* out = reinterpret_cast<uint8_t*>(pre_per + nw);
-  __shared__ int flags[2], totals[2];
+  uint8_t* out = reinterpret_cast<uint8_t*>(cur + cluster_rows(G) * nw);
+  __shared__ int flags[2];
   int slot = 0;
   const int tid = threadIdx.x, lane = tid & 31;
-
-  // pass 1: sources and window coverage; src[i] = the source << 2 | 2 if
-  // covered | 1 if PER
   const FragScan fs = fragment_scan(v, j0, nloc, src);
-  for (int i = tid; i < nloc; i += kThreads) {  // whole warps
-    const int j = j0 + i, w = i >> 5;
-    const bool live = j < v.out_len;
-    bool per = false;
-    int t = 0;
-    if (live) {
-      const int q = fs.unsorted ? fragment_of(v, j)
-                                : scanned_fragment(fs, src, i);
-      t = source_in(v, j, q, &per);
-    }
-    const bool lit = live && !per;
-    const bool cov_lit = lit_wins ? covered<G>(t, lit, lit_wins) : true;
-    const bool cov_per = covered<G>(t, live && per, wins);
-    const bool cov = per ? cov_per : cov_lit;
-    src[i] = (t << 2) | (cov ? 2 : 0) | (per ? 1 : 0);
-    const uint32_t ul = __ballot_sync(kFull, lit && !cov_lit);
-    const uint32_t up = __ballot_sync(kFull, live && per && !cov_per);
-    if (lane == 0) { unc_lit[w] = ul; unc_per[w] = up; }
-  }
-  __syncthreads();
-  ZL4_CLUSTER_STOP(1, if (tid == 0) ok[b] = src[0])
 
-  // pass 2: the pools take the first uncovered bytes of the block in
-  // position order; literal bytes that are reached are copied, the
-  // others never resolve
-  const int n_lit = lit_wins ? prefix_popc<true>(unc_lit, pre_lit, nwl) : 0;
-  const int n_per = prefix_popc<true>(unc_per, pre_per, nwl);
-  if (tid == 0) { totals[0] = n_lit; totals[1] = n_per; }
-  cluster.sync();  // every CTA's totals published
-  int before_lit = 0, before_per = 0;
-  for (int c = 0; c < r; ++c) {
-    const int* t = cluster.map_shared_rank(totals, c);
-    before_lit += t[0];
-    before_per += t[1];
-  }
-  const uint32_t below = (1u << lane) - 1u;
-  for (int i = tid; i < nloc; i += kThreads) {
-    const int w = i >> 5;
-    bool known = true;
-    uint8_t val = 0;
-    if (j0 + i < v.out_len) {
-      const int s = src[i], t = s >> 2;
-      const bool per = s & 1;
-      bool reach = s & 2;
-      if (!reach && (per || lit_wins)) {
-        const uint32_t uw = (per ? unc_per : unc_lit)[w];
-        const int rank = (per ? before_per + pre_per[w]
-                              : before_lit + pre_lit[w]) +
-                         __popc(uw & below);
-        reach = rank < (per ? pool : lit_pool);
+  if constexpr (G == 0) {
+    // one pass: a LIT byte copied, a PER byte's source kept; dead bytes
+    // (j >= out_len) count as known
+    for (int i = tid; i < nloc; i += kThreads) {  // whole warps
+      const int j = j0 + i;
+      bool known = true;
+      uint8_t val = 0;
+      if (j < v.out_len) {
+        const int q = fs.unsorted ? fragment_of(v, j)
+                                  : scanned_fragment(fs, src, i);
+        bool per = false;
+        const int t = source_in(v, j, q, &per);
+        if (per) {
+          src[i] = t;
+          known = false;
+        } else {
+          val = __ldg(v.comp + t);
+        }
       }
-      if (per) {
-        src[i] = reach ? t : -1;
-        known = false;
-      } else if (reach) {
-        val = __ldg(v.comp + t);
-      } else {
-        src[i] = -1;
-        known = false;
-      }
+      out[i] = val;
+      const uint32_t kw = __ballot_sync(kFull, known);
+      if (lane == 0) cur[i >> 5] = kw;
     }
-    out[i] = val;
-    const uint32_t kw = __ballot_sync(kFull, known);
-    if (lane == 0) cur[w] = kw;
+    cluster.sync();  // the state in place before any CTA reads it
+    ZL4_CLUSTER_STOP(1, if (tid == 0) ok[b] = out[0] + cur[0])
+  } else {
+    uint32_t* unc_lit = nxt + nw;
+    uint32_t* unc_per = unc_lit + nw;
+    int32_t* pre_lit = reinterpret_cast<int32_t*>(unc_per + nw);
+    int32_t* pre_per = pre_lit + nw;
+    __shared__ int totals[2];
+
+    // pass 1: sources and window coverage; src[i] = the source << 2 | 2
+    // if covered | 1 if PER
+    for (int i = tid; i < nloc; i += kThreads) {  // whole warps
+      const int j = j0 + i, w = i >> 5;
+      const bool live = j < v.out_len;
+      bool per = false;
+      int t = 0;
+      if (live) {
+        const int q = fs.unsorted ? fragment_of(v, j)
+                                  : scanned_fragment(fs, src, i);
+        t = source_in(v, j, q, &per);
+      }
+      const bool lit = live && !per;
+      const bool cov_lit = lit_wins ? covered<G>(t, lit, lit_wins) : true;
+      const bool cov_per = covered<G>(t, live && per, wins);
+      const bool cov = per ? cov_per : cov_lit;
+      src[i] = (t << 2) | (cov ? 2 : 0) | (per ? 1 : 0);
+      const uint32_t ul = __ballot_sync(kFull, lit && !cov_lit);
+      const uint32_t up = __ballot_sync(kFull, live && per && !cov_per);
+      if (lane == 0) { unc_lit[w] = ul; unc_per[w] = up; }
+    }
+    __syncthreads();
+    ZL4_CLUSTER_STOP(1, if (tid == 0) ok[b] = src[0])
+
+    // pass 2: the pools take the first uncovered bytes of the block in
+    // position order; literal bytes that are reached are copied, the
+    // others never resolve
+    const int n_lit = lit_wins ? prefix_popc<true>(unc_lit, pre_lit, nwl)
+                               : 0;
+    const int n_per = prefix_popc<true>(unc_per, pre_per, nwl);
+    if (tid == 0) { totals[0] = n_lit; totals[1] = n_per; }
+    cluster.sync();  // every CTA's totals published
+    int before_lit = 0, before_per = 0;
+    for (int c = 0; c < r; ++c) {
+      const int* t = cluster.map_shared_rank(totals, c);
+      before_lit += t[0];
+      before_per += t[1];
+    }
+    const uint32_t below = (1u << lane) - 1u;
+    for (int i = tid; i < nloc; i += kThreads) {
+      const int w = i >> 5;
+      bool known = true;
+      uint8_t val = 0;
+      if (j0 + i < v.out_len) {
+        const int s = src[i], t = s >> 2;
+        const bool per = s & 1;
+        bool reach = s & 2;
+        if (!reach && (per || lit_wins)) {
+          const uint32_t uw = (per ? unc_per : unc_lit)[w];
+          const int rank = (per ? before_per + pre_per[w]
+                                : before_lit + pre_lit[w]) +
+                           __popc(uw & below);
+          reach = rank < (per ? pool : lit_pool);
+        }
+        if (per) {
+          src[i] = reach ? t : -1;
+          known = false;
+        } else if (reach) {
+          val = __ldg(v.comp + t);
+        } else {
+          src[i] = -1;
+          known = false;
+        }
+      }
+      out[i] = val;
+      const uint32_t kw = __ballot_sync(kFull, known);
+      if (lane == 0) cur[w] = kw;
+    }
+    cluster.sync();  // the state in place before any CTA reads it
+    ZL4_CLUSTER_STOP(2, if (tid == 0) ok[b] = out[0])
   }
-  cluster.sync();  // the state in place before any CTA reads it
-  ZL4_CLUSTER_STOP(2, if (tid == 0) ok[b] = out[0])
 
   // the rounds: a byte becomes known when its source was known at the
   // start of the round; a byte written in a round is unknown in `cur`,
@@ -762,7 +806,7 @@ frag_win_cluster_kernel(const uint8_t* comp, const int32_t* fdst,
     uint32_t* t = cur; cur = nxt; nxt = t;
     if (!any) break;
   }
-  ZL4_CLUSTER_STOP(3, if (tid == 0) ok[b] = cur[0])
+  ZL4_CLUSTER_STOP(G ? 3 : 2, if (tid == 0) ok[b] = cur[0])
 
   // ok: every bit of the cluster's mask set (dead bytes count as known);
   // the row is zero where a byte is unknown or past out_len already
@@ -785,10 +829,11 @@ cudaError_t win_cluster_config(int B, int blk, cudaStream_t stream,
                                cudaLaunchConfig_t* cfg,
                                cudaLaunchAttribute* attr) {
   static unsigned raised = 0;
-  return cluster_config(frag_win_cluster_kernel<G>, raised,
-                        win_smem(kClusterRows),
-                        win_smem(blk < kClusterRows ? blk : kClusterRows), B,
-                        blk, stream, cfg, attr);
+  constexpr int rows = cluster_rows(G);
+  return cluster_config(
+      frag_win_cluster_kernel<G>, raised, cluster_smem(kClusterRows, rows),
+      cluster_smem(blk < kClusterRows ? blk : kClusterRows, rows), B, blk,
+      stream, cfg, attr);
 }
 
 template <int G>
@@ -812,14 +857,29 @@ cudaError_t win_cluster_launch(const uint8_t* comp, const int32_t* fdst,
   return cudaGetLastError();
 }
 
+// The byte-granular decoder's cluster route: CTAs a cluster, 0 for the
+// device-scratch kernel.
+__host__ __device__ constexpr int frag_cluster_ctas(int blk) {
+  return blk % 64 ? 0 : cluster_ctas(blk);
+}
+
 }  // namespace
 
 extern "C" int zl4_frag_decode(
     const uint8_t* comp, const int32_t* fdst, const int32_t* fsrc,
     const int32_t* fper, const int32_t* fphase, const int32_t* nfrag,
     const int32_t* out_len, int32_t* src, uint32_t* known, uint8_t* out,
-    int32_t* ok, int B, int fetch, int ncol, int blk, int rounds,
+    int32_t* ok, int B, int fetch, int ncol, int blk, int rounds, int C,
     cudaStream_t stream) {
+  // C: the cluster's CTAs (frag_cluster_ctas(blk)), the state in their
+  // shared memory; 0: the state in src int32[B, blk] and known uint32[B,
+  // 2, nwords], which the cluster route never reads.
+  if (B <= 0 || blk <= 0 || fetch <= 0 || C != frag_cluster_ctas(blk))
+    return (int)cudaErrorInvalidValue;
+  if (C)
+    return (int)win_cluster_launch<0>(comp, fdst, fsrc, fper, fphase, nfrag,
+                                      out_len, out, ok, B, fetch, ncol, blk,
+                                      rounds, 0, 0, 0, 0, stream);
   frag_decode_kernel<<<B, kThreads, 0, stream>>>(
       comp, fdst, fsrc, fper, fphase, nfrag, out_len, src, known, out, ok,
       fetch, ncol, blk, rounds);
@@ -923,4 +983,22 @@ extern "C" int zl4_frag_decode_win_shape(int blk, int g, int* out) {
                             &out[2], frag_win_cluster_kernel<8>, &cfg)
                       : cudaOccupancyMaxActiveClusters(
                             &out[2], frag_win_cluster_kernel<16>, &cfg));
+}
+
+// The byte-granular decoder's cluster route for blk-byte blocks on the
+// current device, as zl4_frag_decode_chase_shape gives the chase's:
+// out[0] CTAs a cluster (0: the device-scratch kernel), out[1]
+// shared-memory bytes a CTA, out[2] the clusters the card holds at once.
+extern "C" int zl4_frag_decode_shape(int blk, int* out) {
+  if (blk <= 0) return (int)cudaErrorInvalidValue;
+  out[0] = frag_cluster_ctas(blk);
+  out[1] = out[2] = 0;
+  if (!out[0]) return (int)cudaSuccess;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = win_cluster_config<0>(1, blk, nullptr, &cfg, &attr);
+  if (err != cudaSuccess) return (int)err;
+  out[1] = (int)cfg.dynamicSmemBytes;
+  return (int)cudaOccupancyMaxActiveClusters(
+      &out[2], frag_win_cluster_kernel<0>, &cfg);
 }

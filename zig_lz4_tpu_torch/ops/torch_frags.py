@@ -416,8 +416,10 @@ def decode_blocks_frags(comp, fdst, fsrc, fper, fphase, nfrag, out_len,
     int32[B].  Returns (out uint8[B, blk], zero where a byte did not
     resolve and from out_len on; ok int32[B], 1 when every live byte
     resolved -- the reference returns no flag and trusts the tier).  The
-    ``frag_decode`` kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    ``frag_decode`` kernel for CUDA tensors -- its state in a
+    thread-block cluster's shared memory for blocks up to 256 KB whose
+    size is a multiple of 64 (``frag_cluster_size``), in device scratch
+    for the others -- the plain version for CPU tensors."""
     if comp.device.type == "cpu":
         return decode_blocks_frags_plain(comp, fdst, fsrc, fper, fphase,
                                          nfrag, out_len, rounds, blk)
@@ -425,10 +427,14 @@ def decode_blocks_frags(comp, fdst, fsrc, fper, fphase, nfrag, out_len,
         (comp, fdst, fsrc, fper, fphase, nfrag, out_len), blk)
     B, dev = out.shape[0], out.device
     if B:
-        src = torch.empty((B, blk), dtype=torch.int32, device=dev)
-        launch("frag_decode", *tables, src, _scratch_words(B, 2, blk, dev),
-               out, ok, B, comp.shape[1], fdst.shape[1], blk,
-               max(int(rounds), 0))
+        C = frag_cluster_size(blk)
+        if C:       # the state in the cluster's shared memory: no scratch
+            src = known = 0
+        else:
+            src = torch.empty((B, blk), dtype=torch.int32, device=dev)
+            known = _scratch_words(B, 2, blk, dev)
+        launch("frag_decode", *tables, src, known, out, ok, B,
+               comp.shape[1], fdst.shape[1], blk, max(int(rounds), 0), C)
     return out, ok
 
 
@@ -437,9 +443,9 @@ def decode_blocks_frags(comp, fdst, fsrc, fper, fphase, nfrag, out_len,
 # ---------------------------------------------------------------------
 
 #: positions of a block's state that one CTA holds in shared memory, and
-#: the largest cluster (the portable size): the windowed decoder and the
-#: chase keep the state of blocks up to 256 KB in one cluster's shared
-#: memory (``frag_decode.cu``)
+#: the largest cluster (the portable size): the three decoders keep the
+#: state of blocks up to 256 KB in one cluster's shared memory
+#: (``frag_decode.cu``)
 _CLUSTER_ROWS = 1 << 15
 _MAX_CLUSTER = 8
 
@@ -461,6 +467,22 @@ def _cluster_shape(entry: str, blk: int, *extra) -> dict:
         raise RuntimeError(f"{entry}({blk}): CUDA error {err}")
     return {"ctas": out[0], "threads": 1024, "smem_bytes": out[1],
             "active_clusters": out[2]}
+
+
+def frag_cluster_size(blk: int) -> int:
+    """CTAs of the thread-block cluster whose shared memory holds the
+    byte-granular decoder's state of a ``blk``-byte block, ``ceil(blk /
+    32768)``; 0 when that takes more than 8 CTAs or ``blk % 64`` is not
+    0, and the state lies in device scratch."""
+    return 0 if blk % 64 else _cluster_ctas(blk)
+
+
+def frag_launch_shape(blk: int) -> dict:
+    """The byte-granular kernel's launch for ``blk``-byte blocks on the
+    current CUDA device: CTAs a cluster (0: the device-scratch route),
+    threads and shared-memory bytes a CTA, and the clusters the card
+    holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    return _cluster_shape("zl4_frag_decode_shape", blk)
 
 
 # ---------------------------------------------------------------------
