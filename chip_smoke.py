@@ -149,12 +149,15 @@ reports them, then ``{"ok": true, "device": {...}}``; before them one
 JSON line lists every kernel with its launches, error, times and bound.
 """
 
+import gc
 import hashlib
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 BLK = 65536
@@ -186,6 +189,14 @@ ENCODER_FLAG = "--time-encoder-kernels"
 #: (time_decode_kernels)
 DECODE_FLAG = "--time-decode-kernels"
 DEEP_KERNELS = ("enc_deep_match", "enc_deep_dp", "enc_deep_emit")
+#: the CLI's compress runs over the corpus with --engine cuda: flag ->
+#: the kernels the run must launch
+CLI_ENCODES = {"-1": ("enc_match_fast", "enc_parse_emit"),
+               "-9": ("enc_match", "enc_parse_emit"),
+               "-12": DEEP_KERNELS,
+               "-B5": ("enc_match_wide", "enc_parse_emit")}
+#: argument of the two-process run's children: coordinator, rank, corpus
+MULTIHOST_FLAG = "--multihost-rank"
 SEQ_PLAIN_BLOCKS = 32
 #: make_corpus(2) blocks (one per content type) with their JAX payloads
 #: at level 9, and at levels 0 and 4
@@ -852,6 +863,38 @@ def decode_without_native():
     torch.cuda.synchronize()
     print(json.dumps({"sha256": hashlib.sha256(content).hexdigest(),
                       "bytes": len(content), "launches": dict(LAUNCHES)}))
+    return 0
+
+
+def multihost_rank(coord, rank, path):
+    """A rank of the two-process run: joins the gloo group at ``coord``,
+    compresses the corpus in ``path`` with ``MultiHostFrameCodec`` on
+    its local card and decodes the frame back; prints the frame's
+    SHA-256, its times and its launch counts as one JSON line."""
+    t0 = time.perf_counter()
+    import torch
+    import torch.distributed as dist
+
+    from zig_lz4_tpu_torch.kernels import LAUNCHES
+    from zig_lz4_tpu_torch.parallel import multihost
+    check(torch.cuda.is_available(), "the rank sees no card")
+    multihost.initialize(coord, 2, int(rank))
+    with open(path, "rb") as f:
+        data = f.read()
+    codec = multihost.MultiHostFrameCodec()
+    t_start = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    frame = codec.compress_corpus(data, content_hash=True)
+    t_c = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    back = codec.decompress_corpus(frame)
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t1
+    dist.destroy_process_group()
+    print(json.dumps({"rank": int(rank), "roundtrip": back == data,
+                      "sha256": hashlib.sha256(frame).hexdigest(),
+                      "start_s": t_start, "compress_s": t_c,
+                      "decompress_s": t_d, "launches": dict(LAUNCHES)}))
     return 0
 
 
@@ -2250,6 +2293,8 @@ def main():
 
         def __init__(self):
             self.calls, self.tier, self.at = [], [], 0
+            #: (fcap, rounds) of the tier of each call
+            self.call_tiers, self.cur = [], None
 
         def __enter__(self):
             self.real = {k: getattr(sh, v) for k, v in self.names.items()}
@@ -2260,6 +2305,7 @@ def main():
 
             def run_tier(codec_, payloads, bs, grp, rows, *a):
                 probe.tier, probe.at = [grp[j] for j in rows], 0
+                probe.cur = tuple(a[1:3])
                 return probe.run_tier(codec_, payloads, bs, grp, rows, *a)
             sh.ShardedFrameCodec._run_tier = run_tier
             return self
@@ -2269,6 +2315,7 @@ def main():
                 nblk = a[0].shape[0]        # the tier's next blocks
                 self.calls.append((kern, a, k,
                                    self.tier[self.at:self.at + nblk]))
+                self.call_tiers.append(self.cur)
                 self.at += nblk
                 return self.real[kern](*a, **k)
             return call
@@ -2723,6 +2770,285 @@ def main():
                  if B_s == max(SORT_BATCHES) else ""))
     del sort_in, sorted_s
 
+    # --- phase 7d: the user surfaces over the corpus: the CLI, a mesh of
+    # two shards on the card, two gloo processes, the single-block
+    # factories and the entry points with their dryrun
+    from zig_lz4_tpu_torch import cli
+    from zig_lz4_tpu_torch import entry as pe
+    from zig_lz4_tpu_torch.parallel import blocks_mesh
+    from zig_lz4_tpu_torch.parallel.multihost import MultiHostFrameCodec
+    t_surf = time.perf_counter()
+    #: kernel -> max_abs_err against plain at this phase's new geometries,
+    #: folded into the kernels' line
+    extra_err = {}
+    #: path -> its deep and wide encoder launches ((windows, lens,
+    #: starts), keywords), timed alone in phase 9 with the others
+    surface_rec = {}
+    ladder_kernels = ("frag_decode", "frag_decode_win", "frag_decode_chase")
+    surface = {}
+    with tempfile.TemporaryDirectory(prefix="zl4_smoke_") as tmpd:
+        src = os.path.join(tmpd, "corpus.bin")
+        with open(src, "wb") as f:
+            f.write(data)
+
+        def run_cli(path, args, expect):
+            """``cli.main(args)`` as a counted path: (seconds, rc)."""
+            t_ = time.perf_counter()
+            rc = counted(path, lambda: cli.main(args), expect)
+            return time.perf_counter() - t_, rc
+
+        cli_frames = {}
+        for flag, expect in CLI_ENCODES.items():
+            dst = os.path.join(tmpd, f"corpus{flag}.lz4")
+            with EncodeRecorder(sh) as rec_c:
+                t_c, rc = run_cli(f"cli {flag} --engine cuda",
+                                  [flag, "-f", "-q", "--engine", "cuda", src,
+                                   dst], expect)
+            surface_rec[f"cli {flag}"] = [
+                c for c in rec_c.calls
+                if c[1].get("deep") or c[0][0].shape[1] > BLK]
+            with open(dst, "rb") as f:
+                fr_c = f.read()
+            check(rc == 0 and lz4f.decompress_frame(fr_c) == data,
+                  f"cli {flag}: rc {rc}, or the host frame layer's decode "
+                  "of its frame differs from the input")
+            cli_frames[flag] = dst
+            surface[f"cli {flag} compress MB/s"] = n / t_c / 1e6
+            print(f"[cli] {smi}: {flag} --engine cuda: {n} -> {len(fr_c)} "
+                  f"bytes in {t_c:.3f} s = {n / t_c / 1e6:.1f} MB/s (file "
+                  "read and write, checksum and frame inside); host frame "
+                  "layer decode ok")
+            same = {"-1": frame0, "-9": frame, "-12": deep_frames[12]}
+            check(flag not in same or fr_c == same[flag],
+                  f"cli {flag}: the frame differs from ShardedFrameCodec's")
+        for flag, dst in cli_frames.items():
+            for eng in ("mixed", "win", "chase"):
+                back_c = os.path.join(tmpd, "back.bin")
+                what = f"cli -d of the {flag} frame, {eng}"
+                t_d, rc = run_cli(what, ["-d", "-f", "-q", "--engine", "cuda",
+                                         "--decode-engine", eng, dst,
+                                         back_c], ())
+                with open(back_c, "rb") as f:
+                    check(rc == 0 and f.read() == data,
+                          f"{what}: rc {rc} or the output differs")
+                check(any(paths[what][k] for k in ladder_kernels),
+                      f"{what}: no ladder kernel launched: {paths[what]}")
+                surface[f"{what} MB/s"] = n / t_d / 1e6
+                print(f"[cli] {smi}: {what}: {t_d:.3f} s = "
+                      f"{n / t_d / 1e6:.1f} MB/s of output")
+        linked_c = os.path.join(tmpd, "linked.lz4")
+        back_c = os.path.join(tmpd, "back.bin")
+        t_h, rc = run_cli("cli -BD host", ["-BD", "-f", "-q", src, linked_c],
+                          ())
+        check(rc == 0, "cli -BD with the host engine")
+        t_l, rc = run_cli("cli -d of a host -BD frame", [
+            "-d", "-f", "-q", "--engine", "cuda", linked_c, back_c],
+            ("linked_tmap_step",))
+        with open(back_c, "rb") as f:
+            check(rc == 0 and f.read() == data,
+                  "cli -d of the host -BD frame differs from the input")
+        print(f"[cli] {smi}: -BD frame by the host engine {t_h:.3f} s; "
+              f"decoded with --engine cuda in {t_l:.3f} s = "
+              f"{n / t_l / 1e6:.1f} MB/s")
+        t_p = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-m", "zig_lz4_tpu_torch.cli", "-c", "-q",
+             "--engine", "cuda", "-1", src], capture_output=True,
+            timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+        t_p = time.perf_counter() - t_p
+        with open(cli_frames["-1"], "rb") as f:
+            check(child.returncode == 0 and child.stdout == f.read(),
+                  "python -m zig_lz4_tpu_torch.cli -c: "
+                  f"{child.stderr.decode()[-2000:]}")
+        print(f"[cli] python -m zig_lz4_tpu_torch.cli -c -q --engine cuda -1: "
+              f"the in-process frame on stdout in {t_p:.1f} s (process start "
+              "included)")
+
+        # the mesh: two shards a batch on the one card
+        mesh2 = blocks_mesh(devices=["cuda:0"] * 2)
+        cm = ShardedFrameCodec(mesh=mesh2, compression_level=9)
+        fr_m = counted("mesh x2, level 9 compress",
+                       lambda: cm.compress_frame(data),
+                       ("enc_match", "enc_parse_emit"))
+        check(fr_m == frame, "the mesh's frame differs from one device's")
+        deep_tier = (BLK, 12)
+        for eng, plain_of in (
+                ("mixed", {"frag_decode_chase":
+                           tfr.decode_blocks_frags_chase_plain}),
+                ("win", {"frag_decode_win":
+                         tfr.decode_blocks_frags_win_plain})):
+            cme = ShardedFrameCodec(mesh=mesh2, compression_level=9,
+                                    decode_engine=eng)
+            what = f"mesh x2, level-9 frame, {eng}"
+            with Probe() as probe:
+                back_m = counted(what, lambda: cme.decompress_frame(frame),
+                                 tuple(plain_of))
+            check(back_m == data, f"{what}: the content differs")
+            deep = {k: v for k, v in cme.routes.items() if "rounds=12" in k}
+            check(sum(deep.values()) > 0,
+                  f"{what}: the deep tier took no block: {cme.routes}")
+            calls = [c for c, t in zip(probe.calls, probe.call_tiers)
+                     if t == deep_tier]
+            err_d, n_d = 0, 0
+            for kern, a, kw, _blk in calls:
+                out_k, ok_k = getattr(tfr, probe.names[kern])(*a, **kw)
+                out_p, ok_p = plain_of[kern](*a, **kw)
+                err_d = max(err_d, max_abs_err(out_k, out_p),
+                            max_abs_err(ok_k, ok_p))
+                n_d += a[0].shape[0]
+                extra_err[kern] = max(extra_err.get(kern, 0), err_d)
+            check(calls and err_d == 0, f"{what}: the deep tier's "
+                  f"launches differ from plain (max_abs_err {err_d})")
+            t_m = timed(lambda: cme.decompress_frame(frame), 3)
+            surface[f"{what} ms"] = t_m
+            print(f"[mesh] {smi}: {what}: content == input; blocks by route "
+                  f"{cme.routes}; handed to each tier {cme.tier_members}; "
+                  f"deep tier (fcap {BLK}, 12 rounds): {len(calls)} launches "
+                  f"over {n_d} blocks vs plain max_abs_err {err_d}; "
+                  f"decompress_frame, median of 3: {fmt(t_m)}")
+
+        # two gloo processes on localhost, both on cuda:0
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            coord = f"127.0.0.1:{sk.getsockname()[1]}"
+        t_mh = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), MULTIHOST_FLAG, coord,
+             str(r), src], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in (0, 1)]
+        told = []
+        try:
+            for r, p_ in enumerate(procs):
+                out_, err_ = p_.communicate(timeout=600)
+                check(p_.returncode == 0,
+                      f"multi-host rank {r} failed:\n{err_[-3000:]}")
+                told.append(json.loads(out_.strip().splitlines()[-1]))
+        finally:
+            for p_ in procs:
+                if p_.poll() is None:
+                    p_.kill()
+                    p_.wait()
+        t_mh = time.perf_counter() - t_mh
+    mh1 = MultiHostFrameCodec()
+    fr_1 = counted("multi-host, one process",
+                   lambda: mh1.compress_corpus(data, content_hash=True),
+                   ("enc_match_fast", "enc_parse_emit"))
+    sha_1 = hashlib.sha256(fr_1).hexdigest()
+    check(all(t_["sha256"] == sha_1 and t_["roundtrip"] for t_ in told),
+          f"the ranks' frames differ from the one-process frame: {told}")
+    check(mh1.decompress_corpus(fr_1) == data
+          and lz4f.decompress_frame(fr_1) == data,
+          "the one-process multi-host frame does not round-trip")
+    for t_ in told:
+        check(all(t_["launches"][k] > 0 for k in (
+            "enc_match_fast", "enc_parse_emit", "frag_decode_win")),
+            f"rank {t_['rank']} launched {t_['launches']}")
+    surface["multi-host two processes s"] = t_mh
+    print(f"[multihost] {smi}: two gloo processes on cuda:0, {n} bytes: "
+          f"both ranks wrote the one-process frame ({len(fr_1)} bytes) and "
+          f"decoded it; wall {t_mh:.1f} s (process start included); by rank "
+          + "; ".join(f"{t_['rank']}: start {t_['start_s']:.1f} s, compress "
+                      f"{t_['compress_s']:.3f} s, decompress "
+                      f"{t_['decompress_s']:.3f} s" for t_ in told))
+
+    # the single-block factories at 64 KB, against the frames' payloads
+    both = sorted(set.intersection(*(set(frame_payloads(f_, lz4f)[0])
+                                     for f_ in (frame, frame0,
+                                                deep_frames[12]))))
+    k_f = both[len(both) // 2]
+    w_f = np.frombuffer(data[k_f * BLK:(k_f + 1) * BLK], np.uint8).copy()
+    for level, fr_f, expect in ((0, frame0, ("enc_match_fast",)),
+                                (9, frame, ("enc_match",)),
+                                (12, deep_frames[12], DEEP_KERNELS)):
+        enc = tb.make_block_encoder(BLK, *tb.level_params(level))
+        dec = td.make_block_decoder(BLK)
+
+        def factory_path():
+            out_f, n_f = enc(w_f, BLK)
+            comp_f = out_f[:int(n_f)].cpu().numpy().tobytes()
+            seqs = td.parse_sequences(comp_f)
+            got, m_f = dec(comp_f, *td.seqs_to_arrays(seqs,
+                                                     td.MAX_SEQS(BLK)))
+            return comp_f, got[:int(m_f)].cpu().numpy().tobytes()
+        with EncodeRecorder(tb) as rec_f:
+            comp_f, back_f = counted(f"factories, level {level}",
+                                     factory_path, expect + ("seq_decode",))
+        surface_rec[f"factories, level {level}"] = [
+            c for c in rec_f.calls if c[1].get("deep")]
+        want_f = dict(zip(*frame_payloads(fr_f, lz4f)))[k_f]
+        check(comp_f == want_f and back_f == w_f.tobytes(),
+              f"the level-{level} factories differ from the frame codec")
+    print(f"[factories] make_block_encoder at levels 0, 9, 12 and "
+          f"make_block_decoder on corpus block {k_f} (64 KB): the frame "
+          "codec's payloads, decoded to the block")
+
+    # the entry step, then its dryrun over two shards on the card; the
+    # dryrun's launches recorded and held against their plain versions
+    fn_e, args_e = pe.entry()
+    out_e, olen_e = counted("entry()", lambda: fn_e(*args_e),
+                            ("enc_match_fast", "enc_parse_emit"))
+    out_ep, olen_ep = tb.encode_blocks_plain(*args_e, hc=0)
+    check(max_abs_err(out_e, out_ep) == 0
+          and torch.equal(olen_e.cpu(), olen_ep.cpu()),
+          "entry() differs from the plain encoder")
+    rec = {"enc": [], "dec": []}
+    real_enc, real_dec = pe.encode_blocks, pe.decode_blocks_frags
+
+    def rec_enc(*a, **k):
+        rec["enc"].append((a, k))
+        return real_enc(*a, **k)
+
+    def rec_dec(*a):
+        rec["dec"].append(a)
+        return real_dec(*a)
+    pe.encode_blocks, pe.decode_blocks_frags = rec_enc, rec_dec
+    try:
+        counted("dryrun_multichip(2)",
+                lambda: pe.dryrun_multichip(2, devices=["cuda:0"] * 2),
+                DEEP_KERNELS + ("enc_match_fast", "enc_parse_emit",
+                                "frag_decode"))
+    finally:
+        pe.encode_blocks, pe.decode_blocks_frags = real_enc, real_dec
+    err_e = {"enc_deep_match": 0, "enc_deep_dp": 0, "enc_deep_emit": 0,
+             "frag_decode": 0}
+    surface_rec["dryrun_multichip(2)"] = [c for c in rec["enc"]
+                                          if c[1].get("deep")]
+    for (w_e, l_e, s_e), kw in surface_rec["dryrun_multichip(2)"]:
+        hc_e, deep_e = kw["hc"], kw["deep"]
+        pk = tb.match_candidates(w_e, l_e, hc_e, 1, deep_e)
+        err_e["enc_deep_match"] = max(err_e["enc_deep_match"], max_abs_err(
+            pk, tb.match_candidates_plain(w_e, l_e, hc_e, 1, deep_e)))
+        st = tb.deep_dp(l_e, s_e, pk, deep_e)
+        err_e["enc_deep_dp"] = max(err_e["enc_deep_dp"], max_abs_err(
+            st, tb.deep_dp_plain(l_e, s_e, pk, deep_e)))
+        o_k, n_k = tb.deep_emit(w_e, l_e, s_e, pk, st)
+        o_p, n_p = tb.deep_emit_plain(w_e, l_e, s_e, pk, st)
+        err_e["enc_deep_emit"] = max(err_e["enc_deep_emit"],
+                                     max_abs_err(o_k, o_p),
+                                     max_abs_err(n_k, n_p))
+    shapes_e = []
+    for a in rec["dec"]:
+        o_k, ok_k = tfr.decode_blocks_frags(*a)
+        o_p, ok_p = tfr.decode_blocks_frags_plain(*a)
+        err_e["frag_decode"] = max(err_e["frag_decode"], max_abs_err(o_k, o_p),
+                                   max_abs_err(ok_k, ok_p))
+        shapes_e.append((a[0].shape[0], a[8], a[7], a[1].shape[1]))
+    check(not any(err_e.values()) and len(rec["dec"]) == 4,
+          f"the dryrun's kernels differ from plain: {err_e}")
+    for k, v in err_e.items():
+        extra_err[k] = max(extra_err.get(k, 0), v)
+    print(f"[entry] entry(): out {tuple(out_e.shape)}, out_len "
+          f"{olen_e.tolist()} == plain; dryrun_multichip(2) on cuda:0 x 2 "
+          f"ok; its deep encodes (1,280-byte windows behind 256 bytes, hc 8, "
+          f"deep 1) and fragment decodes (blocks, blk, rounds, columns "
+          f"{shapes_e}) vs plain max_abs_err {err_e}")
+    surface["entry and dryrun errors"] = err_e
+    print(f"[surfaces] {json.dumps(surface)} "
+          f"({time.perf_counter() - t_surf:.1f} s for the phase)")
+    # what the phase staged goes before the kernels are timed alone
+    del probe, calls, rec, out_e, out_ep, a, o_k, o_p, ok_k, ok_p
+    gc.collect()
+
     # --- phase 8: launch counts over the paths
     print(f"[launches] all paths: {counts}")
     check(all(counts[k] > 0 for k in KERNELS),
@@ -2999,6 +3325,27 @@ def main():
                 deep_launch_ms["enc_deep_emit"].append(dict(shape, ms=t_e))
                 del _st, _o
     del _pk
+    # phase 7d's launches: the deep kernels at 64 KB and at the dryrun's
+    # 1,280-byte windows, and enc_match_wide on the CLI's 256 KB blocks
+    for what, calls in surface_rec.items():
+        for (w_r, l_r, s_r), kw in calls:
+            hc_r, deep_r, ac_r = kw["hc"], kw.get("deep", 0), kw.get("accel",
+                                                                    1)
+            tb.match_candidates(w_r, l_r, hc_r, ac_r, deep_r)
+            t_r, _pk = cuda_ms(
+                lambda: tb.match_candidates(w_r, l_r, hc_r, ac_r, deep_r), 2)
+            shape = dict(path=what, windows=w_r.shape[0],
+                         window_bytes=w_r.shape[1])
+            if not deep_r:
+                wide_launch_ms["enc_match_wide"].append(dict(shape, ms=t_r))
+                continue
+            t_d, _st = cuda_ms(lambda: tb.deep_dp(l_r, s_r, _pk, deep_r), 2)
+            t_e, _o = cuda_ms(lambda: tb.deep_emit(w_r, l_r, s_r, _pk, _st),
+                              2)
+            for k, t_ in zip(DEEP_KERNELS, (t_r, t_d, t_e)):
+                deep_launch_ms[k].append(dict(shape, ms=t_))
+            del _st, _o
+    del _pk, surface_rec
     for kern, rows_ in deep_launch_ms.items():
         check(len(rows_) == counts[kern],
               f"{kern}: {len(rows_)} launches timed, {counts[kern]} counted")
@@ -3341,6 +3688,10 @@ def main():
                                    "bound_ms", "bound_by", "library_ms")
                    if key not in entry]
         check(not missing, f"{entry['name']} lacks {missing}")
+        if entry["name"] in extra_err:
+            entry["surface_max_abs_err"] = extra_err[entry["name"]]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       extra_err[entry["name"]])
     # the next redesign's ranking: each kernel's launches on the counted
     # paths times (ms - bound_ms); the wide finders' and the three deep
     # kernels' ms summed over their launches, each timed on its own inputs,
@@ -3370,6 +3721,8 @@ def main():
 if __name__ == "__main__":
     try:
         sys.exit(decode_without_native() if sys.argv[1:] == [CHILD_FLAG]
+                 else multihost_rank(*sys.argv[2:])
+                 if sys.argv[1:2] == [MULTIHOST_FLAG]
                  else time_encoder_kernels()
                  if sys.argv[1:] == [ENCODER_FLAG]
                  else time_decode_kernels()

@@ -83,49 +83,35 @@ class CUDACodec(BlockCodec):
 
     def compress(self, data, max_output=None):
         import numpy as np
-        import torch
         from ..errors import OutputTooSmall
-        from ..ops.torch_block import encode_blocks, level_params
+        from ..ops.torch_block import level_params, make_block_encoder
         data = bytes(data)
         if len(data) > self.block_capacity:
             raise ValueError(
                 f"block {len(data)} exceeds capacity {self.block_capacity}")
-        hc, deep = level_params(self.level)
-        buf = np.zeros((1, self.block_capacity), np.uint8)
-        buf[0, :len(data)] = np.frombuffer(data, np.uint8)
-        out, n = encode_blocks(
-            torch.from_numpy(buf).to(self.device),
-            torch.tensor([len(data)], dtype=torch.int32,
-                         device=self.device), hc=hc, deep=deep)
-        comp = out[0, :int(n[0])].cpu().numpy().tobytes()
+        buf = np.zeros(self.block_capacity, np.uint8)
+        buf[:len(data)] = np.frombuffer(data, np.uint8)
+        out, n = make_block_encoder(self.block_capacity,
+                                    *level_params(self.level),
+                                    device=self.device)(buf, len(data))
+        comp = out[:int(n)].cpu().numpy().tobytes()
         if max_output is not None and len(comp) > max_output:
             raise OutputTooSmall(f"{len(comp)} > {max_output}")
         return comp
 
     def decompress(self, comp, max_output_size):
-        import numpy as np
-        import torch
-        from ..constants import compress_bound
         from ..errors import CorruptedData, OutputTooSmall
-        from ..ops.torch_decode import (MAX_SEQS, decode_blocks,
+        from ..ops.torch_decode import (MAX_SEQS, make_block_decoder,
                                         parse_sequences, seqs_to_arrays)
         comp = bytes(comp)
         cap = self.block_capacity
-        buf = np.zeros((1, max(compress_bound(cap), len(comp))), np.uint8)
-        buf[0, :len(comp)] = np.frombuffer(comp, np.uint8)
         seqs = parse_sequences(comp)
         if len(seqs) > MAX_SEQS(cap):
             raise CorruptedData(
                 f"block decodes to more than the capacity {cap}")
-        lit, lsrc, ml, off, ns = (
-            torch.from_numpy(np.asarray(a)[None]).to(self.device)
-            for a in seqs_to_arrays(seqs, MAX_SEQS(cap)))
-        out, n, ok = decode_blocks(torch.from_numpy(buf).to(self.device),
-                                   lit, lsrc, ml, off, ns, cap)
-        if not int(ok[0]):
-            raise CorruptedData(
-                f"block decodes to more than the capacity {cap}")
-        res = out[0, :int(n[0])].cpu().numpy().tobytes()
+        out, n = make_block_decoder(cap, device=self.device)(
+            comp, *seqs_to_arrays(seqs, MAX_SEQS(cap)))
+        res = out[:int(n)].cpu().numpy().tobytes()
         if len(res) > max_output_size:
             raise OutputTooSmall(f"{len(res)} > {max_output_size}")
         return res

@@ -70,7 +70,9 @@ the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from ..constants import compress_bound
@@ -80,7 +82,8 @@ __all__ = ["level_params", "fast_params", "device_encoder_supports",
            "encode_blocks", "encode_blocks_plain", "match_candidates",
            "match_candidates_plain", "parse_emit", "parse_emit_plain",
            "deep_dp", "deep_dp_plain", "deep_emit", "deep_emit_plain",
-           "tier_lengths", "wide_cluster_shape", "wide_launch_shape"]
+           "tier_lengths", "wide_cluster_shape", "wide_launch_shape",
+           "hc_probes", "make_block_encoder"]
 
 #: carried u32 windows (jax_block.py:100) -> fine ml up to 4 + 4*W
 _W = 8
@@ -110,6 +113,11 @@ def level_params(level: int) -> tuple[int, int]:
     if level <= 9:
         return level, 0
     return 8, min(level - 9, 3)
+
+
+def hc_probes(level: int) -> int:
+    """The probe depth of a level alone (``jax_block.py:1125-1127``)."""
+    return level_params(level)[0]
 
 
 def fast_params(accel: int) -> tuple[int, int]:
@@ -923,3 +931,31 @@ def encode_blocks(blocks: torch.Tensor, lens: torch.Tensor,
         st = deep_dp(lens, starts, pk, deep)
         return deep_emit(blocks, lens, starts, pk, st)
     return parse_emit(blocks, lens, starts, pk, hc, accel)
+
+
+@functools.lru_cache(maxsize=None)
+def make_block_encoder(blk: int, hc: int = 0, deep: int = 0,
+                       accel: int = 1, device: str | torch.device = "cuda"):
+    """The single-window encoder of ``jax_block.make_block_encoder``
+    (``jax_block.py:1130-1151``), one per configuration: ``call(data,
+    n, start=0) -> (out uint8[compress_bound(blk)], out_len int32)``, a
+    window ``data`` of ``blk`` bytes (a numpy array or a tensor) of
+    which ``n`` are valid, emitting from ``start`` (a dictionary or
+    history before it).  It runs ``encode_blocks`` over a batch of one
+    on ``device``: the kernels on a CUDA device, their plain versions
+    on the CPU, which must be asked for."""
+    from ..parallel.device import resolve_device
+    _finder(hc, deep, accel)
+    dev = resolve_device(device)
+
+    def call(data, n, start=0):
+        w = torch.as_tensor(np.asarray(data, np.uint8) if not isinstance(
+            data, torch.Tensor) else data)
+        if w.dtype != torch.uint8 or tuple(w.shape) != (blk,):
+            raise TypeError(f"data must be uint8[{blk}]")
+        lens = torch.tensor([int(n)], dtype=torch.int32, device=dev)
+        starts = torch.tensor([int(start)], dtype=torch.int32, device=dev)
+        out, out_len = encode_blocks(w.to(dev).reshape(1, blk), lens, starts,
+                                     hc=hc, deep=deep, accel=accel)
+        return out[0], out_len[0]
+    return call

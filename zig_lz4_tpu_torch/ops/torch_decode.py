@@ -33,9 +33,12 @@ the JAX reference.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from ..constants import compress_bound
 from ..errors import CorruptedData
 from ..kernels import launch
 from .torch_frags import _rounds_arg
@@ -54,7 +57,7 @@ __all__ = ["device_tmap_decoder_supports", "resolve_tmap_py",
            "decode_blocks_tmap_plain", "linked_tmap_step",
            "linked_tmap_step_plain", "MAX_SEQS", "parse_sequences",
            "seqs_to_arrays", "device_seq_decoder_supports",
-           "decode_blocks", "decode_blocks_plain",
+           "decode_blocks", "decode_blocks_plain", "make_block_decoder",
            "device_frag_decoder_supports", "device_win_decoder_supports",
            "device_chase_decoder_supports", "win_tier_config",
            "resolve_fragments_py", "decode_blocks_frags",
@@ -453,3 +456,55 @@ def decode_blocks(comp: torch.Tensor, lit_len: torch.Tensor,
                seg_start, out, out_len, ok, rounds, B, ccap, hcap,
                hcap if hists.dim() == 2 and hcap else 0, cap, blk)
     return out, out_len, ok
+
+
+@functools.lru_cache(maxsize=None)
+def make_block_decoder(blk: int, ccap: int | None = None,
+                       nseq_cap: int | None = None, hcap: int = 1,
+                       device: str | torch.device = "cuda"):
+    """The single-block decoder of ``jax_decode.make_block_decoder``
+    (``jax_decode.py:1366-1386``), one per geometry: ``call(comp, lit,
+    lsrc, ml, off, ns, hist=None) -> (out uint8[blk], out_len int32)``
+    from a payload ``comp`` (bytes, an array or a tensor, zero-padded
+    to ``ccap`` bytes, by default ``compress_bound(blk)``), the table of
+    ``seqs_to_arrays`` (each column ``nseq_cap`` long, by default
+    ``MAX_SEQS(blk)``) and ``hist``,
+    the ``hcap`` bytes before the block (zeros when omitted).  It runs
+    ``decode_blocks`` over a batch of one on ``device`` (``seq_decode``
+    on a CUDA device, the plain version on the CPU, which must be asked
+    for) and raises ``CorruptedData`` where that reports the table bad,
+    which the reference does not check."""
+    from ..parallel.device import resolve_device
+    ccap = ccap or compress_bound(blk)
+    nseq_cap = nseq_cap or MAX_SEQS(blk)
+    dev = resolve_device(device)
+    zeros = torch.zeros(hcap, dtype=torch.uint8, device=dev)
+
+    def tensor(a, dtype):
+        if isinstance(a, (bytes, bytearray)):
+            a = np.frombuffer(a, np.uint8).copy()
+        t = a if isinstance(a, torch.Tensor) else torch.as_tensor(
+            np.asarray(a))
+        return t.to(device=dev, dtype=dtype)
+
+    def call(comp, lit, lsrc, ml, off, ns, hist=None):
+        c = tensor(comp, torch.uint8).reshape(-1)
+        if c.shape[0] < ccap:
+            c = torch.nn.functional.pad(c, (0, ccap - c.shape[0]))
+        tabs = [tensor(a, torch.int32).reshape(1, -1)
+                for a in (lit, lsrc, ml, off)]
+        if any(t.shape[1] != nseq_cap for t in tabs):
+            raise TypeError(f"the sequence columns must be int32[{nseq_cap}]")
+        h = zeros if hist is None else tensor(hist, torch.uint8).reshape(-1)
+        if h.shape[0] != hcap:
+            raise TypeError(f"hist must be uint8[{hcap}]")
+        n = torch.tensor([int(ns)], dtype=torch.int32, device=dev)
+        out, out_len, ok = decode_blocks(c.reshape(1, -1).contiguous(),
+                                         *tabs, n, blk, hists=h)
+        if not int(ok[0]):
+            raise CorruptedData(
+                f"the block decodes to more than its capacity of {blk} "
+                "bytes, or its table reaches outside its payload or "
+                "history")
+        return out[0], out_len[0]
+    return call

@@ -1,10 +1,15 @@
-"""LZ4 frame codec on one CUDA device: levels 0-12 encode; T-map,
+"""LZ4 frame codec on CUDA devices: levels 0-12 encode; T-map,
 fragment-ladder and sequence-rebuild decode.
 
 Counterpart of ``ShardedFrameCodec`` of the JAX reference
 (``parallel/sharded.py``): on the encode side every block size, with or
 without a dictionary, at levels 0-12; on the decode side independent and
-linked frames of any block size, with or without a dictionary.
+linked frames of any block size, with or without a dictionary.  The
+block work runs on one device, or over a ``('blocks',)`` mesh
+(``parallel/mesh.py``): every batch of blocks is cut into one contiguous
+shard a device of the mesh, each shard is staged to its device and
+encoded or decoded there, and the results are gathered in order.  The
+bytes do not depend on the mesh.
 
   compress:   frame data -> [B, window] matrix of windows
               ``[dictionary | block]`` on the device (blocks over 256 KB
@@ -75,6 +80,7 @@ from ..ops.torch_frags import (decode_blocks_frags,
                                device_win_decoder_supports)
 from ..utils.xxhash32 import xxh32, xxh32_stream
 from .device import resolve_device
+from .mesh import BlocksMesh
 
 __all__ = ["ShardedFrameCodec"]
 
@@ -102,8 +108,9 @@ _LINK_NOUT = 1 << 21
 _LINK_PCQ = 1 << 20
 #: fragment-ladder tiers: (fcap divisor of the block size, most rounds).
 #: Most blocks fit the cheap tier; match-dense blocks go to the wider
-#: and deeper ones (reference: sharded.py:48-65).  One device takes the
-#: reference's single-device branch, which leaves the last tier out.
+#: and deeper ones (reference: sharded.py:48-65).  A mesh of one device
+#: leaves the last, deep tier out, as the reference's does
+#: (sharded.py:700,703).
 _FRAG_TIERS = ((8, 2), (4, 8), (1, 12))
 #: narrow ladder for 1 MB and 4 MB blocks, taken when no tier above
 #: fits: at a payload of at most half the block the chase engine covers
@@ -169,12 +176,14 @@ def _frame_block_error(exc: E.CorruptedData, what: str,
 
 
 class ShardedFrameCodec:
-    """LZ4 frame codec whose block work runs on one CUDA device.
+    """LZ4 frame codec whose block work runs on CUDA devices.
 
-    Keeps the reference's constructor (``sharded.py:156-163``) with
-    ``device`` in place of the TPU mesh.  ``device="cpu"`` runs the
-    plain PyTorch versions of the kernels (for tests); nothing picks
-    it on its own.
+    Keeps the reference's constructor (``sharded.py:156-163``), with
+    ``device`` first: the codec runs on that one device, or, when
+    ``mesh`` is given (``blocks_mesh``), over the mesh's devices, and
+    its ``device`` is then the mesh's first.  ``device="cpu"`` (or a mesh
+    of CPU devices) runs the plain PyTorch versions of the kernels, for
+    tests; nothing picks the CPU on its own.
     """
 
     def __init__(self, device: str | torch.device = "cuda",
@@ -184,7 +193,8 @@ class ShardedFrameCodec:
                  dictionary: bytes | None = None,
                  dict_id: int = 0,
                  compression_level: int = 0,
-                 decode_engine: str = "tmap"):
+                 decode_engine: str = "tmap",
+                 mesh: BlocksMesh | None = None):
         if decode_engine not in ("tmap", "win", "chase", "mixed"):
             raise ValueError(f"unknown decode_engine {decode_engine!r}")
         self.level = int(compression_level)
@@ -201,7 +211,10 @@ class ShardedFrameCodec:
         #: decoded them, and blocks each ladder tier was handed
         self.routes: dict[str, int] = {}
         self.tier_members: dict[str, int] = {}
-        self.device = resolve_device(device)
+        self.mesh = mesh or BlocksMesh((resolve_device(device),))
+        self.n_devices = self.mesh.size
+        #: the mesh's first device: linked frames decode there
+        self.device = self.mesh.devices[0]
         self.block_size = lz4f.BlockSizeID(block_size_id).to_block_size()
         self.dict = bytes(dictionary)[-WINDOW_SIZE:] if dictionary else b""
         self.dcap = len(self.dict)
@@ -214,14 +227,16 @@ class ShardedFrameCodec:
             dict_id=dict_id if dictionary else 0)
 
     @classmethod
-    def from_reference(cls, ref, device: str | torch.device = "cuda"):
+    def from_reference(cls, ref, device: str | torch.device = "cuda",
+                       mesh: BlocksMesh | None = None):
         """The port's codec with the settings of a JAX
         ``ShardedFrameCodec`` ``ref``, read from its plain attributes
         (level, block size, window, frame flags, dictionary, decode
         engine) and converted by value: the two packages share no
-        class, and ``ref``'s package is never imported."""
+        class, and ``ref``'s package is never imported.  The codec runs
+        on ``device``, or over ``mesh``."""
         info = ref.info
-        codec = cls(device=device,
+        codec = cls(device=device, mesh=mesh,
                     block_size_id=int(info.block_size_id),
                     content_checksum=bool(info.content_checksum),
                     block_checksum=bool(info.block_checksum),
@@ -233,15 +248,37 @@ class ShardedFrameCodec:
         codec.window = int(ref.window)
         return codec
 
+    def _batch(self, rows: int) -> int:
+        """``rows`` rounded down to a multiple of the mesh's size, and at
+        least one row a device (reference: sharded.py:317-320)."""
+        n = self.n_devices
+        return max(rows // n, 1) * n
+
+    def _shards(self, rows: int):
+        """The contiguous shards of a batch of ``rows`` rows, as
+        (device, lo, hi) in order.  The batch is laid out as the
+        reference pads it, ``ceil(rows / n)`` rows a device
+        (sharded.py:321-325); the pad rows are not staged, so a device
+        whose part is only padding gets no shard."""
+        per = -(-rows // self.n_devices)
+        return [(d, k * per, min((k + 1) * per, rows))
+                for k, d in enumerate(self.mesh.devices) if k * per < rows]
+
+    @staticmethod
+    def _stage(arrays, dev, lo: int, hi: int) -> list:
+        """Rows ``lo:hi`` of each host array, as tensors on ``dev``."""
+        return [torch.from_numpy(np.ascontiguousarray(a[lo:hi])).to(dev)
+                for a in arrays]
+
     # -- compression ----------------------------------------------------
 
     def _encode_windows(self, entries: list, width: int) -> list[bytes]:
         """Payloads of ``entries`` = [(history, span)]: windows
         ``[history | span]`` of ``width`` bytes that emit from the
-        history's end, ``_ENC_BYTES`` of windows per encoder launch.
-        The payloads do not depend on the batching."""
-        batch = max(_ENC_BYTES // width, 1)
-        dev = self.device
+        history's end, ``_ENC_BYTES`` of windows per batch, each batch
+        one encoder launch a shard.  The payloads do not depend on the
+        batching."""
+        batch = self._batch(max(_ENC_BYTES // width, 1))
         payloads = []
         for c0 in range(0, len(entries), batch):
             group = entries[c0:c0 + batch]
@@ -254,14 +291,16 @@ class ShardedFrameCodec:
                 windows[k, hl:hl + len(span)] = np.frombuffer(span, np.uint8)
                 lens[k], starts[k] = hl + len(span), hl
             # levels <= 1 run the fast finder at acceleration 1, as the
-            # reference's frame codec does (sharded.py:112-121)
-            out, out_len = encode_blocks(torch.from_numpy(windows).to(dev),
-                                         torch.from_numpy(lens).to(dev),
-                                         torch.from_numpy(starts).to(dev),
-                                         hc=self.hc, deep=self.deep)
-            out, out_len = out.cpu().numpy(), out_len.cpu().numpy()
-            payloads += [out[k, :int(out_len[k])].tobytes()
-                         for k in range(len(group))]     # ordered gather
+            # reference's frame codec does (sharded.py:112-121); every
+            # shard is launched before the first is gathered
+            shards = [encode_blocks(
+                *self._stage((windows, lens, starts), d, lo, hi),
+                hc=self.hc, deep=self.deep)
+                for d, lo, hi in self._shards(len(group))]
+            for out, out_len in shards:                  # ordered gather
+                out, out_len = out.cpu().numpy(), out_len.cpu().numpy()
+                payloads += [out[k, :int(out_len[k])].tobytes()
+                             for k in range(len(out_len))]
         return payloads
 
     def _encode_span(self, span: bytes) -> list[tuple[bytes, bytes]]:
@@ -495,13 +534,15 @@ class ShardedFrameCodec:
         as (fcap, rounds, largest payload), and the resolver's round
         limit (reference: sharded.py:676-734).  A tier whose geometry
         fits only a small fetch quantum restricts itself to payloads
-        that small, which is what gives 1 MB and 4 MB blocks a route."""
+        that small, which is what gives 1 MB and 4 MB blocks a route.
+        The deep tier opens on a mesh of more than one device."""
         eng = self.decode_engine
         mixed = eng == "mixed"
         if eng == "chase":
             use, rmax_resolve = _CHASE_TIERS, _CHASE_RMAX
         else:
-            use, rmax_resolve = _FRAG_TIERS[:-1], _FRAG_RMAX
+            use = _FRAG_TIERS if self.n_devices > 1 else _FRAG_TIERS[:-1]
+            rmax_resolve = _FRAG_RMAX
 
         def supports(fcap, fetch_cap, rmax):
             if eng == "chase" or (mixed and rmax > 2):
@@ -571,13 +612,14 @@ class ShardedFrameCodec:
     def _run_tier(self, payloads: list, bs: int, grp: list, rows, tables,
                   fcap: int, rmax: int, results: list) -> None:
         """Decode the blocks ``grp[rows]`` with the engine of the tier
-        (``fcap``, ``rmax``), ``_DEC_BYTES`` of output a launch, each
-        launch at the smallest fetch quantum that holds its largest
-        payload, with the tables cut to its largest fragment count."""
+        (``fcap``, ``rmax``), ``_DEC_BYTES`` of output a batch, one launch
+        a shard, each batch at the smallest fetch quantum that holds its
+        largest payload, with the tables cut to its largest fragment
+        count."""
         fdst, fsrc, fper, fph, nfrag, olens = tables
-        dev, dcap, eng = self.device, self.dcap, self.decode_engine
+        dcap, eng = self.dcap, self.decode_engine
         quanta = (bs // 4, bs // 2, compress_bound(bs))
-        batch = max(_DEC_BYTES // bs, 1)
+        batch = self._batch(max(_DEC_BYTES // bs, 1))
         for c0 in range(0, len(rows), batch):
             sel = rows[c0:c0 + batch]
             need = max(len(payloads[grp[j]][0]) for j in sel)
@@ -589,22 +631,29 @@ class ShardedFrameCodec:
                 p = payloads[grp[j]][0]
                 bufs[jj, dcap:dcap + len(p)] = np.frombuffer(p, np.uint8)
             ncol = max(int(nfrag[sel].max()), 1)
-            args = [torch.from_numpy(a).to(dev) for a in (
-                bufs, fdst[sel, :ncol], fsrc[sel, :ncol], fper[sel, :ncol],
-                fph[sel, :ncol], nfrag[sel], olens[sel].astype(np.int32))]
+            host = (bufs, fdst[sel, :ncol], fsrc[sel, :ncol],
+                    fper[sel, :ncol], fph[sel, :ncol], nfrag[sel],
+                    olens[sel].astype(np.int32))
+            g = 16 if rmax <= 2 else 8          # wide groups when shallow
             if eng == "chase" or (eng == "mixed" and rmax > 2):
                 name = "chase"
-                out, ok = decode_blocks_frags_chase(*args, bs,
-                                                    *_chase_config(rmax))
             elif device_win_decoder_supports(bs, fcap, fetch_t):
-                g = 16 if rmax <= 2 else 8      # wide groups when shallow
                 name = f"win{g}"
-                out, ok = decode_blocks_frags_win(*args, rmax, bs, fcap=fcap,
-                                                  g=g)
             else:
                 name = "frags"
-                out, ok = decode_blocks_frags(*args, rmax, bs)
-            out, ok = out.cpu().numpy(), ok.cpu().numpy()
+            shards = []
+            for d, lo, hi in self._shards(len(sel)):
+                args = self._stage(host, d, lo, hi)
+                if name == "chase":
+                    shards.append(decode_blocks_frags_chase(
+                        *args, bs, *_chase_config(rmax)))
+                elif name == "frags":
+                    shards.append(decode_blocks_frags(*args, rmax, bs))
+                else:
+                    shards.append(decode_blocks_frags_win(
+                        *args, rmax, bs, fcap=fcap, g=g))
+            out = np.concatenate([o.cpu().numpy() for o, _k in shards])
+            ok = np.concatenate([k.cpu().numpy() for _o, k in shards])
             route = f"{name} fcap={fcap} rounds={rmax}"
             self.tier_members[route] = (self.tier_members.get(route, 0)
                                         + len(sel))
@@ -626,11 +675,10 @@ class ShardedFrameCodec:
                 "sequence-rebuild decoder takes blocks up to 64 KB, and "
                 "larger ones decode through the T-map path, which needs "
                 "the runtime (zig_lz4_tpu_torch.native)")
-        dev = self.device
         ccap, nseq_cap = compress_bound(bs), MAX_SEQS(bs)
         hist = (torch.from_numpy(np.frombuffer(self.dict, np.uint8).copy())
-                .to(dev) if self.dcap else None)
-        batch = max(_DEC_BYTES // bs, 1)
+                if self.dcap else None)
+        batch = self._batch(max(_DEC_BYTES // bs, 1))
         for c0 in range(0, len(comp_idx), batch):
             grp = comp_idx[c0:c0 + batch]
             bufs = np.zeros((len(grp), ccap), np.uint8)
@@ -655,11 +703,13 @@ class ShardedFrameCodec:
                 bufs[j, :len(p)] = np.frombuffer(p, np.uint8)
                 (tabs[0, j], tabs[1, j], tabs[2, j], tabs[3, j],
                  nss[j]) = seqs_to_arrays(seqs, nseq_cap)
-            lit, lsrc, ml, off = (torch.from_numpy(t).to(dev) for t in tabs)
-            out, olens, ok = decode_blocks(
-                torch.from_numpy(bufs).to(dev), lit, lsrc, ml, off,
-                torch.from_numpy(nss).to(dev), bs, hists=hist)
-            out, olens, ok = (t.cpu().numpy() for t in (out, olens, ok))
+            shards = [decode_blocks(
+                *self._stage((bufs, *tabs, nss), d, lo, hi), bs,
+                hists=None if hist is None else hist.to(d))
+                for d, lo, hi in self._shards(len(grp))]
+            out, olens, ok = (np.concatenate([r[i].cpu().numpy()
+                                              for r in shards])
+                              for i in range(3))
             if not ok.all():
                 raise E.CorruptedData(
                     f"frame block {grp[int(np.flatnonzero(ok == 0)[0])]}: "
@@ -696,8 +746,8 @@ class ShardedFrameCodec:
                 f"frame block {comp_idx[int(over[0])]} decodes to more "
                 f"than the frame block size {bs}")
 
-        dev, dcap = self.device, self.dcap
-        batch = max(_DEC_BYTES // bs, 1)
+        dcap = self.dcap
+        batch = self._batch(max(_DEC_BYTES // bs, 1))
         for c0 in range(0, len(comp_idx), batch):
             grp = comp_idx[c0:c0 + batch]
             fetch = np.zeros(
@@ -709,11 +759,10 @@ class ShardedFrameCodec:
                 p = payloads[k][0]
                 fetch[jj, dcap:dcap + len(p)] = np.frombuffer(p, np.uint8)
             glen = olens[c0:c0 + batch]
-            out = decode_blocks_tmap(
-                torch.from_numpy(fetch).to(dev),
-                torch.from_numpy(T[c0:c0 + batch]).to(dev),
-                torch.from_numpy(glen.astype(np.int32)).to(dev))
-            out = out.cpu().numpy()
+            host = (fetch, T[c0:c0 + batch], glen.astype(np.int32))
+            shards = [decode_blocks_tmap(*self._stage(host, d, lo, hi))
+                      for d, lo, hi in self._shards(len(grp))]
+            out = np.concatenate([o.cpu().numpy() for o in shards])
             for jj, k in enumerate(grp):
                 results[k] = out[jj, :int(glen[jj])].tobytes()
         return True
