@@ -153,6 +153,7 @@ import gc
 import hashlib
 import json
 import os
+import signal
 import socket
 import statistics
 import subprocess
@@ -195,7 +196,8 @@ CLI_ENCODES = {"-1": ("enc_match_fast", "enc_parse_emit"),
                "-9": ("enc_match", "enc_parse_emit"),
                "-12": DEEP_KERNELS,
                "-B5": ("enc_match_wide", "enc_parse_emit")}
-#: argument of the two-process run's children: coordinator, rank, corpus
+#: argument of the two-process run's children: coordinator, rank, corpus;
+#: or ``env`` and the corpus under torchrun
 MULTIHOST_FLAG = "--multihost-rank"
 SEQ_PLAIN_BLOCKS = 32
 #: make_corpus(2) blocks (one per content type) with their JAX payloads
@@ -866,11 +868,15 @@ def decode_without_native():
     return 0
 
 
-def multihost_rank(coord, rank, path):
-    """A rank of the two-process run: joins the gloo group at ``coord``,
-    compresses the corpus in ``path`` with ``MultiHostFrameCodec`` on
-    its local card and decodes the frame back; prints the frame's
-    SHA-256, its times and its launch counts as one JSON line."""
+def multihost_rank(*args):
+    """A rank of the two-process run.  Its arguments are the coordinator,
+    the rank and the corpus's path: it joins the gloo group at the
+    coordinator.  Or ``env`` and the path, under ``torchrun``: it joins
+    with ``initialize()`` alone, from the launcher's variables, and
+    reads its rank back from the group.  It compresses the corpus with
+    ``MultiHostFrameCodec`` on its local card and decodes the frame
+    back; prints the frame's SHA-256, its times and its launch counts as
+    one JSON line."""
     t0 = time.perf_counter()
     import torch
     import torch.distributed as dist
@@ -878,7 +884,13 @@ def multihost_rank(coord, rank, path):
     from zig_lz4_tpu_torch.kernels import LAUNCHES
     from zig_lz4_tpu_torch.parallel import multihost
     check(torch.cuda.is_available(), "the rank sees no card")
-    multihost.initialize(coord, 2, int(rank))
+    if args[0] == "env":
+        path = args[1]
+        multihost.initialize()
+    else:
+        coord, rank, path = args
+        multihost.initialize(coord, 2, int(rank))
+    rank = dist.get_rank()
     with open(path, "rb") as f:
         data = f.read()
     codec = multihost.MultiHostFrameCodec()
@@ -891,11 +903,52 @@ def multihost_rank(coord, rank, path):
     torch.cuda.synchronize()
     t_d = time.perf_counter() - t1
     dist.destroy_process_group()
-    print(json.dumps({"rank": int(rank), "roundtrip": back == data,
+    print(json.dumps({"rank": rank, "roundtrip": back == data,
                       "sha256": hashlib.sha256(frame).hexdigest(),
                       "start_s": t_start, "compress_s": t_c,
-                      "decompress_s": t_d, "launches": dict(LAUNCHES)}))
+                      "decompress_s": t_d, "launches": dict(LAUNCHES)}),
+          flush=True)
     return 0
+
+
+def launch_ranks(cmds, timeout):
+    """Runs each command of ``cmds`` in a session of its own and waits
+    for all within ``timeout`` seconds in all.  Fails, with the stderr
+    of the first that did, if one exits non-zero or is still running
+    then (its session is stopped: a launcher's workers too).
+    Returns each rank's JSON line, found by its content (a launcher may
+    prefix or interleave its workers' lines), sorted by rank."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True,
+                              start_new_session=True) for c in cmds]
+    told = []
+    end = time.perf_counter() + timeout
+    try:
+        for p_ in procs:
+            try:
+                out_, err_ = p_.communicate(
+                    timeout=max(end - time.perf_counter(), 1))
+            except subprocess.TimeoutExpired:
+                raise Failed(f"{' '.join(p_.args[1:5])} still running "
+                             f"after {timeout} s") from None
+            check(p_.returncode == 0, f"{' '.join(p_.args[1:5])} exited "
+                  f"{p_.returncode}:\n{err_[-3000:]}")
+            for line in out_.splitlines():
+                at = line.find('{"rank": ')
+                if at >= 0:
+                    told.append(json.loads(line[at:]))
+    finally:
+        for p_ in procs:
+            if p_.poll() is None:
+                # SIGTERM first: torchrun stops its workers, which run in
+                # sessions of their own, only when it is let to
+                os.killpg(p_.pid, signal.SIGTERM)
+                try:
+                    p_.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    os.killpg(p_.pid, signal.SIGKILL)
+                    p_.wait()
+    return sorted(told, key=lambda t_: t_["rank"])
 
 
 def subspan_windows(np, data, block=1 << 20):
@@ -2907,49 +2960,55 @@ def main():
                   f"over {n_d} blocks vs plain max_abs_err {err_d}; "
                   f"decompress_frame, median of 3: {fmt(t_m)}")
 
-        # two gloo processes on localhost, both on cuda:0
+        # two gloo processes on localhost, both on cuda:0: given the
+        # coordinator and their ranks, then started by torchrun and
+        # joining from its environment
         with socket.socket() as sk:
             sk.bind(("127.0.0.1", 0))
             coord = f"127.0.0.1:{sk.getsockname()[1]}"
+        here = os.path.abspath(__file__)
         t_mh = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), MULTIHOST_FLAG, coord,
-             str(r), src], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True) for r in (0, 1)]
-        told = []
-        try:
-            for r, p_ in enumerate(procs):
-                out_, err_ = p_.communicate(timeout=600)
-                check(p_.returncode == 0,
-                      f"multi-host rank {r} failed:\n{err_[-3000:]}")
-                told.append(json.loads(out_.strip().splitlines()[-1]))
-        finally:
-            for p_ in procs:
-                if p_.poll() is None:
-                    p_.kill()
-                    p_.wait()
+        told = launch_ranks([[sys.executable, here, MULTIHOST_FLAG, coord,
+                              str(r), src] for r in (0, 1)], 300)
         t_mh = time.perf_counter() - t_mh
+        t_tr = time.perf_counter()
+        told_tr = launch_ranks([[
+            sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nnodes=1", "--nproc_per_node=2", here, MULTIHOST_FLAG, "env",
+            src]], 300)
+        t_tr = time.perf_counter() - t_tr
     mh1 = MultiHostFrameCodec()
     fr_1 = counted("multi-host, one process",
                    lambda: mh1.compress_corpus(data, content_hash=True),
                    ("enc_match_fast", "enc_parse_emit"))
     sha_1 = hashlib.sha256(fr_1).hexdigest()
-    check(all(t_["sha256"] == sha_1 and t_["roundtrip"] for t_ in told),
-          f"the ranks' frames differ from the one-process frame: {told}")
     check(mh1.decompress_corpus(fr_1) == data
           and lz4f.decompress_frame(fr_1) == data,
           "the one-process multi-host frame does not round-trip")
-    for t_ in told:
-        check(all(t_["launches"][k] > 0 for k in (
-            "enc_match_fast", "enc_parse_emit", "frag_decode_win")),
-            f"rank {t_['rank']} launched {t_['launches']}")
-    surface["multi-host two processes s"] = t_mh
-    print(f"[multihost] {smi}: two gloo processes on cuda:0, {n} bytes: "
-          f"both ranks wrote the one-process frame ({len(fr_1)} bytes) and "
-          f"decoded it; wall {t_mh:.1f} s (process start included); by rank "
-          + "; ".join(f"{t_['rank']}: start {t_['start_s']:.1f} s, compress "
-                      f"{t_['compress_s']:.3f} s, decompress "
-                      f"{t_['decompress_s']:.3f} s" for t_ in told))
+    for how, ranks, wall, key in (
+            ("given the coordinator and ranks", told, t_mh, ""),
+            ("started by torchrun", told_tr, t_tr, " torchrun")):
+        check([t_["rank"] for t_ in ranks] == [0, 1],
+              f"{how}: ranks {[t_['rank'] for t_ in ranks]} answered")
+        check(all(t_["sha256"] == sha_1 and t_["roundtrip"] for t_ in ranks),
+              f"{how}: the ranks' frames differ from the one-process "
+              f"frame: {ranks}")
+        for t_ in ranks:
+            check(all(t_["launches"][k] > 0 for k in (
+                "enc_match_fast", "enc_parse_emit", "frag_decode_win")),
+                f"{how}: rank {t_['rank']} launched {t_['launches']}")
+        surface[f"multi-host two processes{key} s"] = wall
+        print(f"[multihost] {smi}: two gloo processes on cuda:0, {how}, "
+              f"{n} bytes: both ranks wrote the one-process frame "
+              f"({len(fr_1)} bytes) and decoded it; wall {wall:.1f} s "
+              "(process start included); by rank "
+              + "; ".join(f"{t_['rank']}: start {t_['start_s']:.1f} s, "
+                          f"compress {t_['compress_s']:.3f} s, decompress "
+                          f"{t_['decompress_s']:.3f} s, launches "
+                          + ", ".join(f"{k} {t_['launches'][k]}" for k in (
+                              "enc_match_fast", "enc_parse_emit",
+                              "frag_decode_win", "tmap_gather"))
+                          for t_ in ranks))
 
     # the single-block factories at 64 KB, against the frames' payloads
     both = sorted(set.intersection(*(set(frame_payloads(f_, lz4f)[0])

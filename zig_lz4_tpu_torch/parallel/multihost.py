@@ -16,12 +16,16 @@ raw corpus) -- both layouts are spec-conformant.
 The collectives run over ``torch.distributed`` with the gloo backend on
 host tensors: the payloads begin and end as host bytes, and NCCL cannot
 put two ranks on one GPU.  One process needs no set-up (a world of 1);
-for more, every process calls :func:`initialize` first.
+for more, every process calls :func:`initialize` first: with no
+arguments under ``torchrun``, or with the coordinator, world size and
+rank.
 """
 
 from __future__ import annotations
 
+import atexit
 import datetime
+import os
 
 import numpy as np
 import torch
@@ -40,9 +44,20 @@ def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None,
                initialization_timeout: int = 300) -> None:
-    """Join the process group at ``tcp://{coordinator_address}`` (a
-    ``host:port``) as rank ``process_id`` of ``num_processes``, over
-    gloo.  Idempotent: a process already in a group keeps it.
+    """Join the process group over gloo as rank ``process_id`` of
+    ``num_processes``.  Idempotent: a process already in a group keeps
+    it.
+
+    What the caller leaves out comes from the launcher's environment, as
+    ``jax.distributed.initialize`` takes it from the cluster's (the
+    reference, ``multihost.py:53-55``): ``torchrun`` sets
+    ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK`` and ``WORLD_SIZE``.  With
+    a ``coordinator_address`` (a ``host:port``) the group meets at
+    ``tcp://{coordinator_address}``, else at ``env://``
+    (``MASTER_ADDR:MASTER_PORT``); a rank or world size not given is
+    read from ``RANK`` or ``WORLD_SIZE``.  What is given wins.  With
+    neither, this raises: a process alone needs no :func:`initialize`
+    (``_process_info()`` is ``(0, 1)`` without a group).
 
     One tiny all-gather runs at once, while the processes are still in
     step: the first collective is the backends' rendezvous, and a
@@ -52,14 +67,38 @@ def initialize(coordinator_address: str | None = None,
     """
     if dist.is_initialized():
         return
+    init_method = f"tcp://{coordinator_address}" \
+        if coordinator_address is not None else "env://"
     dist.init_process_group(
-        "gloo", init_method=f"tcp://{coordinator_address}",
-        world_size=num_processes, rank=process_id,
+        "gloo", init_method=init_method,
+        world_size=_given_or_env(num_processes, "WORLD_SIZE",
+                                 "num_processes"),
+        rank=_given_or_env(process_id, "RANK", "process_id"),
         timeout=datetime.timedelta(seconds=initialization_timeout))
+    # the group's threads are joined before the interpreter ends, as the
+    # reference's collectives are finalized at exit; a rank that ends
+    # with the group still up may abort (SIGABRT) after its last line
+    atexit.register(_shutdown)
     if dist.get_world_size() > 1:
         dist.all_gather([torch.zeros(1, dtype=torch.int32)
                          for _ in range(dist.get_world_size())],
                         torch.zeros(1, dtype=torch.int32))
+
+
+def _shutdown() -> None:
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _given_or_env(value: int | None, var: str, name: str) -> int:
+    """``value`` when given, else the launcher's ``var``; raises when
+    neither is there (no quiet world of 1)."""
+    if value is not None:
+        return int(value)
+    if not os.environ.get(var):
+        raise ValueError(f"initialize: {name} not given and {var} not "
+                         "set; start the process with torchrun or pass it")
+    return int(os.environ[var])
 
 
 def _process_info() -> tuple[int, int]:
