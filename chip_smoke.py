@@ -7,7 +7,10 @@ the card, and drives these paths over the bench's 48 MB corpus in 64 KB
 blocks, most of them through ``ShardedFrameCodec``:
 
 * level 9: ``compress_frame`` and ``decompress_frame`` of independent
-  blocks (kernels ``enc_match``, ``enc_parse_emit``, ``tmap_gather``);
+  blocks (kernels ``enc_match``, ``enc_parse_emit``, ``tmap_gather``),
+  and ``compress_frame(data, batch_blocks=)`` at 8 and 96 blocks a
+  launch group and at the default, three byte-identical frames, each
+  call counted and the three timed in turns;
 * level 0: the same with the fast finder (``enc_match_fast``), and the
   acceleration ratios and a level-4 round trip;
 * linked frames: ``decompress_frame`` of a linked-block frame written
@@ -1164,8 +1167,9 @@ def frag_phase_split(libs, a, kw, reps=5):
     P, I = ctypes.c_void_p, ctypes.c_int
     bound_ = inspect.signature(tfr.decode_blocks_frags).bind(*a, **kw)
     arg = bound_.arguments
-    tables = [arg[k].contiguous() for k in ("comp", "fdst", "fsrc", "fper",
-                                            "fphase", "nfrag", "out_len")]
+    tables = [arg[k].contiguous() for k in ("comp_blocks", "fdst", "fsrc",
+                                            "fper", "fphase", "nfrag",
+                                            "out_lens")]
     blk, rounds = arg["blk"], max(int(arg["rounds"]), 0)
     C = tfr.frag_cluster_size(blk)
     check(C > 0, f"no cluster route at {blk}-byte blocks")
@@ -1690,6 +1694,41 @@ def main():
           f"= {ratio:.6f} (expect {EXPECT_RATIO})")
     check(round(ratio, 4) == EXPECT_RATIO, f"ratio {ratio:.6f}")
     time_round_trip("level 9", codec, frame)
+
+    # --- phase 3b: ``compress_frame(data, batch_blocks=)``, the
+    # reference's grouping of blocks a launch (sharded.py:294-320): 8
+    # blocks (its default there), 96, and the port's default (1,024
+    # windows a launch: the whole corpus).  Each call counted, the three
+    # frames byte-identical; then timed in turns, median of 3.
+    batch_ways = {"8": 8, "96": 96, "default": None}
+    batch_frames = {}
+    for label, k in batch_ways.items():
+        what = f"level 9 batch_blocks={label}"
+        batch_frames[label] = counted(
+            what, lambda k=k: codec.compress_frame(data, batch_blocks=k),
+            ("enc_match", "enc_parse_emit"))
+        groups = -(-nb // k) if k else 1
+        check(all(paths[what][kn] == groups
+                  for kn in ("enc_match", "enc_parse_emit")),
+              f"{what}: {paths[what]}, expected {groups} launches of "
+              "enc_match and enc_parse_emit")
+    check(len(set(batch_frames.values())) == 1
+          and batch_frames["default"] == frame,
+          "the batch_blocks frames differ from one another")
+    batch_ms = {label: [] for label in batch_ways}
+    for _ in range(3):
+        for label, k in batch_ways.items():
+            batch_ms[label].append(cuda_ms(
+                lambda k=k: codec.compress_frame(data, batch_blocks=k))[0])
+    print(f"[batch_blocks] {smi}: level-9 compress_frame of {n} bytes "
+          f"({nb} x 64 KB blocks), in turns, median of 3 (min-max): "
+          + ", ".join(
+              f"{label}: {statistics.median(t):.2f} ms ({min(t):.2f}-"
+              f"{max(t):.2f}), enc_match x "
+              f"{paths[f'level 9 batch_blocks={label}']['enc_match']}"
+              for label, t in batch_ms.items())
+          + f"; the three frames byte-identical ({len(frame)} bytes)")
+    del batch_frames
 
     # --- phase 4: level 0 at full width, counted, then timed;
     # acceleration; level 4

@@ -20,6 +20,7 @@ any family's output.
 from __future__ import annotations
 
 from .. import backend
+from ..constants import compress_bound  # noqa: F401  (reference's path)
 from ..ops import hc as _hc
 
 __all__ = ["BlockCodec", "FastCodec", "HCCodec", "CUDACodec", "get_codec"]

@@ -83,7 +83,9 @@ __all__ = ["level_params", "fast_params", "device_encoder_supports",
            "match_candidates_plain", "parse_emit", "parse_emit_plain",
            "deep_dp", "deep_dp_plain", "deep_emit", "deep_emit_plain",
            "tier_lengths", "wide_cluster_shape", "wide_launch_shape",
-           "hc_probes", "make_block_encoder"]
+           "hc_probes", "make_block_encoder", "make_block_decoder",
+           "decode_blocks", "parse_sequences", "seqs_to_arrays",
+           "MAX_SEQS"]
 
 #: carried u32 windows (jax_block.py:100) -> fine ml up to 4 + 4*W
 _W = 8
@@ -959,3 +961,19 @@ def make_block_encoder(blk: int, hc: int = 0, deep: int = 0,
                                      hc=hc, deep=deep, accel=accel)
         return out[0], out_len[0]
     return call
+
+
+# ---------------------------------------------------------------------
+# DECODE: the decode surface lives in ops/torch_decode.py and
+# ops/torch_frags.py; the reference's block module re-exports its decode
+# names (jax_block.py:1175-1188), and so does this one, so that imports
+# written for it resolve here.  ``decode_blocks`` stands for the
+# reference's ``decode_blocks_jax``.  At the bottom, as there, so that
+# the decode modules may import this one.
+# ---------------------------------------------------------------------
+from .torch_decode import (  # noqa: E402,F401
+    MAX_SEQS, decode_blocks, decode_blocks_frags,
+    device_chase_decoder_supports, device_frag_decoder_supports,
+    device_tmap_decoder_supports, device_win_decoder_supports,
+    make_block_decoder, parse_sequences, resolve_fragments_py,
+    resolve_tmap_py, seqs_to_arrays, win_tier_config)

@@ -365,15 +365,16 @@ def _finish(value, known, live):
 # byte-granular rounds
 # ---------------------------------------------------------------------
 
-def decode_blocks_frags_plain(comp, fdst, fsrc, fper, fphase, nfrag,
-                              out_len, rounds: int, blk: int):
+def decode_blocks_frags_plain(comp_blocks, fdst, fsrc, fper, fphase, nfrag,
+                              out_lens, rounds: int, blk: int):
     """Plain version of the ``frag_decode`` kernel: (out uint8[B, blk],
     ok int32[B])."""
-    _check(comp, fdst, fsrc, fper, fphase, nfrag, out_len, blk)
-    T, per, live = _sources(comp, fdst, fsrc, fper, fphase, nfrag, out_len,
-                            blk)
+    _check(comp_blocks, fdst, fsrc, fper, fphase, nfrag, out_lens, blk)
+    T, per, live = _sources(comp_blocks, fdst, fsrc, fper, fphase, nfrag,
+                            out_lens, blk)
     lit = live & ~per
-    value = torch.where(lit, comp.gather(1, torch.where(lit, T, 0)), 0)
+    value = torch.where(lit, comp_blocks.gather(1, torch.where(lit, T, 0)),
+                        0)
     value, known = _rounds(value, ~live | lit, torch.where(per, T, 0),
                            live & per, rounds)
     return _finish(value, known, live)
@@ -406,25 +407,26 @@ def _kernel_io(tables, blk: int):
             torch.empty(B, dtype=torch.int32, device=dev))
 
 
-def decode_blocks_frags(comp, fdst, fsrc, fper, fphase, nfrag, out_len,
-                        rounds: int, blk: int):
+def decode_blocks_frags(comp_blocks, fdst, fsrc, fper, fphase, nfrag,
+                        out_lens, rounds: int, blk: int):
     """Rebuild blocks of up to ``blk`` bytes from fragment tables in at
     most ``rounds`` dependency levels, counterpart of
-    ``decode_blocks_frags`` of the reference: ``comp`` uint8[B, fetch]
-    the fetch buffers, ``fdst``/``fsrc``/``fper``/``fphase`` int32[B,
-    columns] and ``nfrag`` int32[B] the resolver's tables, ``out_len``
+    ``decode_blocks_frags`` of the reference, with its parameter names
+    (``jax_decode.py:1202``): ``comp_blocks`` uint8[B, fetch] the fetch
+    buffers, ``fdst``/``fsrc``/``fper``/``fphase`` int32[B,
+    columns] and ``nfrag`` int32[B] the resolver's tables, ``out_lens``
     int32[B].  Returns (out uint8[B, blk], zero where a byte did not
-    resolve and from out_len on; ok int32[B], 1 when every live byte
+    resolve and from out_lens on; ok int32[B], 1 when every live byte
     resolved -- the reference returns no flag and trusts the tier).  The
     ``frag_decode`` kernel for CUDA tensors -- its state in a
     thread-block cluster's shared memory for blocks up to 256 KB whose
     size is a multiple of 64 (``frag_cluster_size``), in device scratch
     for the others -- the plain version for CPU tensors."""
-    if comp.device.type == "cpu":
-        return decode_blocks_frags_plain(comp, fdst, fsrc, fper, fphase,
-                                         nfrag, out_len, rounds, blk)
+    if comp_blocks.device.type == "cpu":
+        return decode_blocks_frags_plain(comp_blocks, fdst, fsrc, fper,
+                                         fphase, nfrag, out_lens, rounds, blk)
     tables, out, ok = _kernel_io(
-        (comp, fdst, fsrc, fper, fphase, nfrag, out_len), blk)
+        (comp_blocks, fdst, fsrc, fper, fphase, nfrag, out_lens), blk)
     B, dev = out.shape[0], out.device
     if B:
         C = frag_cluster_size(blk)
@@ -434,7 +436,8 @@ def decode_blocks_frags(comp, fdst, fsrc, fper, fphase, nfrag, out_len,
             src = torch.empty((B, blk), dtype=torch.int32, device=dev)
             known = _scratch_words(B, 2, blk, dev)
         launch("frag_decode", *tables, src, known, out, ok, B,
-               comp.shape[1], fdst.shape[1], blk, max(int(rounds), 0), C)
+               comp_blocks.shape[1], fdst.shape[1], blk, max(int(rounds), 0),
+               C)
     return out, ok
 
 

@@ -80,7 +80,7 @@ from ..ops.torch_frags import (decode_blocks_frags,
                                device_win_decoder_supports)
 from ..utils.xxhash32 import xxh32, xxh32_stream
 from .device import resolve_device
-from .mesh import BlocksMesh
+from .mesh import BlocksMesh, blocks_mesh  # noqa: F401  (reference's path)
 
 __all__ = ["ShardedFrameCodec"]
 
@@ -272,13 +272,17 @@ class ShardedFrameCodec:
 
     # -- compression ----------------------------------------------------
 
-    def _encode_windows(self, entries: list, width: int) -> list[bytes]:
+    def _encode_windows(self, entries: list, width: int,
+                        batch_blocks: int | None = None) -> list[bytes]:
         """Payloads of ``entries`` = [(history, span)]: windows
         ``[history | span]`` of ``width`` bytes that emit from the
-        history's end, ``_ENC_BYTES`` of windows per batch, each batch
-        one encoder launch a shard.  The payloads do not depend on the
-        batching."""
+        history's end, ``_ENC_BYTES`` of windows per batch, or
+        ``batch_blocks`` windows rounded by ``_batch`` where that is
+        fewer, each batch one encoder launch a shard.  The payloads do
+        not depend on the batching."""
         batch = self._batch(max(_ENC_BYTES // width, 1))
+        if batch_blocks:
+            batch = min(self._batch(batch_blocks), batch)
         payloads = []
         for c0 in range(0, len(entries), batch):
             group = entries[c0:c0 + batch]
@@ -303,7 +307,8 @@ class ShardedFrameCodec:
                              for k in range(len(out_len))]
         return payloads
 
-    def _encode_span(self, span: bytes) -> list[tuple[bytes, bytes]]:
+    def _encode_span(self, span: bytes, batch_blocks: int | None = None
+                     ) -> list[tuple[bytes, bytes]]:
         """Device encode of a contiguous byte span into per-block (raw,
         compressed) pairs (reference: sharded.py:257-292).  A block's
         window is ``[dictionary | block]``, emitting from the
@@ -311,12 +316,16 @@ class ShardedFrameCodec:
         (``device_encoder_supports``: those over 256 KB) encode as
         ``_SUB``-byte sub-spans, each behind the 64 KB before it (the
         dictionary for the first), and the sub-span streams join into
-        one block stream (``_encode_raws_big``, sharded.py:209-255)."""
+        one block stream (``_encode_raws_big``, sharded.py:209-255).
+        ``batch_blocks`` groups whole-block windows only: the sub-span
+        windows keep the default grouping, as the reference's big-block
+        paths ignore it (sharded.py:304-309)."""
         bs = self.block_size
         raws = [span[k:k + bs] for k in range(0, len(span), bs)]
         if device_encoder_supports(self.window):
             return list(zip(raws, self._encode_windows(
-                [(self.dict, raw) for raw in raws], self.window)))
+                [(self.dict, raw) for raw in raws], self.window,
+                batch_blocks)))
         entries, owner = [], []
         for bi, raw in enumerate(raws):
             for s0 in range(0, max(len(raw), 1), _SUB):
@@ -329,10 +338,18 @@ class ShardedFrameCodec:
             per_block[bi].append(p)
         return [(raw, concat_streams(ps)) for raw, ps in zip(raws, per_block)]
 
-    def compress_frame(self, data: bytes) -> bytes:
-        """Compress ``data`` into one LZ4 frame of independent blocks."""
+    def compress_frame(self, data: bytes,
+                       batch_blocks: int | None = None) -> bytes:
+        """Compress ``data`` into one LZ4 frame of independent blocks.
+
+        ``batch_blocks`` is the reference's (sharded.py:294-320): blocks
+        a batch, rounded down to a multiple of the mesh's size and at
+        least one a device; 0 or None keep the default.  Here it groups
+        the blocks of each encoder launch, capped at ``_ENC_BYTES`` of
+        windows, and only where the window is one whole block.  The
+        frame does not depend on it."""
         data = bytes(data)
-        pairs = self._encode_span(data)
+        pairs = self._encode_span(data, batch_blocks)
         # declare the (known) content size so decoders can verify the
         # round trip (reference FLG bit 3, lz4f.zig:106-122)
         info = dataclasses.replace(self.info, content_size=len(data))
