@@ -61,6 +61,7 @@ import torch
 
 from .. import errors as E
 from .. import frame as lz4f
+from .. import trace
 from ..constants import WINDOW_SIZE, compress_bound
 from ..native import (native_resolve_blocks, native_resolve_tmap,
                       native_resolve_tmap_linked)
@@ -286,25 +287,34 @@ class ShardedFrameCodec:
         payloads = []
         for c0 in range(0, len(entries), batch):
             group = entries[c0:c0 + batch]
-            windows = np.zeros((len(group), width), np.uint8)
-            lens = np.zeros(len(group), np.int32)
-            starts = np.zeros(len(group), np.int32)
-            for k, (hist, span) in enumerate(group):
-                hl = len(hist)
-                windows[k, :hl] = np.frombuffer(hist, np.uint8)
-                windows[k, hl:hl + len(span)] = np.frombuffer(span, np.uint8)
-                lens[k], starts[k] = hl + len(span), hl
+            with trace.span("enc.windows"):
+                windows = np.zeros((len(group), width), np.uint8)
+                lens = np.zeros(len(group), np.int32)
+                starts = np.zeros(len(group), np.int32)
+                for k, (hist, span) in enumerate(group):
+                    hl = len(hist)
+                    windows[k, :hl] = np.frombuffer(hist, np.uint8)
+                    windows[k, hl:hl + len(span)] = np.frombuffer(span,
+                                                                  np.uint8)
+                    lens[k], starts[k] = hl + len(span), hl
             # levels <= 1 run the fast finder at acceleration 1, as the
             # reference's frame codec does (sharded.py:112-121); every
             # shard is launched before the first is gathered
-            shards = [encode_blocks(
-                *self._stage((windows, lens, starts), d, lo, hi),
-                hc=self.hc, deep=self.deep)
-                for d, lo, hi in self._shards(len(group))]
+            shards = []
+            for d, lo, hi in self._shards(len(group)):
+                with trace.span("enc.stage"):
+                    args = self._stage((windows, lens, starts), d, lo, hi)
+                    trace.count("enc.h2d_bytes", sum(a.nbytes for a in args))
+                with trace.span("enc.launch"):
+                    shards.append(encode_blocks(*args, hc=self.hc,
+                                                deep=self.deep))
             for out, out_len in shards:                  # ordered gather
-                out, out_len = out.cpu().numpy(), out_len.cpu().numpy()
-                payloads += [out[k, :int(out_len[k])].tobytes()
-                             for k in range(len(out_len))]
+                with trace.span("enc.collect"):
+                    out, out_len = out.cpu().numpy(), out_len.cpu().numpy()
+                    trace.count("enc.d2h_bytes", out.nbytes + out_len.nbytes)
+                with trace.span("enc.payloads"):
+                    payloads += [out[k, :int(out_len[k])].tobytes()
+                                 for k in range(len(out_len))]
         return payloads
 
     def _encode_span(self, span: bytes, batch_blocks: int | None = None
@@ -321,22 +331,29 @@ class ShardedFrameCodec:
         windows keep the default grouping, as the reference's big-block
         paths ignore it (sharded.py:304-309)."""
         bs = self.block_size
-        raws = [span[k:k + bs] for k in range(0, len(span), bs)]
-        if device_encoder_supports(self.window):
-            return list(zip(raws, self._encode_windows(
-                [(self.dict, raw) for raw in raws], self.window,
-                batch_blocks)))
-        entries, owner = [], []
-        for bi, raw in enumerate(raws):
-            for s0 in range(0, max(len(raw), 1), _SUB):
-                hist = self.dict if s0 == 0 else raw[max(s0 - _SUBH, 0):s0]
-                entries.append((hist, raw[s0:s0 + _SUB]))
-                owner.append(bi)
+        whole = device_encoder_supports(self.window)
+        with trace.span("enc.windows"):         # the blocks and sub-spans
+            raws = [span[k:k + bs] for k in range(0, len(span), bs)]
+            entries, owner = [], []
+            for bi, raw in enumerate(raws):
+                if whole:
+                    entries.append((self.dict, raw))
+                    continue
+                for s0 in range(0, max(len(raw), 1), _SUB):
+                    hist = (self.dict if s0 == 0
+                            else raw[max(s0 - _SUBH, 0):s0])
+                    entries.append((hist, raw[s0:s0 + _SUB]))
+                    owner.append(bi)
+        if whole:
+            return list(zip(raws, self._encode_windows(entries, self.window,
+                                                       batch_blocks)))
         per_block: list[list[bytes]] = [[] for _ in raws]
         for bi, p in zip(owner, self._encode_windows(entries,
                                                       _SUBH + _SUB)):
             per_block[bi].append(p)
-        return [(raw, concat_streams(ps)) for raw, ps in zip(raws, per_block)]
+        with trace.span("enc.stitch"):
+            return [(raw, concat_streams(ps))
+                    for raw, ps in zip(raws, per_block)]
 
     def compress_frame(self, data: bytes,
                        batch_blocks: int | None = None) -> bytes:
@@ -348,29 +365,39 @@ class ShardedFrameCodec:
         the blocks of each encoder launch, capped at ``_ENC_BYTES`` of
         windows, and only where the window is one whole block.  The
         frame does not depend on it."""
-        data = bytes(data)
-        pairs = self._encode_span(data, batch_blocks)
-        # declare the (known) content size so decoders can verify the
-        # round trip (reference FLG bit 3, lz4f.zig:106-122)
-        info = dataclasses.replace(self.info, content_size=len(data))
-        out = bytearray(lz4f.write_frame_header(info))
-        chash = xxh32_stream() if self.info.content_checksum else None
-        if chash is not None and data:
-            chash.update(data)
-        for raw, comp in pairs:
-            if len(comp) < len(raw):
-                stored, word = comp, len(comp)
-            else:   # store-uncompressed fallback (lz4f.zig:407-418)
-                stored, word = raw, len(raw) | _UNCOMPRESSED_BIT
-            out += word.to_bytes(4, "little")
-            out += stored
-            if self.info.block_checksum:
-                out += xxh32(stored).to_bytes(4, "little")
+        with trace.span("compress_frame"):
+            data = bytes(data)
+            pairs = self._encode_span(data, batch_blocks)
+            chash = None
+            if self.info.content_checksum:
+                with trace.span("enc.checksum"):
+                    chash = xxh32_stream()
+                    if data:
+                        chash.update(data)
+            with trace.span("enc.assemble"):
+                # declare the (known) content size so decoders can verify
+                # the round trip (reference FLG bit 3, lz4f.zig:106-122)
+                info = dataclasses.replace(self.info, content_size=len(data))
+                out = bytearray(lz4f.write_frame_header(info))
+                n_stored = 0
+                for raw, comp in pairs:
+                    if len(comp) < len(raw):
+                        stored, word = comp, len(comp)
+                    else:   # store-uncompressed fallback (lz4f.zig:407-418)
+                        stored, word = raw, len(raw) | _UNCOMPRESSED_BIT
+                        n_stored += 1
+                    out += word.to_bytes(4, "little")
+                    out += stored
+                    if self.info.block_checksum:
+                        out += xxh32(stored).to_bytes(4, "little")
 
-        out += (0).to_bytes(4, "little")
-        if chash is not None:
-            out += chash.digest().to_bytes(4, "little")
-        return bytes(out)
+                out += (0).to_bytes(4, "little")
+                if chash is not None:
+                    out += chash.digest().to_bytes(4, "little")
+                trace.count("enc.input_bytes", len(data))
+                trace.count("enc.blocks", len(pairs))
+                trace.count("enc.stored_blocks", n_stored)
+                return bytes(out)
 
     # -- decompression ----------------------------------------------------
 
@@ -379,15 +406,16 @@ class ShardedFrameCodec:
         any declared block size, against the codec's dictionary if it
         has one.  Skippable frames go to the host frame layer.
         ``routes`` then says how many blocks went which way."""
-        comp = bytes(comp)
-        self.routes, self.tier_members = {}, {}
-        parts = []
-        while True:                  # concatenated frames (lz4 CLI)
-            content, pos = self._decompress_one(comp)
-            parts.append(content)
-            if pos >= len(comp):
-                return b"".join(parts) if len(parts) > 1 else content
-            comp = comp[pos:]
+        with trace.span("decompress_frame"):
+            comp = bytes(comp)
+            self.routes, self.tier_members = {}, {}
+            parts = []
+            while True:                  # concatenated frames (lz4 CLI)
+                content, pos = self._decompress_one(comp)
+                parts.append(content)
+                if pos >= len(comp):
+                    return b"".join(parts) if len(parts) > 1 else content
+                comp = comp[pos:]
 
     def _count(self, route: str, n: int) -> None:
         if n:
@@ -395,12 +423,14 @@ class ShardedFrameCodec:
 
     def _decompress_one(self, comp: bytes) -> tuple[bytes, int]:
         """(content of the frame at the start of ``comp``, its end)."""
-        info, pos = lz4f.parse_frame_header(comp)
-        if info.frame_type == lz4f.FrameType.skippable_frame:
-            return (lz4f.decompress_frame(comp, dictionary=self.dict or None),
-                    len(comp))
-        bs = info.block_size_id.to_block_size()
-        records, pos = _scan_blocks(comp, pos, info.block_checksum)
+        with trace.span("dec.scan"):
+            info, pos = lz4f.parse_frame_header(comp)
+            if info.frame_type == lz4f.FrameType.skippable_frame:
+                return (lz4f.decompress_frame(comp,
+                                              dictionary=self.dict or None),
+                        len(comp))
+            bs = info.block_size_id.to_block_size()
+            records, pos = _scan_blocks(comp, pos, info.block_checksum)
         if info.block_mode == lz4f.BlockMode.linked:
             content = self._decode_linked(records, bs)
             if content is None:
@@ -414,15 +444,19 @@ class ShardedFrameCodec:
                         end)
             self._count("linked", len(records))
         else:
-            content = b"".join(self._decode_records(records, bs))
+            blocks = self._decode_records(records, bs)
+            with trace.span("dec.join"):
+                content = b"".join(blocks)
 
         if info.content_checksum:
             if pos + 4 > len(comp):
                 raise E.FrameSizeWrong("missing content checksum")
             expect = int.from_bytes(comp[pos:pos + 4], "little")
             pos += 4
-            if xxh32(content) != expect:
-                raise E.ContentChecksumInvalid("content checksum mismatch")
+            with trace.span("dec.checksum"):
+                if xxh32(content) != expect:
+                    raise E.ContentChecksumInvalid(
+                        "content checksum mismatch")
         if info.content_size and len(content) != info.content_size:
             raise E.FrameSizeWrong(
                 f"content size {info.content_size} != {len(content)}")
@@ -465,9 +499,10 @@ class ShardedFrameCodec:
             is_raw = np.array([u for _p, u in recs], np.int8)
             pay = b"".join(p for p, _u in recs)
             try:
-                r = native_resolve_tmap_linked(
-                    pay, offs, lens, H + offs, is_raw, dict_len=dlen,
-                    total_cap=nout, blk_cap=bs, dict_base=H - dlen)
+                with trace.span("dec.resolve"):
+                    r = native_resolve_tmap_linked(
+                        pay, offs, lens, H + offs, is_raw, dict_len=dlen,
+                        total_cap=nout, blk_cap=bs, dict_base=H - dlen)
             except E.CorruptedData as exc:
                 raise _frame_block_error(exc, "linked T-map resolve",
                                          lambda k: b0 + k) from exc
@@ -509,14 +544,19 @@ class ShardedFrameCodec:
                 continue
             # T rows at or past ``total`` are uninitialized: only the
             # live rows are staged
-            out, hist = linked_tmap_step(
-                hist,
-                torch.from_numpy(np.frombuffer(pay, np.uint8).copy()).to(dev),
-                torch.from_numpy(T[:total]).to(dev), total)
+            with trace.span("dec.stage"):
+                args = (torch.from_numpy(np.frombuffer(pay, np.uint8).copy()
+                                         ).to(dev),
+                        torch.from_numpy(T[:total]).to(dev))
+            with trace.span("dec.launch"):
+                out, hist = linked_tmap_step(hist, *args, total)
             outs.append(out)
         if not outs:
             return b""
-        return torch.cat(outs).cpu().numpy().tobytes()   # the one sync
+        with trace.span("dec.collect"):
+            out = torch.cat(outs).cpu().numpy()          # the one sync
+        with trace.span("dec.join"):
+            return out.tobytes()
 
     def _decode_records(self, payloads: list, bs: int) -> list:
         """Raw blocks of the (payload, uncompressed) records of an
@@ -599,17 +639,20 @@ class ShardedFrameCodec:
         group = max(_FRAG_TABLE_BYTES // (20 * fcap_hi), 1)
         for g0 in range(0, len(comp_idx), group):
             grp = comp_idx[g0:g0 + group]
-            lens64 = np.array([len(payloads[k][0]) for k in grp], np.int64)
-            offs64 = np.zeros_like(lens64)
-            offs64[1:] = np.cumsum(lens64)[:-1]
-            concat = b"".join(payloads[k][0] for k in grp)
             try:
-                # the tables are views of a buffer that the next resolve
-                # overwrites: each group is staged before the next one
-                r = native_resolve_blocks(
-                    concat, offs64, lens64, fcap_hi, out_cap=bs,
-                    hist_len=self.dcap, split_max=_FRAG_SPLIT_MAX,
-                    round_limit=rmax_resolve)
+                with trace.span("dec.resolve"):
+                    lens64 = np.array([len(payloads[k][0]) for k in grp],
+                                      np.int64)
+                    offs64 = np.zeros_like(lens64)
+                    offs64[1:] = np.cumsum(lens64)[:-1]
+                    concat = b"".join(payloads[k][0] for k in grp)
+                    # the tables are views of a buffer that the next
+                    # resolve overwrites: each group is staged before the
+                    # next one
+                    r = native_resolve_blocks(
+                        concat, offs64, lens64, fcap_hi, out_cap=bs,
+                        hist_len=self.dcap, split_max=_FRAG_SPLIT_MAX,
+                        round_limit=rmax_resolve)
             except E.CorruptedData as exc:
                 raise _frame_block_error(exc, "fragment resolve",
                                          lambda k: grp[k]) from exc
@@ -641,16 +684,17 @@ class ShardedFrameCodec:
             sel = rows[c0:c0 + batch]
             need = max(len(payloads[grp[j]][0]) for j in sel)
             fetch_t = dcap + next(q for q in quanta if q >= need)
-            bufs = np.zeros((len(sel), fetch_t), np.uint8)
-            if dcap:
-                bufs[:, :dcap] = np.frombuffer(self.dict, np.uint8)
-            for jj, j in enumerate(sel):
-                p = payloads[grp[j]][0]
-                bufs[jj, dcap:dcap + len(p)] = np.frombuffer(p, np.uint8)
-            ncol = max(int(nfrag[sel].max()), 1)
-            host = (bufs, fdst[sel, :ncol], fsrc[sel, :ncol],
-                    fper[sel, :ncol], fph[sel, :ncol], nfrag[sel],
-                    olens[sel].astype(np.int32))
+            with trace.span("dec.fetch"):
+                bufs = np.zeros((len(sel), fetch_t), np.uint8)
+                if dcap:
+                    bufs[:, :dcap] = np.frombuffer(self.dict, np.uint8)
+                for jj, j in enumerate(sel):
+                    p = payloads[grp[j]][0]
+                    bufs[jj, dcap:dcap + len(p)] = np.frombuffer(p, np.uint8)
+                ncol = max(int(nfrag[sel].max()), 1)
+                host = (bufs, fdst[sel, :ncol], fsrc[sel, :ncol],
+                        fper[sel, :ncol], fph[sel, :ncol], nfrag[sel],
+                        olens[sel].astype(np.int32))
             g = 16 if rmax <= 2 else 8          # wide groups when shallow
             if eng == "chase" or (eng == "mixed" and rmax > 2):
                 name = "chase"
@@ -660,24 +704,28 @@ class ShardedFrameCodec:
                 name = "frags"
             shards = []
             for d, lo, hi in self._shards(len(sel)):
-                args = self._stage(host, d, lo, hi)
-                if name == "chase":
-                    shards.append(decode_blocks_frags_chase(
-                        *args, bs, *_chase_config(rmax)))
-                elif name == "frags":
-                    shards.append(decode_blocks_frags(*args, rmax, bs))
-                else:
-                    shards.append(decode_blocks_frags_win(
-                        *args, rmax, bs, fcap=fcap, g=g))
-            out = np.concatenate([o.cpu().numpy() for o, _k in shards])
-            ok = np.concatenate([k.cpu().numpy() for _o, k in shards])
+                with trace.span("dec.stage"):
+                    args = self._stage(host, d, lo, hi)
+                with trace.span("dec.launch"):
+                    if name == "chase":
+                        shards.append(decode_blocks_frags_chase(
+                            *args, bs, *_chase_config(rmax)))
+                    elif name == "frags":
+                        shards.append(decode_blocks_frags(*args, rmax, bs))
+                    else:
+                        shards.append(decode_blocks_frags_win(
+                            *args, rmax, bs, fcap=fcap, g=g))
+            with trace.span("dec.collect"):
+                out = np.concatenate([o.cpu().numpy() for o, _k in shards])
+                ok = np.concatenate([k.cpu().numpy() for _o, k in shards])
             route = f"{name} fcap={fcap} rounds={rmax}"
             self.tier_members[route] = (self.tier_members.get(route, 0)
                                         + len(sel))
             self._count(route, int((ok != 0).sum()))
-            for jj, j in enumerate(sel):
-                if ok[jj]:
-                    results[grp[j]] = out[jj, :int(olens[j])].tobytes()
+            with trace.span("dec.join"):
+                for jj, j in enumerate(sel):
+                    if ok[jj]:
+                        results[grp[j]] = out[jj, :int(olens[j])].tobytes()
 
     def _decode_seqs(self, payloads: list, bs: int, comp_idx: list,
                      results: list) -> None:
@@ -698,41 +746,47 @@ class ShardedFrameCodec:
         batch = self._batch(max(_DEC_BYTES // bs, 1))
         for c0 in range(0, len(comp_idx), batch):
             grp = comp_idx[c0:c0 + batch]
-            bufs = np.zeros((len(grp), ccap), np.uint8)
-            tabs = np.zeros((4, len(grp), nseq_cap), np.int32)
-            nss = np.zeros(len(grp), np.int32)
-            for j, k in enumerate(grp):
-                p = payloads[k][0]
-                if len(p) > ccap:
-                    raise E.CorruptedData(
-                        f"frame block {k}: {len(p)} payload bytes exceed "
-                        f"the bound {ccap} of a {bs}-byte block")
-                try:
-                    seqs = parse_sequences(p, self.dcap)
-                except E.CorruptedData as exc:
-                    raise E.CorruptedData(
-                        f"frame block {k} is corrupt ({exc})") from exc
-                if (len(seqs) > nseq_cap
-                        or sum(a + c for a, _b, c, _d in seqs) > bs):
-                    raise E.CorruptedData(
-                        f"frame block {k} decodes to more than the frame "
-                        f"block size {bs}")
-                bufs[j, :len(p)] = np.frombuffer(p, np.uint8)
-                (tabs[0, j], tabs[1, j], tabs[2, j], tabs[3, j],
-                 nss[j]) = seqs_to_arrays(seqs, nseq_cap)
-            shards = [decode_blocks(
-                *self._stage((bufs, *tabs, nss), d, lo, hi), bs,
-                hists=None if hist is None else hist.to(d))
-                for d, lo, hi in self._shards(len(grp))]
-            out, olens, ok = (np.concatenate([r[i].cpu().numpy()
-                                              for r in shards])
-                              for i in range(3))
+            with trace.span("dec.resolve"):     # the parse, in Python
+                bufs = np.zeros((len(grp), ccap), np.uint8)
+                tabs = np.zeros((4, len(grp), nseq_cap), np.int32)
+                nss = np.zeros(len(grp), np.int32)
+                for j, k in enumerate(grp):
+                    p = payloads[k][0]
+                    if len(p) > ccap:
+                        raise E.CorruptedData(
+                            f"frame block {k}: {len(p)} payload bytes "
+                            f"exceed the bound {ccap} of a {bs}-byte block")
+                    try:
+                        seqs = parse_sequences(p, self.dcap)
+                    except E.CorruptedData as exc:
+                        raise E.CorruptedData(
+                            f"frame block {k} is corrupt ({exc})") from exc
+                    if (len(seqs) > nseq_cap
+                            or sum(a + c for a, _b, c, _d in seqs) > bs):
+                        raise E.CorruptedData(
+                            f"frame block {k} decodes to more than the "
+                            f"frame block size {bs}")
+                    bufs[j, :len(p)] = np.frombuffer(p, np.uint8)
+                    (tabs[0, j], tabs[1, j], tabs[2, j], tabs[3, j],
+                     nss[j]) = seqs_to_arrays(seqs, nseq_cap)
+            shards = []
+            for d, lo, hi in self._shards(len(grp)):
+                with trace.span("dec.stage"):
+                    args = self._stage((bufs, *tabs, nss), d, lo, hi)
+                    h = None if hist is None else hist.to(d)
+                with trace.span("dec.launch"):
+                    shards.append(decode_blocks(*args, bs, hists=h))
+            with trace.span("dec.collect"):
+                out, olens, ok = (np.concatenate([r[i].cpu().numpy()
+                                                  for r in shards])
+                                  for i in range(3))
             if not ok.all():
                 raise E.CorruptedData(
                     f"frame block {grp[int(np.flatnonzero(ok == 0)[0])]}: "
                     "the sequence-rebuild decoder rejected its table")
-            for j, k in enumerate(grp):
-                results[k] = out[j, :int(olens[j])].tobytes()
+            with trace.span("dec.join"):
+                for j, k in enumerate(grp):
+                    results[k] = out[j, :int(olens[j])].tobytes()
 
     def _decode_tmap(self, payloads: list, bs: int, comp_idx: list,
                      results: list) -> bool:
@@ -742,15 +796,18 @@ class ShardedFrameCodec:
         ``[dictionary | payload]``.  Fills ``results`` in place and
         returns True; False, with nothing done, when the native runtime
         did not load."""
-        lens64 = np.array([len(payloads[k][0]) for k in comp_idx], np.int64)
-        offs64 = np.zeros_like(lens64)
-        offs64[1:] = np.cumsum(lens64)[:-1]
-        concat = b"".join(payloads[k][0] for k in comp_idx)
         try:
-            # owned T: the staging copy below must not race a later
-            # resolve that reuses the shared buffer
-            r = native_resolve_tmap(concat, offs64, lens64, bs,
-                                    hist_len=self.dcap, reuse_buffers=False)
+            with trace.span("dec.resolve"):
+                lens64 = np.array([len(payloads[k][0]) for k in comp_idx],
+                                  np.int64)
+                offs64 = np.zeros_like(lens64)
+                offs64[1:] = np.cumsum(lens64)[:-1]
+                concat = b"".join(payloads[k][0] for k in comp_idx)
+                # owned T: the staging copy below must not race a later
+                # resolve that reuses the shared buffer
+                r = native_resolve_tmap(concat, offs64, lens64, bs,
+                                        hist_len=self.dcap,
+                                        reuse_buffers=False)
         except E.CorruptedData as exc:
             raise _frame_block_error(exc, "T-map resolve",
                                      lambda k: comp_idx[k]) from exc
@@ -767,19 +824,26 @@ class ShardedFrameCodec:
         batch = self._batch(max(_DEC_BYTES // bs, 1))
         for c0 in range(0, len(comp_idx), batch):
             grp = comp_idx[c0:c0 + batch]
-            fetch = np.zeros(
-                (len(grp), dcap + int(lens64[c0:c0 + batch].max())),
-                np.uint8)
-            if dcap:
-                fetch[:, :dcap] = np.frombuffer(self.dict, np.uint8)
-            for jj, k in enumerate(grp):
-                p = payloads[k][0]
-                fetch[jj, dcap:dcap + len(p)] = np.frombuffer(p, np.uint8)
-            glen = olens[c0:c0 + batch]
-            host = (fetch, T[c0:c0 + batch], glen.astype(np.int32))
-            shards = [decode_blocks_tmap(*self._stage(host, d, lo, hi))
-                      for d, lo, hi in self._shards(len(grp))]
-            out = np.concatenate([o.cpu().numpy() for o in shards])
-            for jj, k in enumerate(grp):
-                results[k] = out[jj, :int(glen[jj])].tobytes()
+            with trace.span("dec.fetch"):
+                fetch = np.zeros(
+                    (len(grp), dcap + int(lens64[c0:c0 + batch].max())),
+                    np.uint8)
+                if dcap:
+                    fetch[:, :dcap] = np.frombuffer(self.dict, np.uint8)
+                for jj, k in enumerate(grp):
+                    p = payloads[k][0]
+                    fetch[jj, dcap:dcap + len(p)] = np.frombuffer(p, np.uint8)
+                glen = olens[c0:c0 + batch]
+                host = (fetch, T[c0:c0 + batch], glen.astype(np.int32))
+            shards = []
+            for d, lo, hi in self._shards(len(grp)):
+                with trace.span("dec.stage"):
+                    args = self._stage(host, d, lo, hi)
+                with trace.span("dec.launch"):
+                    shards.append(decode_blocks_tmap(*args))
+            with trace.span("dec.collect"):
+                out = np.concatenate([o.cpu().numpy() for o in shards])
+            with trace.span("dec.join"):
+                for jj, k in enumerate(grp):
+                    results[k] = out[jj, :int(glen[jj])].tobytes()
         return True
