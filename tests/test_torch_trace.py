@@ -211,7 +211,32 @@ def test_stitch_of_sub_spans(data, monkeypatch):
     totals = trace.totals()
     assert totals["enc.stitch"]["count"] == 1
     assert totals["enc.windows"]["count"] == 2   # the split, one launch group
-    assert trace.counters()["enc.h2d_bytes"] == 4 * (3072 + 8)
+    c = trace.counters()
+    assert c["enc.h2d_bytes"] == 4 * (3072 + 8)
+    # two blocks of two sub-spans: the first's tail of each is scanned
+    assert c["enc.stitch_blocks"] == 2 and c["enc.stitch_scans"] == 2
+
+
+@pytest.mark.parametrize("sub,scans", [(BLOCK, 0), (BLOCK // 2, 2),
+                                       (BLOCK // 4, 6), (1000, 8)])
+def test_stitch_counts_blocks_and_scans(data, untraced, monkeypatch, sub,
+                                        scans):
+    """``enc.stitch_blocks`` counts the blocks joined and
+    ``enc.stitch_scans`` the parts whose tail was scanned: none of a
+    block of one sub-span, which comes back as the encoder wrote it, and
+    k - 1 of a block of k."""
+    monkeypatch.setattr(sharded, "device_encoder_supports", lambda w: False)
+    monkeypatch.setattr(sharded, "_SUB", sub)
+    monkeypatch.setattr(sharded, "_SUBH", 1024)
+    off = _codec().compress_frame(data)
+    trace.enable()
+    on = _codec().compress_frame(data)
+    assert on == off and lz4f.decompress_frame(on) == data
+    if sub == BLOCK:                 # one sub-span: the whole-block frame
+        assert on == untraced[0]
+    c = trace.counters()
+    assert c["enc.stitch_blocks"] == 2 and c["enc.stitch_scans"] == scans
+    assert trace.totals()["enc.stitch"]["count"] == 1
 
 
 def test_reset_clears_everything(data):

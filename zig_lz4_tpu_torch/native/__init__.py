@@ -118,6 +118,10 @@ def _load():
             u8p, i64p, i64p, ctypes.c_size_t, i32p, i32p, i32p, i32p,
             i32p, ctypes.c_size_t, ctypes.c_size_t]
 
+        lib.lz4tpu_scan_tail.restype = ctypes.c_int64
+        lib.lz4tpu_scan_tail.argtypes = [
+            u8p, ctypes.c_size_t, i64p, i64p, i64p]
+
         lib.lz4tpu_resolve_blocks.restype = ctypes.c_int64
         lib.lz4tpu_resolve_blocks.argtypes = [
             u8p, i64p, i64p, ctypes.c_size_t, i32p, i32p, i32p, i32p,
@@ -318,6 +322,26 @@ def native_parse_blocks(comp, offs, lens, nseq_cap: int,
         raise_block_error(3, f"native parse_blocks: block {-int(r)-1} "
                           "corrupt")
     return lit, lsrc, ml, off, ns
+
+
+def native_scan_tail(part):
+    """The tail of one block stream (zero-copy), or None without the
+    native runtime: ``(tok_pos, lit_start, lit_len)``, the position of
+    its final literals-only sequence's token and that sequence's
+    literals; ``(n, n, 0)`` for a stream that ends on a match.  Raises
+    ``CorruptedData`` on a stream cut inside a sequence."""
+    lib = _load()
+    if lib is None:
+        return None
+    arr, ptr = _u8view(part)
+    tok, start, lit = ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int64()
+    r = lib.lz4tpu_scan_tail(ptr, len(part), ctypes.byref(tok),
+                             ctypes.byref(start), ctypes.byref(lit))
+    if r < 0:
+        from ..errors import raise_block_error
+        raise_block_error(-r, "native scan_tail: stream cut inside a "
+                          "sequence")
+    return tok.value, start.value, lit.value
 
 
 def native_compress_hc(src, level: int = 9,

@@ -503,6 +503,49 @@ int64_t lz4tpu_parse_blocks(const uint8_t* comp, const int64_t* offs,
     return 0;
 }
 
+// Tail of one block stream, for joining sub-span streams into one block
+// (mirrors ops/block.py::_scan_tail): the position of the final
+// literals-only sequence's token, and where its literals start and how
+// many there are.  A stream that ends on a match gives (n, n, 0).
+// Returns 0, or ERR_CORRUPT on a stream cut inside a sequence.
+int64_t lz4tpu_scan_tail(const uint8_t* src, size_t n, int64_t* tok_pos,
+                         int64_t* lit_start, int64_t* lit_len) {
+    size_t ip = 0;
+    while (ip < n) {
+        const size_t tp = ip;
+        const uint8_t token = src[ip++];
+        size_t l = token >> 4;
+        if (l == 15) {
+            for (;;) {
+                if (ip >= n) return ERR_CORRUPT;
+                uint8_t x = src[ip++];
+                l += x;
+                if (x != 255) break;
+            }
+        }
+        if (l > n - ip) return ERR_CORRUPT;
+        const size_t ls = ip;
+        ip += l;
+        if (ip == n) {
+            *tok_pos = (int64_t)tp;
+            *lit_start = (int64_t)ls;
+            *lit_len = (int64_t)l;
+            return 0;
+        }
+        if (n - ip < 2) return ERR_CORRUPT;
+        ip += 2;
+        if ((token & 15) == 15) {
+            for (;;) {
+                if (ip >= n) return ERR_CORRUPT;
+                if (src[ip++] != 255) break;
+            }
+        }
+    }
+    *tok_pos = *lit_start = (int64_t)n;
+    *lit_len = 0;
+    return 0;
+}
+
 // ---------------------------------------------------------------------
 // Fragment resolution for round-bounded device decode.
 //

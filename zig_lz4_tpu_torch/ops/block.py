@@ -44,6 +44,8 @@ top of ``_compress_sequences`` in ``stream.py``.
 
 from __future__ import annotations
 
+import re
+
 from ..constants import (
     ACCELERATION_MAX,
     HASH_PRIME,
@@ -60,6 +62,7 @@ from ..constants import (
     compress_bound,
 )
 from ..errors import CorruptedData, InputTooLarge, OutputTooSmall
+from ..native import native_scan_tail
 
 __all__ = [
     "compress_bound",
@@ -527,48 +530,105 @@ def _scan_tail(part: bytes):
     no offset field) -- a form only valid at end-of-block.  Returns
     the stream up to (excluding) that tail sequence's header, plus the
     tail's literal bytes.  A stream ending exactly on a match returns
-    (part, b"")."""
+    (part, b"").  Raises ``CorruptedData`` on a stream cut inside a
+    sequence."""
     ip, n = 0, len(part)
-    while ip < n:
-        tok_pos = ip
-        token = part[ip]
-        ip += 1
-        lit = token >> 4
-        if lit == 15:
-            while True:
-                x = part[ip]
-                ip += 1
-                lit += x
-                if x != 255:
-                    break
-        lit_start = ip
-        ip += lit
-        if ip >= n:                       # literals-only tail
-            return part[:tok_pos], part[lit_start:lit_start + lit]
-        ip += 2                           # offset
-        ml = token & 15
-        if ml == 15:
-            while True:
-                x = part[ip]
-                ip += 1
-                ml += x
-                if x != 255:
-                    break
+    try:
+        while ip < n:
+            tok_pos = ip
+            token = part[ip]
+            ip += 1
+            lit = token >> 4
+            if lit == 15:
+                while True:
+                    x = part[ip]
+                    ip += 1
+                    lit += x
+                    if x != 255:
+                        break
+            lit_start = ip
+            ip += lit
+            if ip == n:                       # literals-only tail
+                return part[:tok_pos], part[lit_start:]
+            ip += 2                           # offset
+            ml = token & 15
+            if ml == 15:
+                while True:
+                    x = part[ip]
+                    ip += 1
+                    ml += x
+                    if x != 255:
+                        break
+    except IndexError:                    # cut inside a length
+        ip = n + 1
+    if ip > n:                            # or inside literals or offset
+        raise CorruptedData("block stream cut inside a sequence")
     return part, b""
 
 
+def _tail(part: bytes) -> tuple[int, int, int]:
+    """(token position, literals start, literal count) of a stream's
+    literals-only tail sequence, ``(n, n, 0)`` where it ends on a match:
+    natively where the runtime loaded, else by ``_scan_tail``."""
+    got = native_scan_tail(part)
+    if got is None:
+        body, tail = _scan_tail(part)
+        got = len(body), len(part) - len(tail), len(tail)
+    return got
+
+
+_FF_RUN = re.compile(rb"\xff*")
+
+
+def _first_run(part: bytes) -> tuple[int, int]:
+    """(literal count, header length) of a stream's first sequence."""
+    lit = part[0] >> 4
+    if lit < 15:
+        return lit, 1
+    end = _FF_RUN.match(part, 1).end()       # the 255s of the run's length
+    if end >= len(part):
+        raise CorruptedData("block stream cut inside a sequence")
+    return lit + 255 * (end - 1) + part[end], end + 1
+
+
 def _emit_run_header(lit_len: int, ml_nibble: int) -> bytes:
-    out = bytearray()
-    if lit_len >= 15:
-        out.append((15 << 4) | ml_nibble)
-        rem = lit_len - 15
-        while rem >= 255:
-            out.append(255)
-            rem -= 255
-        out.append(rem)
+    if lit_len < 15:
+        return bytes(((lit_len << 4) | ml_nibble,))
+    rem = lit_len - 15
+    return (bytes(((15 << 4) | ml_nibble,)) + b"\xff" * (rem // 255)
+            + bytes((rem % 255,)))
+
+
+def _concat(parts) -> tuple[bytes, int]:
+    """``concat_streams(parts)``, and the number of parts whose tail it
+    scanned."""
+    # an empty part and a part of one empty sequence add nothing
+    parts = [p for p in map(bytes, parts) if p and p != b"\x00"]
+    if len(parts) <= 1:
+        return (parts[0] if parts else b""), 0
+    out, pending, npend = [], [], 0
+    for part in parts[:-1]:
+        tok, start, lit = _tail(part)
+        view = memoryview(part)
+        if tok:                               # a body: pending folds in
+            if npend:
+                first, h = _first_run(part)
+                out += [_emit_run_header(first + npend, part[0] & 15),
+                        *pending, view[h:tok]]
+            else:
+                out.append(view[:tok])
+            pending, npend = [], 0
+        if lit:                               # all-literal parts cascade
+            pending.append(view[start:start + lit])
+            npend += lit
+    last = parts[-1]                          # its tail never moves
+    if npend:
+        first, h = _first_run(last)
+        out += [_emit_run_header(first + npend, last[0] & 15), *pending,
+                memoryview(last)[h:]]
     else:
-        out.append((lit_len << 4) | ml_nibble)
-    return bytes(out)
+        out.append(last)
+    return b"".join(out), len(parts) - 1
 
 
 def concat_streams(parts) -> bytes:
@@ -583,35 +643,11 @@ def concat_streams(parts) -> bytes:
     literal run -- offsets are output-relative and unaffected; only
     literal-run headers are rewritten.  reference wire format:
     src/lz4.zig:89-251 (sequence grammar).
+
+    Only the tails that move are found: those of every part but the
+    last (natively where the runtime loaded), and one part comes back
+    as it is.  The parts are block streams as an encoder writes them:
+    a tail's literal run in its shortest header, with a match-length
+    nibble of 0.
     """
-    out = bytearray()
-    pending = b""
-    for part in parts:
-        part = bytes(part)
-        if not part:
-            continue
-        body, tail = _scan_tail(part)
-        if not body:                      # all-literal part: cascade
-            pending += tail
-            continue
-        if pending:
-            token = body[0]
-            ip = 1
-            lit = token >> 4
-            if lit == 15:
-                while True:
-                    x = body[ip]
-                    ip += 1
-                    lit += x
-                    if x != 255:
-                        break
-            out += _emit_run_header(lit + len(pending), token & 15)
-            out += pending
-            out += body[ip:]
-        else:
-            out += body
-        pending = tail
-    if pending:
-        out += _emit_run_header(len(pending), 0)
-        out += pending
-    return bytes(out)
+    return _concat(parts)[0]

@@ -65,7 +65,7 @@ from .. import trace
 from ..constants import WINDOW_SIZE, compress_bound
 from ..native import (native_resolve_blocks, native_resolve_tmap,
                       native_resolve_tmap_linked)
-from ..ops.block import concat_streams
+from ..ops.block import _concat
 from ..ops.torch_block import (device_encoder_supports, encode_blocks,
                                level_params)
 from ..ops.torch_decode import (MAX_SEQS, decode_blocks,
@@ -352,8 +352,14 @@ class ShardedFrameCodec:
                                                       _SUBH + _SUB)):
             per_block[bi].append(p)
         with trace.span("enc.stitch"):
-            return [(raw, concat_streams(ps))
-                    for raw, ps in zip(raws, per_block)]
+            pairs, scans = [], 0
+            for raw, ps in zip(raws, per_block):
+                block, n = _concat(ps)
+                pairs.append((raw, block))
+                scans += n
+            trace.count("enc.stitch_blocks", len(pairs))
+            trace.count("enc.stitch_scans", scans)
+            return pairs
 
     def compress_frame(self, data: bytes,
                        batch_blocks: int | None = None) -> bytes:
