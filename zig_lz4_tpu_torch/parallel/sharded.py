@@ -297,6 +297,9 @@ class ShardedFrameCodec:
                     windows[k, hl:hl + len(span)] = np.frombuffer(span,
                                                                   np.uint8)
                     lens[k], starts[k] = hl + len(span), hl
+            if self.deep:       # from the host arrays: no synchronisation
+                trace.count("enc.deep_windows", len(group))
+                trace.count("enc.deep_window_bytes", int(lens.sum()))
             # levels <= 1 run the fast finder at acceleration 1, as the
             # reference's frame codec does (sharded.py:112-121); every
             # shard is launched before the first is gathered
@@ -312,6 +315,9 @@ class ShardedFrameCodec:
                 with trace.span("enc.collect"):
                     out, out_len = out.cpu().numpy(), out_len.cpu().numpy()
                     trace.count("enc.d2h_bytes", out.nbytes + out_len.nbytes)
+                    if self.deep:
+                        trace.count("enc.deep_payload_bytes",
+                                    int(out_len.sum()))
                 with trace.span("enc.payloads"):
                     payloads += [out[k, :int(out_len[k])].tobytes()
                                  for k in range(len(out_len))]
