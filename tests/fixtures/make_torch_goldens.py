@@ -46,6 +46,13 @@ The port (zig_lz4_tpu_torch) is compared byte for byte with these:
   400,000-byte corpus prefix at levels 12 (1 MB blocks; 64 KB blocks
   behind the dictionary) and 10 (256 KB blocks), and the short frames of
   ``WIDE_DEEP_SMALL`` (group ``wide_deep_frames``).
+* ``narrow_frames.npz`` -- the SHA-256 of the JAX codec's level-9
+  frames at 1 MB blocks of inputs shorter than one sub-span window
+  (``NARROW_FRAMES``): single blocks of 48,771, 65,536 and 98,304 corpus
+  bytes, one 499,712-byte block (two sub-spans) and 65,536 bytes of
+  ``ff_words`` (group ``narrow``).  The port launches such windows
+  narrower than the reference's 327,680 bytes (``parallel/sharded.py``,
+  ``_sub_width``); these hold it to the reference's frames.
 * ``frags4k.npz`` -- the three fragment-ladder decoders
   (``_decode_block_frags``, ``_decode_block_frags_win``,
   ``_decode_block_frags_chase``), jitted and vmapped, on the fragment
@@ -59,7 +66,8 @@ Run once from the repository root (needs JAX):
 or name groups as arguments (``64k``, ``frames4k``, ``levels4k``,
 ``levels64k``, ``levels_frames4k``, ``deep4k``, ``deep64k_l10``,
 ``deep64k_l11``, ``deep64k_l12``, ``deep_frames4k``, ``seqdec4k``,
-``frags4k``, ``wide``, ``wide_deep``, ``wide_deep_frames``, ``sort2``);
+``frags4k``, ``wide``, ``wide_deep``, ``wide_deep_frames``, ``narrow``,
+``sort2``);
 the groups are independent, so they may run as separate processes side
 by side (``seqdec4k`` reads the ``levels4k`` file).
 """
@@ -151,6 +159,13 @@ WIDE_DEEP_SMALL = {
     "small_256k_l12": (b"256 KB blocks", "max256KB", 12, None),
     "deep_wide_dict_l12": (b"deep wide", "max64KB", 12, b"d" * 100),
     "deep_wide_4m_l12": (b"deep wide", "max4MB", 12, None)}
+#: level-9 frames at 1 MB blocks of inputs shorter than a sub-span
+#: window: name -> (make_corpus(CORPUS_MB) offset, length), or (None,
+#: length) for ``ff_words(length)``
+NARROW_OUT = os.path.join(HERE, "narrow_frames.npz")
+NARROW_FRAMES = {"b48771": (3 * BLK, 48_771), "b65536": (18 * BLK, 65_536),
+                 "b98304": (29 * BLK, 98_304),
+                 "b499712": (4 * BLK, 499_712), "ff65536": (None, 65_536)}
 SORT2_OUT = os.path.join(HERE, "sort2_probe.npz")
 #: keys of the probe golden: 65,536 from [0, SORT2_RANGE), seed 2
 SORT2_RANGE = 64
@@ -389,6 +404,59 @@ def wide(corpus: bytes) -> None:
     np.savez_compressed(WIDE_OUT, **arrays)
 
 
+def ff_words(n: int, seed: int = 23) -> bytes:
+    """``n`` bytes in groups of four words: 0xFFFFFFFF, zero, then two
+    words each zero, small (2-255) or random below 2^24, so that many
+    positions carry the 12-byte sort key ``(0xFFFFFFFF, 0, 0)`` of the
+    bytes past a window's valid end, or a key just after it.  The last 56 bytes end
+    the whole words: ``(0xFFFFFFFF, 0, 0)``, then ``(0xFFFFFFFF, 5)`` and
+    ``(0xFFFFFFFF, 6)``, two words that occur nowhere else, and, 16 bytes
+    before the end, the one position keyed ``(0xFFFFFFFF, 0, 1)``, which
+    sorts right after the bytes past the end: with too few of those
+    between, its probe reaches the first position and takes it.  The
+    bytes past the last whole word are 0xFF."""
+    rng = np.random.default_rng(seed)
+    g = np.zeros((-(-n // 16), 4), np.uint64)
+    g[:, 0] = 0xFFFFFFFF
+    for c in (2, 3):
+        kind = rng.integers(0, 3, len(g))
+        g[:, c] = np.where(kind == 0, 0, np.where(
+            kind == 1, rng.integers(2, 256, len(g)),
+            rng.integers(2, 1 << 24, len(g))))
+    data = bytearray(g.astype("<u4").tobytes()[:n - n % 4])
+    if len(data) >= 56:
+        F = 0xFFFFFFFF
+        data[-56:] = np.array([F, 0, 0, 0, F, 5, F, 6, 0x9E3779B9,
+                               0x7F4A7C15, F, 0, 1, 7], "<u4").tobytes()
+    return bytes(data) + b"\xff" * (n % 4)
+
+
+def narrow_input(corpus: bytes, name: str) -> bytes:
+    """The input of ``NARROW_FRAMES`` entry ``name``."""
+    off, n = NARROW_FRAMES[name]
+    return ff_words(n) if off is None else corpus[off:off + n]
+
+
+def narrow(corpus: bytes) -> None:
+    import hashlib
+
+    from zig_lz4_tpu import frame as ref_frame
+    from zig_lz4_tpu.parallel import ShardedFrameCodec
+
+    ref = ShardedFrameCodec(compression_level=9,
+                            block_size_id=ref_frame.BlockSizeID.max1MB)
+    arrays = {"corpus_mb": np.int64(CORPUS_MB)}
+    for name in NARROW_FRAMES:
+        data = narrow_input(corpus, name)
+        frame = ref.compress_frame(data)
+        assert ref_frame.decompress_frame(frame) == data
+        arrays[f"frame_{name}_len"] = np.int64(len(frame))
+        arrays[f"frame_{name}_sha256"] = np.array(
+            hashlib.sha256(frame).hexdigest())
+        print(f"frame {name}: {len(data)} -> {len(frame)} bytes", flush=True)
+    np.savez_compressed(NARROW_OUT, **arrays)
+
+
 def _small_frames(entries: dict) -> dict:
     """frame_<name> -> the JAX codec's frame of each ``WIDE_SMALL``-like
     entry (data, block size name, level, dictionary)."""
@@ -549,6 +617,7 @@ def main():
               "wide": lambda: wide(corpus),
               "wide_deep": lambda: wide_deep(corpus),
               "wide_deep_frames": lambda: wide_deep_frames(corpus),
+              "narrow": lambda: narrow(corpus),
               "sort2": sort2}
     for name in sys.argv[1:] or groups:
         groups[name]()

@@ -13,7 +13,8 @@ bytes do not depend on the mesh.
 
   compress:   frame data -> [B, window] matrix of windows
               ``[dictionary | block]`` on the device (blocks over 256 KB
-              as 256 KB sub-spans behind the 64 KB before each) ->
+              as 256 KB sub-spans behind the 64 KB before each, each
+              launch group as wide as its longest window needs) ->
               encoder kernels (ops/torch_block) -> host gather of
               (payload, length), sub-span streams joined -> frame
               assembly on the host, with the store-uncompressed fallback
@@ -99,6 +100,13 @@ _ENC_BYTES = 1024 * 65536
 #: the bytes depend on them)
 _SUB = 262144
 _SUBH = 65536
+#: a launch group of sub-span windows runs at the least multiple of
+#: _FIT_STEP at least _FIT_PAD bytes past its longest window, and at
+#: least _FIT_MIN, the first such multiple past the shared-memory
+#: finders' 64 KB, so the group stays on the wide finder (``_sub_width``)
+_FIT_STEP = 4096
+_FIT_PAD = 16
+_FIT_MIN = 65536 + _FIT_STEP
 #: output bytes per decode launch; T is staged at 4 bytes per output
 #: byte, so 64 MB of output stages 256 MB of T
 _DEC_BYTES = 64 << 20
@@ -138,6 +146,22 @@ def _chase_config(depth: int) -> tuple[int, int, int]:
     dense = min(e, 5)
     dbl = e - dense
     return dense, dbl, 4096 if dbl else 0
+
+
+def _sub_width(longest: int) -> int:
+    """Width of a launch group of sub-span windows whose longest window
+    holds ``longest`` bytes: ``longest + _FIT_PAD`` rounded up to
+    ``_FIT_STEP``, at least ``_FIT_MIN`` and at most ``_SUBH + _SUB``,
+    so a group that holds a full sub-span window launches at that width.
+
+    Below the deep levels the payloads do not depend on the width: a
+    probe rejects any neighbour past ``n - 4``, and the rows from
+    ``n - 3`` on share one key and sort as one group by position, so
+    with 19 or more of them no probe (at most 9 sorted rows away)
+    reaches across them to another valid row.  The deep levels' bytes
+    may depend on it (``_encode_span``)."""
+    w = -(-(longest + _FIT_PAD) // _FIT_STEP) * _FIT_STEP
+    return min(max(w, _FIT_MIN), _SUBH + _SUB)
 
 
 def _scan_blocks(comp: bytes, pos: int, block_checksum: bool):
@@ -274,13 +298,17 @@ class ShardedFrameCodec:
     # -- compression ----------------------------------------------------
 
     def _encode_windows(self, entries: list, width: int,
-                        batch_blocks: int | None = None) -> list[bytes]:
+                        batch_blocks: int | None = None,
+                        fit: bool = False) -> list[bytes]:
         """Payloads of ``entries`` = [(history, span)]: windows
         ``[history | span]`` of ``width`` bytes that emit from the
-        history's end, ``_ENC_BYTES`` of windows per batch, or
-        ``batch_blocks`` windows rounded by ``_batch`` where that is
-        fewer, each batch one encoder launch a shard.  The payloads do
-        not depend on the batching."""
+        history's end, ``_ENC_BYTES`` of windows of ``width`` bytes per
+        batch, or ``batch_blocks`` windows rounded by ``_batch`` where
+        that is fewer, each batch one encoder launch a shard.  With
+        ``fit`` (sub-span windows) each batch launches at the
+        ``_sub_width`` of its longest window instead, counted in
+        ``enc.narrow_windows`` where that is below ``width``.  The
+        payloads depend neither on the batching nor on the width."""
         batch = self._batch(max(_ENC_BYTES // width, 1))
         if batch_blocks:
             batch = min(self._batch(batch_blocks), batch)
@@ -288,7 +316,12 @@ class ShardedFrameCodec:
         for c0 in range(0, len(entries), batch):
             group = entries[c0:c0 + batch]
             with trace.span("enc.windows"):
-                windows = np.zeros((len(group), width), np.uint8)
+                w = width
+                if fit:
+                    w = _sub_width(max(len(h) + len(s) for h, s in group))
+                    if w < width:
+                        trace.count("enc.narrow_windows", len(group))
+                windows = np.zeros((len(group), w), np.uint8)
                 lens = np.zeros(len(group), np.int32)
                 starts = np.zeros(len(group), np.int32)
                 for k, (hist, span) in enumerate(group):
@@ -331,8 +364,11 @@ class ShardedFrameCodec:
         dictionary's end.  Blocks whose windows the encoder does not take
         (``device_encoder_supports``: those over 256 KB) encode as
         ``_SUB``-byte sub-spans, each behind the 64 KB before it (the
-        dictionary for the first), and the sub-span streams join into
-        one block stream (``_encode_raws_big``, sharded.py:209-255).
+        dictionary for the first), each launch group at the width its
+        longest window needs below the deep levels (``_sub_width``), and
+        the sub-span streams
+        join into one block stream (``_encode_raws_big``,
+        sharded.py:209-255).
         ``batch_blocks`` groups whole-block windows only: the sub-span
         windows keep the default grouping, as the reference's big-block
         paths ignore it (sharded.py:304-309)."""
@@ -353,9 +389,12 @@ class ShardedFrameCodec:
         if whole:
             return list(zip(raws, self._encode_windows(entries, self.window,
                                                        batch_blocks)))
+        # the deep levels keep full windows: their extension pool grows
+        # with the width (512 chosen rows a 64 KB of it), and their tier
+        # operands read ranks up to 1 KB past a row
         per_block: list[list[bytes]] = [[] for _ in raws]
-        for bi, p in zip(owner, self._encode_windows(entries,
-                                                      _SUBH + _SUB)):
+        for bi, p in zip(owner, self._encode_windows(
+                entries, _SUBH + _SUB, fit=not self.deep)):
             per_block[bi].append(p)
         with trace.span("enc.stitch"):
             pairs, scans = [], 0
