@@ -118,6 +118,26 @@ def test_mesh_devices():
         assert blocks_mesh().size == local_device_count()
 
 
+@pytest.mark.parametrize("rows", range(10))
+@pytest.mark.parametrize("n", range(1, 5))
+def test_mesh_split(n, rows):
+    """The split every batch route stages by: ``ceil(rows / n)`` rows a
+    device, contiguous and in the mesh's order, the pad rows of the
+    reference's layout not staged (no empty shard); a batch is a
+    multiple of the mesh's size with at least one row a device."""
+    devs = tuple(torch.device("cuda", k) for k in range(n))
+    mesh = BlocksMesh(devs)
+    shards = mesh.shards(rows)
+    per = -(-rows // n)
+    staged = [i for _d, lo, hi in shards for i in range(lo, hi)]
+    assert staged == list(range(rows))      # contiguous, in order, once
+    assert [d for d, _lo, _hi in shards] == list(devs[:len(shards)])
+    assert all(hi - lo == per for _d, lo, hi in shards[:-1])
+    assert all(0 < hi - lo <= per for _d, lo, hi in shards)
+    assert mesh.batch(rows) % n == 0 and mesh.batch(rows) >= n
+    assert mesh.batch(rows) == (rows - rows % n if rows >= n else n)
+
+
 def test_one_device_codec_is_a_mesh_of_one():
     c = ShardedFrameCodec(device="cpu")
     assert c.n_devices == 1 and c.mesh.devices == (torch.device("cpu"),)

@@ -4,12 +4,13 @@
 sub-span windows ``[history | span]`` of up to 327,680 bytes (``_SUBH +
 _SUB``); a launch group whose windows are all shorter launches at the
 ``_sub_width`` of its longest, at least 69,632 bytes, so that it stays
-on the wide finder (``parallel/sharded.py``).  These tests hold that the
-bytes do not change with the width: ``encode_blocks`` payloads at the
-rule's width against those at 327,680 bytes, on the plain versions (the
-CPU route) and on the kernels (``cuda``), for window lengths from one
-byte to a full window and for contents whose sort keys equal or follow
-the key of the bytes past a window's end (``make_torch_goldens.ff_words``);
+on the wide finder (the encoder's rule, ``ops/torch_block.py``).  These
+tests hold that the bytes do not change with the width:
+``encode_blocks`` payloads at the rule's width against those at 327,680
+bytes, on the plain versions (the CPU route) and on the kernels
+(``cuda``), for window lengths from one byte to a full window and for
+contents whose sort keys equal or follow the key of the bytes past a
+window's end (``make_torch_goldens.ff_words``);
 the port's frames of short inputs against the JAX reference's
 (``tests/fixtures/narrow_frames.npz``, written by ``make_torch_goldens.py
 narrow``); and the counter ``enc.narrow_windows``.  The deep levels keep
@@ -131,21 +132,24 @@ def _check_frame(corpus2: bytes, name: str, device) -> None:
 
 def test_the_width_rule():
     """The least multiple of 4,096 at least 16 bytes past the longest
-    window, at least 69,632 (the wide finder) and at most 327,680."""
-    assert tb._MAX_SHARED_BLK < sharded._FIT_MIN == 69632
+    window, at least 69,632 (the wide finder) and at most 327,680; the
+    full width at the deep levels."""
+    assert tb._MAX_SHARED_BLK < tb._FIT_MIN == 69632
     for n, want in ((1, 69632), (48771, 69632), (65536, 69632),
                     (69616, 69632), (69617, 73728), (98304, 102400),
                     (262144, 266240), (65536 + 237568, 307200),
                     (FULL - 16, FULL), (FULL - 7, FULL), (FULL, FULL)):
-        assert sharded._sub_width(n) == want, n
+        assert tb._sub_width(n, FULL) == want, n
         assert want >= min(n + 16, FULL) and want % 4096 == 0
+        assert all(tb._sub_width(n, FULL, deep) == FULL
+                   for deep in (1, 2, 3))
 
 
 @pytest.mark.parametrize("level,n,content", CPU_CASES)
 def test_plain_payloads_do_not_depend_on_the_width(level, n, content):
-    width = sharded._sub_width(n)
+    width = tb._sub_width(n, FULL)
     if width == FULL:                # the cap: launched as it always was
-        assert n + sharded._FIT_PAD > FULL
+        assert n + tb._FIT_PAD > FULL
         return
     assert _payloads([content], n, width, level) == \
         _payloads([content], n, FULL, level)
@@ -195,7 +199,7 @@ def test_kernel_payloads_do_not_depend_on_the_width(cuda, level, n):
     """Every content at once, at the rule's width and at 327,680 bytes,
     on ``enc_match_wide`` (at hc 0 for level 1) and ``enc_parse_emit``;
     at level 9 the first two contents against the plain route too."""
-    width = sharded._sub_width(n)
+    width = tb._sub_width(n, FULL)
     got = _payloads(CONTENTS, n, width, level, cuda)
     assert got == _payloads(CONTENTS, n, FULL, level, cuda)
     if width < FULL and level == 9:  # and the plain route's bytes

@@ -82,11 +82,9 @@ def _sharded_roundtrip(mesh, *, blk: int, dict_len: int,
     """One sharded encode step and one sharded fragment-decode step
     over ``mesh`` at the given window geometry (reference:
     ``__graft_entry__.py:61-170``); asserts an exact decode."""
-    n = mesh.size
-    B = n * blocks_per_device
+    B = mesh.size * blocks_per_device
     first = mesh.devices[0]
-    shards = [(d, k * blocks_per_device, (k + 1) * blocks_per_device)
-              for k, d in enumerate(mesh.devices)]
+    shards = mesh.shards(B)             # blocks_per_device rows a device
 
     # --- encode: one shard a device, every window [dictionary | block]
     windows, lens, starts = _example_batch(B, blk, dict_len=dict_len)

@@ -93,6 +93,13 @@ _W = 8
 #: window and its order fill 196 KB of shared memory at 64 KB); wider
 #: windows go to ``enc_match_wide`` and ``enc_deep_match_wide``
 _MAX_SHARED_BLK = 65536
+#: a launch group of sub-span windows runs at the least multiple of
+#: _FIT_STEP at least _FIT_PAD bytes past its longest window, and at
+#: least _FIT_MIN, the first such multiple past the shared-memory
+#: finders' windows, so the group stays on the wide finder (``_sub_width``)
+_FIT_STEP = 4096
+_FIT_PAD = 16
+_FIT_MIN = _MAX_SHARED_BLK + _FIT_STEP
 #: the candidate pack ((cand + 1) << 12) | ... fits int32 only while
 #: cand + 1 < 2^19 (jax_block.py:458)
 _PACK_LIMIT = 1 << 19
@@ -784,6 +791,27 @@ def match_candidates(blocks: torch.Tensor, lens: torch.Tensor,
     elif B:
         launch("enc_match_fast", blocks, lens, pk, B, blk, W, probes)
     return pk
+
+
+def _sub_width(longest: int, width: int, deep: int = 0) -> int:
+    """Width of a launch group of sub-span windows ``width`` bytes wide
+    whose longest window holds ``longest`` bytes: ``longest + _FIT_PAD``
+    rounded up to ``_FIT_STEP``, at least ``_FIT_MIN`` and at most
+    ``width``, so a group that holds a full window launches at ``width``.
+
+    Below the deep levels the payloads do not depend on the width: a
+    probe rejects any neighbour past ``n - 4``, and the rows from
+    ``n - 3`` on share one key and sort as one group by position, so
+    with 19 or more of them no probe (at most 9 sorted rows away)
+    reaches across them to another valid row.  The deep levels
+    (``deep`` 1..3) keep ``width``: their extension pool grows with the
+    width (``_EXT_POOL`` chosen rows a 64 KB of it), and their tier
+    operands read ranks up to 1 KB past a row, so their bytes may
+    depend on it."""
+    if deep:
+        return width
+    w = -(-(longest + _FIT_PAD) // _FIT_STEP) * _FIT_STEP
+    return min(max(w, _FIT_MIN), width)
 
 
 #: rows a thread of a wide finder's CTA holds in registers during a radix

@@ -4,7 +4,8 @@
 Every independent frame block is its own compression problem, so the
 one axis of parallelism is blocks: a batch of blocks is cut into as many
 contiguous shards as the mesh has devices, each shard runs on its
-device, and the results are gathered in order.  The mesh is a tuple of
+device, and the results are gathered in order (``BlocksMesh.batch`` and
+``BlocksMesh.shards`` hold that rule).  The mesh is a tuple of
 ``torch.device``; a device may appear more than once (two shards on one
 card, or ``["cpu"] * 8`` in tests, as the reference's tests lay their
 mesh over 8 virtual CPU devices).
@@ -30,6 +31,21 @@ class BlocksMesh:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    def batch(self, rows: int) -> int:
+        """``rows`` rounded down to a multiple of the mesh's size, and at
+        least one row a device (reference: sharded.py:317-320)."""
+        return max(rows // self.size, 1) * self.size
+
+    def shards(self, rows: int) -> list[tuple[torch.device, int, int]]:
+        """The contiguous shards of a batch of ``rows`` rows, as
+        (device, lo, hi) in order.  The batch is laid out as the
+        reference pads it, ``ceil(rows / size)`` rows a device
+        (sharded.py:321-325); the pad rows are not staged, so a device
+        whose part is only padding gets no shard."""
+        per = -(-rows // self.size)
+        return [(d, k * per, min((k + 1) * per, rows))
+                for k, d in enumerate(self.devices) if k * per < rows]
 
 
 def local_device_count() -> int:

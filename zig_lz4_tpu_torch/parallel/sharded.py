@@ -67,8 +67,8 @@ from ..constants import WINDOW_SIZE, compress_bound
 from ..native import (native_resolve_blocks, native_resolve_tmap,
                       native_resolve_tmap_linked)
 from ..ops.block import _concat
-from ..ops.torch_block import (device_encoder_supports, encode_blocks,
-                               level_params)
+from ..ops.torch_block import (_sub_width, device_encoder_supports,
+                               encode_blocks, level_params)
 from ..ops.torch_decode import (MAX_SEQS, decode_blocks,
                                 decode_blocks_tmap,
                                 device_seq_decoder_supports,
@@ -100,13 +100,6 @@ _ENC_BYTES = 1024 * 65536
 #: the bytes depend on them)
 _SUB = 262144
 _SUBH = 65536
-#: a launch group of sub-span windows runs at the least multiple of
-#: _FIT_STEP at least _FIT_PAD bytes past its longest window, and at
-#: least _FIT_MIN, the first such multiple past the shared-memory
-#: finders' 64 KB, so the group stays on the wide finder (``_sub_width``)
-_FIT_STEP = 4096
-_FIT_PAD = 16
-_FIT_MIN = 65536 + _FIT_STEP
 #: output bytes per decode launch; T is staged at 4 bytes per output
 #: byte, so 64 MB of output stages 256 MB of T
 _DEC_BYTES = 64 << 20
@@ -148,20 +141,33 @@ def _chase_config(depth: int) -> tuple[int, int, int]:
     return dense, dbl, 4096 if dbl else 0
 
 
-def _sub_width(longest: int) -> int:
-    """Width of a launch group of sub-span windows whose longest window
-    holds ``longest`` bytes: ``longest + _FIT_PAD`` rounded up to
-    ``_FIT_STEP``, at least ``_FIT_MIN`` and at most ``_SUBH + _SUB``,
-    so a group that holds a full sub-span window launches at that width.
+def _rows(parts, width: int, prefix: bytes = b"") -> np.ndarray:
+    """Zero-padded ``uint8[len(parts), width]``: each row ``prefix``,
+    then its part, or its (history, span) pair back to back."""
+    rows = np.zeros((len(parts), width), np.uint8)
+    if prefix:
+        rows[:, :len(prefix)] = np.frombuffer(prefix, np.uint8)
+    for k, part in enumerate(parts):
+        at = len(prefix)
+        for piece in part if isinstance(part, tuple) else (part,):
+            rows[k, at:at + len(piece)] = np.frombuffer(piece, np.uint8)
+            at += len(piece)
+    return rows
 
-    Below the deep levels the payloads do not depend on the width: a
-    probe rejects any neighbour past ``n - 4``, and the rows from
-    ``n - 3`` on share one key and sort as one group by position, so
-    with 19 or more of them no probe (at most 9 sorted rows away)
-    reaches across them to another valid row.  The deep levels' bytes
-    may depend on it (``_encode_span``)."""
-    w = -(-(longest + _FIT_PAD) // _FIT_STEP) * _FIT_STEP
-    return min(max(w, _FIT_MIN), _SUBH + _SUB)
+
+def _row_bytes(out: np.ndarray, lens) -> list[bytes]:
+    """Row ``k`` of ``out`` up to ``lens[k]`` bytes, for every row."""
+    return [out[k, :n].tobytes()
+            for k, n in enumerate(np.asarray(lens).tolist())]
+
+
+def _pack(payloads: list) -> tuple[bytes, np.ndarray, np.ndarray]:
+    """(concat, offs, lens) of ``payloads`` for the native resolvers:
+    the payloads back to back, with their int64 offsets and lengths."""
+    lens = np.array([len(p) for p in payloads], np.int64)
+    offs = np.zeros_like(lens)
+    offs[1:] = np.cumsum(lens)[:-1]
+    return b"".join(payloads), offs, lens
 
 
 def _scan_blocks(comp: bytes, pos: int, block_checksum: bool):
@@ -273,87 +279,69 @@ class ShardedFrameCodec:
         codec.window = int(ref.window)
         return codec
 
-    def _batch(self, rows: int) -> int:
-        """``rows`` rounded down to a multiple of the mesh's size, and at
-        least one row a device (reference: sharded.py:317-320)."""
-        n = self.n_devices
-        return max(rows // n, 1) * n
-
-    def _shards(self, rows: int):
-        """The contiguous shards of a batch of ``rows`` rows, as
-        (device, lo, hi) in order.  The batch is laid out as the
-        reference pads it, ``ceil(rows / n)`` rows a device
-        (sharded.py:321-325); the pad rows are not staged, so a device
-        whose part is only padding gets no shard."""
-        per = -(-rows // self.n_devices)
-        return [(d, k * per, min((k + 1) * per, rows))
-                for k, d in enumerate(self.mesh.devices) if k * per < rows]
-
-    @staticmethod
-    def _stage(arrays, dev, lo: int, hi: int) -> list:
-        """Rows ``lo:hi`` of each host array, as tensors on ``dev``."""
-        return [torch.from_numpy(np.ascontiguousarray(a[lo:hi])).to(dev)
-                for a in arrays]
+    def _round_trip(self, prefix: str, arrays, launch) -> list:
+        """The host ``arrays`` through the mesh and back: the rows of
+        each shard (``BlocksMesh.shards``) staged to its device under
+        ``<prefix>.stage`` and handed to ``launch(device, *tensors)``
+        under ``<prefix>.launch``, every shard before the first is
+        gathered; then the output tensors ``launch`` returned, copied
+        back in mesh order under ``<prefix>.collect``, as host arrays
+        with the shards' rows joined (one shard's as copied back)."""
+        launched = []
+        for d, lo, hi in self.mesh.shards(len(arrays[0])):
+            with trace.span(prefix + ".stage"):
+                args = [torch.from_numpy(np.ascontiguousarray(a[lo:hi]))
+                        .to(d) for a in arrays]
+            with trace.span(prefix + ".launch"):
+                launched.append(launch(d, *args))
+        with trace.span(prefix + ".collect"):
+            if len(launched) == 1:
+                return [t.cpu().numpy() for t in launched[0]]
+            return [np.concatenate([t.cpu().numpy() for t in col])
+                    for col in zip(*launched)]
 
     # -- compression ----------------------------------------------------
 
-    def _encode_windows(self, entries: list, width: int,
-                        batch_blocks: int | None = None,
-                        fit: bool = False) -> list[bytes]:
+    def _encode_windows(self, entries: list, width,
+                        batch_blocks: int | None = None) -> list[bytes]:
         """Payloads of ``entries`` = [(history, span)]: windows
-        ``[history | span]`` of ``width`` bytes that emit from the
-        history's end, ``_ENC_BYTES`` of windows of ``width`` bytes per
-        batch, or ``batch_blocks`` windows rounded by ``_batch`` where
-        that is fewer, each batch one encoder launch a shard.  With
-        ``fit`` (sub-span windows) each batch launches at the
-        ``_sub_width`` of its longest window instead, counted in
-        ``enc.narrow_windows`` where that is below ``width``.  The
+        ``[history | span]`` that emit from the history's end, each
+        launch group at ``width(longest)`` bytes, ``longest`` its longest
+        window.  A group holds ``_ENC_BYTES`` of windows at the widest,
+        ``width(self.window)`` (no window is longer than the codec's), or
+        ``batch_blocks`` windows rounded by ``BlocksMesh.batch`` where
+        that is fewer; it is one encoder launch a shard, and counted in
+        ``enc.narrow_windows`` where it launches below the widest.  The
         payloads depend neither on the batching nor on the width."""
-        batch = self._batch(max(_ENC_BYTES // width, 1))
+        widest = width(self.window)
+        batch = self.mesh.batch(max(_ENC_BYTES // widest, 1))
         if batch_blocks:
-            batch = min(self._batch(batch_blocks), batch)
+            batch = min(self.mesh.batch(batch_blocks), batch)
         payloads = []
         for c0 in range(0, len(entries), batch):
             group = entries[c0:c0 + batch]
             with trace.span("enc.windows"):
-                w = width
-                if fit:
-                    w = _sub_width(max(len(h) + len(s) for h, s in group))
-                    if w < width:
-                        trace.count("enc.narrow_windows", len(group))
-                windows = np.zeros((len(group), w), np.uint8)
-                lens = np.zeros(len(group), np.int32)
-                starts = np.zeros(len(group), np.int32)
-                for k, (hist, span) in enumerate(group):
-                    hl = len(hist)
-                    windows[k, :hl] = np.frombuffer(hist, np.uint8)
-                    windows[k, hl:hl + len(span)] = np.frombuffer(span,
-                                                                  np.uint8)
-                    lens[k], starts[k] = hl + len(span), hl
+                ends = [len(h) + len(s) for h, s in group]
+                w = width(max(ends))
+                if w < widest:
+                    trace.count("enc.narrow_windows", len(group))
+                lens = np.array(ends, np.int32)
+                starts = np.array([len(h) for h, _s in group], np.int32)
+                host = (_rows(group, w), lens, starts)
             if self.deep:       # from the host arrays: no synchronisation
                 trace.count("enc.deep_windows", len(group))
                 trace.count("enc.deep_window_bytes", int(lens.sum()))
             # levels <= 1 run the fast finder at acceleration 1, as the
-            # reference's frame codec does (sharded.py:112-121); every
-            # shard is launched before the first is gathered
-            shards = []
-            for d, lo, hi in self._shards(len(group)):
-                with trace.span("enc.stage"):
-                    args = self._stage((windows, lens, starts), d, lo, hi)
-                    trace.count("enc.h2d_bytes", sum(a.nbytes for a in args))
-                with trace.span("enc.launch"):
-                    shards.append(encode_blocks(*args, hc=self.hc,
-                                                deep=self.deep))
-            for out, out_len in shards:                  # ordered gather
-                with trace.span("enc.collect"):
-                    out, out_len = out.cpu().numpy(), out_len.cpu().numpy()
-                    trace.count("enc.d2h_bytes", out.nbytes + out_len.nbytes)
-                    if self.deep:
-                        trace.count("enc.deep_payload_bytes",
-                                    int(out_len.sum()))
-                with trace.span("enc.payloads"):
-                    payloads += [out[k, :int(out_len[k])].tobytes()
-                                 for k in range(len(out_len))]
+            # reference's frame codec does (sharded.py:112-121)
+            out, out_len = self._round_trip(
+                "enc", host,
+                lambda _d, *a: encode_blocks(*a, hc=self.hc, deep=self.deep))
+            trace.count("enc.h2d_bytes", sum(a.nbytes for a in host))
+            trace.count("enc.d2h_bytes", out.nbytes + out_len.nbytes)
+            if self.deep:
+                trace.count("enc.deep_payload_bytes", int(out_len.sum()))
+            with trace.span("enc.payloads"):
+                payloads += _row_bytes(out, out_len)
         return payloads
 
     def _encode_span(self, span: bytes, batch_blocks: int | None = None
@@ -364,11 +352,10 @@ class ShardedFrameCodec:
         dictionary's end.  Blocks whose windows the encoder does not take
         (``device_encoder_supports``: those over 256 KB) encode as
         ``_SUB``-byte sub-spans, each behind the 64 KB before it (the
-        dictionary for the first), each launch group at the width its
-        longest window needs below the deep levels (``_sub_width``), and
-        the sub-span streams
-        join into one block stream (``_encode_raws_big``,
-        sharded.py:209-255).
+        dictionary for the first), each launch group at the width the
+        encoder gives its longest window (``torch_block._sub_width``),
+        and the sub-span streams join into one block stream
+        (``_encode_raws_big``, sharded.py:209-255).
         ``batch_blocks`` groups whole-block windows only: the sub-span
         windows keep the default grouping, as the reference's big-block
         paths ignore it (sharded.py:304-309)."""
@@ -387,14 +374,11 @@ class ShardedFrameCodec:
                     entries.append((hist, raw[s0:s0 + _SUB]))
                     owner.append(bi)
         if whole:
-            return list(zip(raws, self._encode_windows(entries, self.window,
-                                                       batch_blocks)))
-        # the deep levels keep full windows: their extension pool grows
-        # with the width (512 chosen rows a 64 KB of it), and their tier
-        # operands read ranks up to 1 KB past a row
+            return list(zip(raws, self._encode_windows(
+                entries, lambda _n: self.window, batch_blocks)))
         per_block: list[list[bytes]] = [[] for _ in raws]
         for bi, p in zip(owner, self._encode_windows(
-                entries, _SUBH + _SUB, fit=not self.deep)):
+                entries, lambda n: _sub_width(n, _SUBH + _SUB, self.deep))):
             per_block[bi].append(p)
         with trace.span("enc.stitch"):
             pairs, scans = [], 0
@@ -544,11 +528,8 @@ class ShardedFrameCodec:
                 psum += len(records[b1][0])
                 b1 += 1
             recs = records[b0:b1]
-            lens = np.array([len(p) for p, _u in recs], np.int64)
-            offs = np.zeros_like(lens)
-            offs[1:] = np.cumsum(lens)[:-1]
+            pay, offs, lens = _pack([p for p, _u in recs])
             is_raw = np.array([u for _p, u in recs], np.int8)
-            pay = b"".join(p for p, _u in recs)
             try:
                 with trace.span("dec.resolve"):
                     r = native_resolve_tmap_linked(
@@ -692,11 +673,8 @@ class ShardedFrameCodec:
             grp = comp_idx[g0:g0 + group]
             try:
                 with trace.span("dec.resolve"):
-                    lens64 = np.array([len(payloads[k][0]) for k in grp],
-                                      np.int64)
-                    offs64 = np.zeros_like(lens64)
-                    offs64[1:] = np.cumsum(lens64)[:-1]
-                    concat = b"".join(payloads[k][0] for k in grp)
+                    concat, offs64, lens64 = _pack([payloads[k][0]
+                                                    for k in grp])
                     # the tables are views of a buffer that the next
                     # resolve overwrites: each group is staged before the
                     # next one
@@ -730,18 +708,14 @@ class ShardedFrameCodec:
         fdst, fsrc, fper, fph, nfrag, olens = tables
         dcap, eng = self.dcap, self.decode_engine
         quanta = (bs // 4, bs // 2, compress_bound(bs))
-        batch = self._batch(max(_DEC_BYTES // bs, 1))
+        batch = self.mesh.batch(max(_DEC_BYTES // bs, 1))
         for c0 in range(0, len(rows), batch):
             sel = rows[c0:c0 + batch]
             need = max(len(payloads[grp[j]][0]) for j in sel)
             fetch_t = dcap + next(q for q in quanta if q >= need)
             with trace.span("dec.fetch"):
-                bufs = np.zeros((len(sel), fetch_t), np.uint8)
-                if dcap:
-                    bufs[:, :dcap] = np.frombuffer(self.dict, np.uint8)
-                for jj, j in enumerate(sel):
-                    p = payloads[grp[j]][0]
-                    bufs[jj, dcap:dcap + len(p)] = np.frombuffer(p, np.uint8)
+                bufs = _rows([payloads[grp[j]][0] for j in sel], fetch_t,
+                             self.dict)
                 ncol = max(int(nfrag[sel].max()), 1)
                 host = (bufs, fdst[sel, :ncol], fsrc[sel, :ncol],
                         fper[sel, :ncol], fph[sel, :ncol], nfrag[sel],
@@ -753,22 +727,16 @@ class ShardedFrameCodec:
                 name = f"win{g}"
             else:
                 name = "frags"
-            shards = []
-            for d, lo, hi in self._shards(len(sel)):
-                with trace.span("dec.stage"):
-                    args = self._stage(host, d, lo, hi)
-                with trace.span("dec.launch"):
-                    if name == "chase":
-                        shards.append(decode_blocks_frags_chase(
-                            *args, bs, *_chase_config(rmax)))
-                    elif name == "frags":
-                        shards.append(decode_blocks_frags(*args, rmax, bs))
-                    else:
-                        shards.append(decode_blocks_frags_win(
-                            *args, rmax, bs, fcap=fcap, g=g))
-            with trace.span("dec.collect"):
-                out = np.concatenate([o.cpu().numpy() for o, _k in shards])
-                ok = np.concatenate([k.cpu().numpy() for _o, k in shards])
+
+            def launch(_d, *args):
+                if name == "chase":
+                    return decode_blocks_frags_chase(*args, bs,
+                                                     *_chase_config(rmax))
+                if name == "frags":
+                    return decode_blocks_frags(*args, rmax, bs)
+                return decode_blocks_frags_win(*args, rmax, bs, fcap=fcap,
+                                               g=g)
+            out, ok = self._round_trip("dec", host, launch)
             route = f"{name} fcap={fcap} rounds={rmax}"
             self.tier_members[route] = (self.tier_members.get(route, 0)
                                         + len(sel))
@@ -794,11 +762,10 @@ class ShardedFrameCodec:
         ccap, nseq_cap = compress_bound(bs), MAX_SEQS(bs)
         hist = (torch.from_numpy(np.frombuffer(self.dict, np.uint8).copy())
                 if self.dcap else None)
-        batch = self._batch(max(_DEC_BYTES // bs, 1))
+        batch = self.mesh.batch(max(_DEC_BYTES // bs, 1))
         for c0 in range(0, len(comp_idx), batch):
             grp = comp_idx[c0:c0 + batch]
             with trace.span("dec.resolve"):     # the parse, in Python
-                bufs = np.zeros((len(grp), ccap), np.uint8)
                 tabs = np.zeros((4, len(grp), nseq_cap), np.int32)
                 nss = np.zeros(len(grp), np.int32)
                 for j, k in enumerate(grp):
@@ -817,27 +784,20 @@ class ShardedFrameCodec:
                         raise E.CorruptedData(
                             f"frame block {k} decodes to more than the "
                             f"frame block size {bs}")
-                    bufs[j, :len(p)] = np.frombuffer(p, np.uint8)
                     (tabs[0, j], tabs[1, j], tabs[2, j], tabs[3, j],
                      nss[j]) = seqs_to_arrays(seqs, nseq_cap)
-            shards = []
-            for d, lo, hi in self._shards(len(grp)):
-                with trace.span("dec.stage"):
-                    args = self._stage((bufs, *tabs, nss), d, lo, hi)
-                    h = None if hist is None else hist.to(d)
-                with trace.span("dec.launch"):
-                    shards.append(decode_blocks(*args, bs, hists=h))
-            with trace.span("dec.collect"):
-                out, olens, ok = (np.concatenate([r[i].cpu().numpy()
-                                                  for r in shards])
-                                  for i in range(3))
+                bufs = _rows([payloads[k][0] for k in grp], ccap)
+            out, olens, ok = self._round_trip(
+                "dec", (bufs, *tabs, nss),
+                lambda d, *a: decode_blocks(
+                    *a, bs, hists=None if hist is None else hist.to(d)))
             if not ok.all():
                 raise E.CorruptedData(
                     f"frame block {grp[int(np.flatnonzero(ok == 0)[0])]}: "
                     "the sequence-rebuild decoder rejected its table")
             with trace.span("dec.join"):
-                for j, k in enumerate(grp):
-                    results[k] = out[j, :int(olens[j])].tobytes()
+                for k, b in zip(grp, _row_bytes(out, olens)):
+                    results[k] = b
 
     def _decode_tmap(self, payloads: list, bs: int, comp_idx: list,
                      results: list) -> bool:
@@ -849,11 +809,8 @@ class ShardedFrameCodec:
         did not load."""
         try:
             with trace.span("dec.resolve"):
-                lens64 = np.array([len(payloads[k][0]) for k in comp_idx],
-                                  np.int64)
-                offs64 = np.zeros_like(lens64)
-                offs64[1:] = np.cumsum(lens64)[:-1]
-                concat = b"".join(payloads[k][0] for k in comp_idx)
+                concat, offs64, lens64 = _pack([payloads[k][0]
+                                                for k in comp_idx])
                 # owned T: the staging copy below must not race a later
                 # resolve that reuses the shared buffer
                 r = native_resolve_tmap(concat, offs64, lens64, bs,
@@ -871,30 +828,18 @@ class ShardedFrameCodec:
                 f"frame block {comp_idx[int(over[0])]} decodes to more "
                 f"than the frame block size {bs}")
 
-        dcap = self.dcap
-        batch = self._batch(max(_DEC_BYTES // bs, 1))
+        batch = self.mesh.batch(max(_DEC_BYTES // bs, 1))
         for c0 in range(0, len(comp_idx), batch):
             grp = comp_idx[c0:c0 + batch]
             with trace.span("dec.fetch"):
-                fetch = np.zeros(
-                    (len(grp), dcap + int(lens64[c0:c0 + batch].max())),
-                    np.uint8)
-                if dcap:
-                    fetch[:, :dcap] = np.frombuffer(self.dict, np.uint8)
-                for jj, k in enumerate(grp):
-                    p = payloads[k][0]
-                    fetch[jj, dcap:dcap + len(p)] = np.frombuffer(p, np.uint8)
+                fetch = _rows([payloads[k][0] for k in grp],
+                              self.dcap + int(lens64[c0:c0 + batch].max()),
+                              self.dict)
                 glen = olens[c0:c0 + batch]
                 host = (fetch, T[c0:c0 + batch], glen.astype(np.int32))
-            shards = []
-            for d, lo, hi in self._shards(len(grp)):
-                with trace.span("dec.stage"):
-                    args = self._stage(host, d, lo, hi)
-                with trace.span("dec.launch"):
-                    shards.append(decode_blocks_tmap(*args))
-            with trace.span("dec.collect"):
-                out = np.concatenate([o.cpu().numpy() for o in shards])
+            out, = self._round_trip(
+                "dec", host, lambda _d, *a: (decode_blocks_tmap(*a),))
             with trace.span("dec.join"):
-                for jj, k in enumerate(grp):
-                    results[k] = out[jj, :int(glen[jj])].tobytes()
+                for k, b in zip(grp, _row_bytes(out, glen)):
+                    results[k] = b
         return True
