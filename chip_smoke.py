@@ -144,7 +144,9 @@ same for ``seq_decode`` (the level-12 frame's 672 blocks and 32 of
 them), ``serial_decode`` (the 672 blocks), ``frag_decode_chase`` (the
 "chase" path's 141-block launch), ``frag_decode_win`` (both launches
 of the "win" path) and ``frag_decode`` (the 256 KB "win" path's launch)
-(``time_decode_kernels``).
+(``time_decode_kernels``).  ``--time-wide-spread`` times
+``enc_match_wide`` phase by phase on one window launched alone at each
+cluster shape it takes (``time_wide_spread``).
 
 Exits non-zero on any failed check.  Imports no JAX.  The last two
 lines of stdout are the card's name and power limit as nvidia-smi
@@ -152,6 +154,7 @@ reports them, then ``{"ok": true, "device": {...}}``; before them one
 JSON line lists every kernel with its launches, error, times and bound.
 """
 
+import functools
 import gc
 import hashlib
 import json
@@ -192,6 +195,10 @@ ENCODER_FLAG = "--time-encoder-kernels"
 #: the mode that times the decode kernels alone at the paths' shapes
 #: (time_decode_kernels)
 DECODE_FLAG = "--time-decode-kernels"
+#: the mode that times enc_match_wide on one window at each cluster shape
+#: (time_wide_spread), and its rounds in turns
+SPREAD_FLAG = "--time-wide-spread"
+SPREAD_ROUNDS = 7
 DEEP_KERNELS = ("enc_deep_match", "enc_deep_dp", "enc_deep_emit")
 #: the CLI's compress runs over the corpus with --engine cuda: flag ->
 #: the kernels the run must launch
@@ -233,6 +240,10 @@ LADDER_CHASE = ((8, 64), [
 WIDE_GOLDENS = os.path.join("tests", "fixtures", "wide_corpus.npz")
 SUB_WINDOW = 327680
 WIDE_CONFIGS = [(9, 1), (4, 1), (0, 1), (0, 8)]
+#: the widths of a lone sub-span window of a 64 KB and a 98,304-byte
+#: block (69,632 and 102,400 bytes), which a launch of one window takes
+#: at 16 CTAs (wide_spread_shape)
+LONE_WIDTHS = (69_632, 102_400)
 #: wide windows of the 1 MB path held against the plain versions (every
 #: 12th of 192)
 WIDE_PLAIN_STRIDE = 12
@@ -406,20 +417,20 @@ def host_us(fn, calls=1000):
     return t
 
 
-def start_phase_builds(kernels):
-    """Start one nvcc a phase cut (-DZL4_STOP=k) of each timed source --
-    ``encode_block.cu`` (k = 1..4), ``encode_wide.cu`` (1..4),
-    ``encode_deep_wide.cu`` (1..8) and ``encode_deep.cu`` (1..8) -- each
-    into a library of its own under
-    the kernels' build directory, all at once; returns [(source, k,
-    library path, process)]."""
+def start_phase_builds(kernels, cuts=PHASE_CUTS):
+    """Start one nvcc a phase cut (-DZL4_STOP=k) of each timed source of
+    ``cuts`` -- by default ``encode_block.cu`` (k = 1..4),
+    ``encode_wide.cu`` (1..4), ``encode_deep_wide.cu`` (1..8),
+    ``encode_deep.cu`` (1..8) and the decoders' -- each into a library
+    of its own under the kernels' build directory, all at once; returns
+    [(source, k, library path, process)]."""
     csrc = os.path.join(os.path.dirname(kernels.__file__), "csrc")
     out = os.path.join(os.path.dirname(os.path.dirname(kernels.__file__)),
                        "_build")
     os.makedirs(out, exist_ok=True)
     jobs = []
-    for src, cuts in PHASE_CUTS.items():
-        for k in range(1, cuts + 1):
+    for src, last in cuts.items():
+        for k in range(1, last + 1):
             so = os.path.join(out, f"{src[:-3]}_stop{k}.so")
             cmd = [kernels._nvcc(), "-gencode",
                    "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -504,19 +515,20 @@ def phase_split(libs, w, l, s, pk, hc, capped_ml):
     return m_ms, e_ms, f_ms, order, order_s0
 
 
-def wide_phase_split(libs, w, l, hc, deep=0):
+def wide_phase_split(libs, w, l, hc, deep=0, shape=None):
     """Milliseconds of each phase cut of ``enc_match_wide`` (``deep`` 0)
     or ``enc_deep_match_wide`` at the windows ``w`` (the cuts of
     ``encode_wide.cu`` or ``encode_deep_wide.cu``, through ctypes, not
-    counted), and what the ZL4_STOP=2 cut leaves: each window's order
-    after its first sort (the 12-byte order at hc >= 1, the 32-byte order
-    of the deep finder).  Returns ({k: ms}, order)."""
+    counted), at cluster shape ``shape`` (C, J), by default the least
+    (``wide_cluster_shape``), and what the ZL4_STOP=2 cut leaves: each
+    window's order after its first sort (the 12-byte order at hc >= 1,
+    the 32-byte order of the deep finder).  Returns ({k: ms}, order)."""
     import ctypes
 
     import torch
     from zig_lz4_tpu_torch.ops import torch_block as tb
     B, blk = w.shape
-    C, J = tb.wide_cluster_shape(blk)
+    C, J = shape or tb.wide_cluster_shape(blk)
     nwords = (blk + 64) // 4 + 1
     P, I = ctypes.c_void_p, ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream
@@ -1409,6 +1421,88 @@ def time_encoder_kernels():
     return 0
 
 
+def time_wide_spread():
+    """``python3 chip_smoke.py --time-wide-spread``: ``enc_match_wide``
+    (hc 9) on one window launched alone, as an insert call of one 64 KB
+    column block launches it (65,536 corpus bytes in a 69,632-byte
+    window), and on one 98,304-byte block's 102,400-byte window, at every
+    cluster shape the kernel takes there (C = 4, 8, 16 and 8, 16), phase
+    by phase from the cuts of ``encode_wide.cu`` (-DZL4_STOP=1..4) and
+    whole from the library, the shapes in turns over ``SPREAD_ROUNDS``
+    rounds (medians); then the shape the launch rule gives one window
+    (``wide_spread_shape``) with the clusters the card holds at each C,
+    the candidates at every shape equal to ``match_candidates_plain``'s,
+    and ``match_candidates`` and ``enc_parse_emit`` on the lone window as
+    the frame codec launches them.  It prints one line a width."""
+    import torch
+    if not torch.cuda.is_available():
+        print("[device] FAIL: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    from zig_lz4_tpu_torch import kernels as kernels_mod
+    from zig_lz4_tpu_torch.corpus import make_corpus
+    from zig_lz4_tpu_torch.ops import torch_block as tb
+    smi = nvidia_smi()
+    jobs = start_phase_builds(kernels_mod, {"encode_wide.cu": 4})
+    kernels_mod.build()
+    libs = finish_phase_builds(jobs)
+    libs["encode_wide.cu"][5] = kernels_mod.library()     # the whole kernel
+    data = make_corpus(48)
+    for blk, n in ((69_632, BLK), (102_400, 98_304)):
+        row = bytearray(blk)
+        row[:n] = data[29 * BLK:29 * BLK + n]
+        w = torch.frombuffer(row, dtype=torch.uint8).view(1, blk).cuda()
+        ln = torch.full((1,), n, dtype=torch.int32, device=w.device)
+        least = tb.wide_cluster_shape(blk)
+        active_at = functools.partial(tb._active_clusters,
+                                      torch.cuda.current_device(), False,
+                                      blk)
+        shapes = [(C, -(-blk // (C * 1024))) for C in (4, 8, 16)
+                  if C >= least[0]]
+        runs = {sh: [] for sh in shapes}
+        for _ in range(SPREAD_ROUNDS):
+            for sh in shapes:
+                runs[sh].append(wide_phase_split(libs, w, ln, 9, 0, sh)[0])
+        pks = {}
+        for sh in shapes:
+            pks[sh] = torch.empty((1, blk), dtype=torch.int32,
+                                  device=w.device)
+            words = torch.empty((1, (blk + 64) // 4 + 1), dtype=torch.int32,
+                                device=w.device)
+            kernels_mod.launch("enc_match_wide", w, ln, words, pks[sh], 1,
+                               blk, words.shape[1], sh[0], sh[1], 9, 8,
+                               tb.fast_params(1)[1])
+        torch.cuda.synchronize()
+        plain = tb.match_candidates_plain(w, ln, 9)
+        same = all(max_abs_err(pks[sh], plain) == 0 for sh in shapes)
+        check(same, f"enc_match_wide's candidates at {blk} bytes differ "
+              "from plain at a cluster shape")
+        cells = []
+        for sh in shapes:
+            cut = {k: statistics.median(r[k] for r in runs[sh])
+                   for k in runs[sh][0]}
+            phases = [cut[1]] + [cut[k] - cut[k - 1] for k in range(2, 6)]
+            active = active_at(*sh)
+            cells.append(f"C={sh[0]} J={sh[1]} ({active} clusters at once): "
+                         + ", ".join(f"{p} {v:.4f}" for p, v in
+                                     zip(WIDE_PHASES, phases))
+                         + f"; whole {cut[5]:.4f} ms")
+        pk = tb.match_candidates(w, ln, 9)
+        st = torch.zeros_like(ln)
+        m_ms = statistics.median(cuda_ms(lambda: tb.match_candidates(
+            w, ln, 9))[0] for _ in range(SPREAD_ROUNDS))
+        e_ms = statistics.median(cuda_ms(lambda: tb.parse_emit(
+            w, ln, st, pk))[0] for _ in range(SPREAD_ROUNDS))
+        print(f"[spread] {smi}: one window of {blk} bytes, {n} valid, hc 9, "
+              f"medians of {SPREAD_ROUNDS} rounds in turns (ms; cuts of "
+              "encode_wide.cu, -DZL4_STOP=1..4, and the library): "
+              + " | ".join(cells) + f"; candidates equal plain's at every "
+              f"shape: {same}; the rule's shape for one window "
+              f"{tb.wide_spread_shape(blk, 1, active_at)}; match_candidates "
+              f"{m_ms:.4f} ms, enc_parse_emit {e_ms:.4f} ms", flush=True)
+    return 0
+
+
 def main():
     t_run = time.perf_counter()
     import torch
@@ -1419,6 +1513,7 @@ def main():
     import numpy as np
 
     from zig_lz4_tpu_torch import ShardedFrameCodec, get_codec, native
+    from zig_lz4_tpu_torch import trace
     from zig_lz4_tpu_torch import frame as lz4f
     from zig_lz4_tpu_torch import kernels as kernels_mod
     from zig_lz4_tpu_torch.constants import compress_bound
@@ -1464,11 +1559,23 @@ def main():
     wide_shapes = {f"{blk_} x {'deep' if deep_ else 'levels 0-9'}":
                    tb.wide_launch_shape(blk_, deep_)
                    for blk_ in (2 * BLK, SUB_WINDOW) for deep_ in (0, 3)}
-    print("[build] the wide finders' launch shape by window bytes (CTAs a "
-          "cluster, threads, rows a thread, shared bytes a CTA, clusters "
-          f"the card holds at once): {wide_shapes}")
+    print("[build] the wide finders' least launch shape by window bytes "
+          "(CTAs a cluster, threads, rows a thread, shared bytes a CTA, "
+          f"clusters the card holds at once): {wide_shapes}")
     check(all(v["active_clusters"] > 0 for v in wide_shapes.values()),
           "a wide finder's cluster cannot be scheduled")
+    lone_shapes = {}
+    for blk_ in LONE_WIDTHS + (2 * BLK, SUB_WINDOW):
+        for deep_ in (0, 3):
+            act_ = functools.partial(tb._active_clusters,
+                                     torch.cuda.current_device(),
+                                     bool(deep_), blk_)
+            C_, J_ = tb.wide_spread_shape(blk_, 1, act_)
+            lone_shapes[f"{blk_} x {'deep' if deep_ else 'levels 0-9'}"] = (
+                C_, J_, act_(C_, J_))
+    print("[build] the wide finders' shape for a launch of one window, as "
+          "an insert call's lone window takes it (CTAs a cluster, rows a "
+          f"thread, clusters the card holds at once): {lone_shapes}")
 
     def lz4f_block_decode(comp, history, size):
         """One block by the host oracle, behind ``history``."""
@@ -1890,7 +1997,41 @@ def main():
         check(not any(errs_t.values()),
               f"a wide finder differs from plain on tie-dense windows of "
               f"{blk_t} bytes")
-    del w_e, pk_e, pk_ep, out_e, out_ep, w_t
+    # lone windows, each launched by itself as an insert call launches
+    # its one sub-span: the launch rule spreads them over more CTAs than
+    # the least shape (enc.spread_windows counts each), and the
+    # candidates must not change
+    lone_err = {}
+    trace.reset()
+    trace.enable()
+    for blk_l in LONE_WIDTHS:
+        w_l = torch.frombuffer(bytearray(data[29 * BLK:29 * BLK + blk_l]),
+                               dtype=torch.uint8).view(1, blk_l).to(dev)
+        for n_l in (blk_l, blk_l - 5, 48_771):
+            l_l = torch.full((1,), n_l, dtype=torch.int32, device=dev)
+            for hc, deep in ((9, 0), (0, 0), (8, 3)):
+                lone_err[f"{blk_l} n={n_l} hc={hc} deep={deep}"] = (
+                    max_abs_err(tb.match_candidates(w_l, l_l, hc, 1, deep),
+                                tb.match_candidates_plain(w_l, l_l, hc, 1,
+                                                          deep)))
+    spread_n = trace.counters().get("enc.spread_windows", 0)
+    trace.disable()
+    trace.reset()
+    for k_l, err_l in lone_err.items():
+        kern = "enc_deep_match_wide" if "deep=3" in k_l else "enc_match_wide"
+        if kern == "enc_deep_match_wide":
+            deep_err[kern] = max(deep_err[kern], err_l)
+        else:
+            wide_err[kern] = max(wide_err[kern], err_l)
+    print(f"[wide] lone windows of {LONE_WIDTHS} bytes launched alone at "
+          f"the spread shape {lone_shapes}: finders vs plain max_abs_err "
+          f"{lone_err}; enc.spread_windows {spread_n} of {len(lone_err)}")
+    check(not any(lone_err.values()),
+          "a wide finder differs from plain on a lone window")
+    check(spread_n == len(lone_err),
+          f"enc.spread_windows counted {spread_n} of {len(lone_err)} lone "
+          "windows")
+    del w_e, pk_e, pk_ep, out_e, out_ep, w_t, w_l
     wg = np.load(WIDE_GOLDENS)
     corpus_g = make_corpus(int(wg["corpus_mb"]))
     wide_gold_ok, wide_gold_in = {}, {}
@@ -3824,7 +3965,9 @@ if __name__ == "__main__":
                  else time_encoder_kernels()
                  if sys.argv[1:] == [ENCODER_FLAG]
                  else time_decode_kernels()
-                 if sys.argv[1:] == [DECODE_FLAG] else main())
+                 if sys.argv[1:] == [DECODE_FLAG]
+                 else time_wide_spread()
+                 if sys.argv[1:] == [SPREAD_FLAG] else main())
     except Failed as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         sys.exit(1)

@@ -29,10 +29,24 @@ of the CTAs before it.  Orders and ranks are held exactly (no tolerance)
 against ``_stable_order`` and ``_ranks`` on windows dense in ties and on
 a window of ``tests/fixtures/wide_corpus.npz``.  No JAX compile.
 
+The spread shapes a launch of one window takes (``wide_spread_shape``:
+16 CTAs of 5 rows a thread at 69,632 bytes, of 7 at 102,400, where the
+last CTAs hold no row) are modelled the same way, and the rule itself is
+held with the clusters the card holds at once passed in; with the
+launches faked on ``meta`` tensors, so is the counter
+``enc.spread_windows`` over a part of the benchmark's ``hits-hc9.insert``
+cell (4,305 windows) and its bulk cells (none).
+
 ``cuda``-marked tests hold both kernels against their plain versions on
-the card at 131,072 and 327,680 bytes.
+the card at 131,072 and 327,680 bytes, a window launched alone (spread)
+against the same window in a launch of 64 (least shape) at 69,632 and
+102,400 bytes, and the frames of ``tests/fixtures/narrow_frames.npz``.
 """
 
+import collections
+import functools
+import hashlib
+import json
 import os
 import sys
 
@@ -40,12 +54,20 @@ import numpy as np
 import pytest
 import torch
 
+from lz4bench import harness, traffic
 from test_torch_encode import tie_dense
+from zig_lz4_tpu_torch import frame as lz4f
+from zig_lz4_tpu_torch import trace
+from zig_lz4_tpu_torch.constants import compress_bound
 from zig_lz4_tpu_torch.corpus import make_corpus
 from zig_lz4_tpu_torch.ops import torch_block as tb
+from zig_lz4_tpu_torch.parallel import sharded
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "fixtures"))
 import make_torch_goldens as mtg  # noqa: E402  (inputs of the goldens)
+
+#: the benchmark's directory, for its configurations
+BENCH = os.path.join(os.path.dirname(os.path.dirname(__file__)), "lz4bench")
 
 #: a CTA of the cluster: 1024 threads, 32 warps; 8-bit digits
 THREADS, WARPS, DIGITS = 1024, 32, 256
@@ -103,11 +125,11 @@ def cluster_pass(order: np.ndarray, digit: np.ndarray, C: int,
     return out
 
 
-def cluster_sort(rows: int, digits) -> np.ndarray:
+def cluster_sort(rows: int, digits, shape=None) -> np.ndarray:
     """The identity order over ``rows`` rows through the passes of
-    ``digits`` (each a digit array by position), at the kernels' cluster
-    shape for ``rows``-byte windows."""
-    C, J = tb.wide_cluster_shape(rows)
+    ``digits`` (each a digit array by position), at cluster shape
+    ``shape``, by default the kernels' least for ``rows``-byte windows."""
+    C, J = shape or tb.wide_cluster_shape(rows)
     order = np.arange(rows)
     for digit in digits:
         order = cluster_pass(order, digit, C, J)
@@ -138,11 +160,12 @@ def rank_digits(x: np.ndarray, step: int, nk: int):
             yield (v >> (8 * b)) & 0xFF
 
 
-def cluster_ranks(order: np.ndarray, same) -> np.ndarray:
-    """The class numbers of a sorted order as the cluster scans them:
-    ``same(a, b)`` says whether positions a and b are in one class."""
+def cluster_ranks(order: np.ndarray, same, shape=None) -> np.ndarray:
+    """The class numbers of a sorted order as the cluster scans them at
+    ``shape`` (as ``cluster_sort``): ``same(a, b)`` says whether
+    positions a and b are in one class."""
     rows = len(order)
-    C, J = tb.wide_cluster_shape(rows)
+    C, J = shape or tb.wide_cluster_shape(rows)
     R = THREADS * J
     bound = np.ones(rows, bool)
     bound[1:] = ~same(order[:-1], order[1:])  # row t - 1 from any slice
@@ -224,27 +247,29 @@ def test_wide_32_byte_order_and_ranks_match_plain(name):
     assert np.array_equal(got, tb._ranks(keys).numpy())
 
 
-def _rank_orders(row: np.ndarray, n: int):
-    """The deep rank orders of a window by the model, against the plain
-    orders: the 256-byte rank's (r, step 32, 8 keys), the grand orders of
-    deep 1 and 2 (r, 4 and 8 keys) and of deep 3 (r2, step 256, 4 keys),
-    and r2's class numbers across slice edges."""
+def _rank_orders(row: np.ndarray, n: int, shape=None):
+    """The deep rank orders of a window by the model at ``shape`` (as
+    ``cluster_sort``), against the plain orders: the 256-byte rank's (r,
+    step 32, 8 keys), the grand orders of deep 1 and 2 (r, 4 and 8 keys)
+    and of deep 3 (r2, step 256, 4 keys), and r2's class numbers across
+    slice edges."""
     blk = len(row)
     s0, wins = _keys(row, n)
     r = tb._ranks((s0,) + tuple(wins[:7]))
     rn = r.numpy()
     ops = [tb._shl(r, 32 * k) for k in range(8)]
-    order = cluster_sort(blk, rank_digits(rn, 32, 8))
+    order = cluster_sort(blk, rank_digits(rn, 32, 8), shape)
     assert np.array_equal(order, tb._stable_order(tuple(ops)).numpy())
     kv = np.stack([o.numpy() for o in ops])
-    r2 = cluster_ranks(order, lambda a, b: (kv[:, a] == kv[:, b]).all(0))
+    r2 = cluster_ranks(order, lambda a, b: (kv[:, a] == kv[:, b]).all(0),
+                       shape)
     r2_plain = tb._ranks(tuple(ops))
     assert np.array_equal(r2, r2_plain.numpy())
     for x, step, nk in ((r, 32, 4), (r, 32, 8), (r2_plain, 256, 4)):
         want = tb._stable_order(tuple(tb._shl(x, step * k)
                                       for k in range(nk))).numpy()
         assert np.array_equal(
-            cluster_sort(blk, rank_digits(x.numpy(), step, nk)), want)
+            cluster_sort(blk, rank_digits(x.numpy(), step, nk), shape), want)
 
 
 @pytest.mark.parametrize("name", ("period7", "binary"))
@@ -265,6 +290,207 @@ def test_wide_corpus_window_orders_match_plain():
             cluster_sort(len(row), window_digits(row, n, sched)),
             tb._stable_order(keys).numpy())
     _rank_orders(row, n)
+
+
+#: the spread shapes of a launch of one window (``wide_spread_shape``):
+#: a 64 KB insert block's width and the widest of the one-window blocks
+SPREAD = {69_632: (16, 5), 102_400: (16, 7)}
+
+
+def _fake_active(C: int, J: int) -> int:
+    """Clusters held at once as on a card of 120 SMs free for whole
+    clusters, one CTA an SM: 7 of 16 CTAs, 15 of 8, 30 of 4."""
+    return 120 // C
+
+
+@pytest.mark.parametrize("name", ("zeros", "period2", "period7", "binary"))
+@pytest.mark.parametrize("blk", sorted(SPREAD))
+def test_spread_window_orders_match_plain(blk, name):
+    """Less12 and LessS0 at the spread shapes, whose last CTAs hold no
+    row, at a full window, 5 bytes short (tail rows) and 48,771 valid
+    bytes (a third of the rows share the tail's key, across slices)."""
+    shape = SPREAD[blk]
+    assert tb.wide_spread_shape(blk, 1, _fake_active) == shape
+    row = tie_dense(blk, 43)[TIE_NAMES.index(name)]
+    for n in (blk, blk - 5, 48_771):
+        s0, wins = _keys(row, n)
+        assert np.array_equal(
+            cluster_sort(blk, window_digits(row, n, LESS12), shape),
+            tb._stable_order((s0, wins[0], wins[1])).numpy())
+        assert np.array_equal(
+            cluster_sort(blk, window_digits(row, n, LESS_S0), shape),
+            tb._stable_order((s0,)).numpy())
+
+
+@pytest.mark.parametrize("blk", sorted(SPREAD))
+def test_spread_32_byte_order_and_ranks_match_plain(blk):
+    """Less32 and its class numbering at the spread shapes: the numbering
+    scan passes the CTAs that hold no row."""
+    shape = SPREAD[blk]
+    row = tie_dense(blk, 47)[TIE_NAMES.index("period3")]
+    n = blk - 9
+    s0, wins = _keys(row, n)
+    keys = (s0,) + tuple(wins[:7])
+    order = cluster_sort(blk, window_digits(row, n, LESS32), shape)
+    assert np.array_equal(order, tb._stable_order(keys).numpy())
+    kv = np.stack([k.numpy() for k in keys])
+    got = cluster_ranks(order, lambda a, b: (kv[:, a] == kv[:, b]).all(0),
+                        shape)
+    assert np.array_equal(got, tb._ranks(keys).numpy())
+    _rank_orders(tie_dense(blk, 53)[TIE_NAMES.index("binary")], blk - 3,
+                 shape)
+
+
+@pytest.mark.parametrize("blk", sorted(SPREAD))
+def test_spread_corpus_window_orders_match_plain(blk):
+    """The first ``blk`` bytes of a window of the wide goldens' corpus at
+    the spread shape: every order of both finders and the rank orders."""
+    windows, lens, _starts = mtg.wide_windows(make_corpus(mtg.CORPUS_MB),
+                                              "w131k")
+    row, n = windows[0, :blk], min(int(lens[0]), blk - 5)
+    shape = SPREAD[blk]
+    s0, wins = _keys(row, n)
+    for sched, keys in ((LESS12, (s0, wins[0], wins[1])), (LESS_S0, (s0,)),
+                        (LESS32, (s0,) + tuple(wins[:7]))):
+        assert np.array_equal(
+            cluster_sort(blk, window_digits(row, n, sched), shape),
+            tb._stable_order(keys).numpy())
+    _rank_orders(row, n, shape)
+
+
+def test_wide_spread_shape():
+    """The launch rule with the clusters held at once passed in: C never
+    below the least shape's, every shape one the kernels take, the
+    widest C that holds every window, and the least shape where no wider
+    C holds them all."""
+    for blk in (65_537, WIDE, 69_632, 77_824, 102_400, 131_072, 200_000,
+                262_144, 307_200, 327_680, (1 << 19) - 1):
+        least = tb.wide_cluster_shape(blk)
+        for windows in (1, 2, 7, 8, 15, 16, 30, 31, 64, 192):
+            for active in (_fake_active, lambda C, J: 0, lambda C, J: 1,
+                           lambda C, J: 1 << 20):
+                C, J = tb.wide_spread_shape(blk, windows, active)
+                assert least[0] <= C <= 16 and C & (C - 1) == 0
+                assert C * THREADS * J >= blk > C * THREADS * (J - 1)
+                assert J <= least[1]
+                wider = [c for c in (16, 8, 4, 2) if c > least[0]
+                         and active(c, -(-blk // (c * THREADS))) >= windows]
+                assert C == (wider[0] if wider else least[0])
+                if not wider:
+                    assert (C, J) == least
+    assert tb.wide_spread_shape(69_632, 1, _fake_active) == (16, 5)
+    assert tb.wide_spread_shape(69_632, 8, _fake_active) == (8, 9)
+    assert tb.wide_spread_shape(69_632, 64, _fake_active) == (4, 17)
+    assert tb.wide_spread_shape(102_400, 1, _fake_active) == (16, 7)
+    assert tb.wide_spread_shape(131_072, 9, _fake_active) == (8, 16)
+
+
+class _Launches:
+    """``torch_block.launch`` and the clusters held at once faked, so that
+    ``match_candidates`` takes its kernel route on ``meta`` tensors: the
+    launches it makes, by name and arguments."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        monkeypatch.setattr(tb, "launch",
+                            lambda name, *a: self.calls.append((name, a)))
+        monkeypatch.setattr(tb, "_active_clusters",
+                            lambda _dev, _deep, _blk, C, J:
+                            _fake_active(C, J))
+
+
+@pytest.fixture
+def recorder():
+    trace.reset()
+    trace.enable()
+    yield
+    trace.disable()
+    trace.reset()
+
+
+@pytest.mark.parametrize("hc,deep", [(9, 0), (0, 0), (8, 3)])
+def test_launch_shape_and_counter(monkeypatch, recorder, hc, deep):
+    """Both wide finders launch at the rule's shape, and
+    ``enc.spread_windows`` counts the windows of the launches it spreads."""
+    rec = _Launches(monkeypatch)
+    want = {(69_632, 1): (16, 5), (69_632, 8): (8, 9),
+            (69_632, 64): (4, 17), (102_400, 2): (16, 7),
+            (131_072, 9): (8, 16), (307_200, 2): (16, 19),
+            (327_680, 192): (16, 20)}
+    spread = 0
+    for (blk, B), shape in want.items():
+        w = torch.empty((B, blk), dtype=torch.uint8, device="meta")
+        n = torch.empty(B, dtype=torch.int32, device="meta")
+        tb.match_candidates(w, n, hc, 1, deep)
+        name, args = rec.calls[-1]
+        assert name == ("enc_deep_match_wide" if deep else "enc_match_wide")
+        at = 8 if deep else 7
+        assert args[at:at + 2] == shape
+        spread += B if shape[0] > tb.wide_cluster_shape(blk)[0] else 0
+        assert trace.counters().get("enc.spread_windows", 0) == spread
+    assert spread == 1 + 8 + 2
+
+
+def _literal_blocks(blocks, lens, starts, hc=9, deep=0, accel=1):
+    """``encode_blocks`` as the frame codec calls it, with the finder's
+    route taken on ``meta`` tensors (launches faked, ``_Launches``) and
+    each window's payload written as one literal run from ``starts``: a
+    valid LZ4 block whatever the kernels would find."""
+    tb.match_candidates(blocks.to("meta"), lens.to("meta"), hc, accel, deep)
+    B, blk = blocks.shape
+    out = torch.zeros((B, compress_bound(blk)), dtype=torch.uint8)
+    out_len = torch.zeros(B, dtype=torch.int32)
+    for i in range(B):
+        lit = int(lens[i]) - int(starts[i])
+        run = bytearray([min(lit, 15) << 4])
+        if lit >= 15:
+            run += b"\xff" * ((lit - 15) // 255) + bytes([(lit - 15) % 255])
+        run += blocks[i, int(starts[i]):int(lens[i])].numpy().tobytes()
+        out[i, :len(run)] = torch.frombuffer(run, dtype=torch.uint8)
+        out_len[i] = len(run)
+    return out, out_len
+
+
+def _spread_windows(monkeypatch, config: str, sizes) -> int:
+    """``enc.spread_windows`` of the benchmark configuration ``config``'s
+    codec compressing one input of each size in ``sizes`` (each as many
+    times as it appears), on the CPU with the launches faked."""
+    _Launches(monkeypatch)
+    monkeypatch.setattr(sharded, "encode_blocks", _literal_blocks)
+    with open(os.path.join(BENCH, "configs", config + ".json")) as f:
+        settings = harness.codec_settings(json.load(f))
+    codec = sharded.ShardedFrameCodec(device="cpu", **settings)
+    total = 0
+    for size, times in collections.Counter(sizes).items():
+        trace.reset()
+        data = bytes(size)
+        assert lz4f.decompress_frame(codec.compress_frame(data)) == data
+        total += times * trace.counters().get("enc.spread_windows", 0)
+    return total
+
+
+def test_insert_part_spreads_its_one_window_blocks(monkeypatch, recorder):
+    """A part of ``hits-hc9.insert``: every block of one sub-span (4,305
+    of 4,689, at 69,632-102,400 bytes) launches alone and spreads; the
+    384 blocks of two sub-spans launch at 307,200 bytes or more, where
+    the least shape is 16 CTAs already."""
+    with open(os.path.join(BENCH, "configs",
+                           "clickhouse-hits-lz4hc9.json")) as f:
+        sizes = traffic.part_block_sizes(json.load(f)["table"])
+    assert len(sizes) == 4_689
+    assert sum(s <= sharded._SUB for s in sizes) == 4_305
+    assert _spread_windows(monkeypatch, "clickhouse-hits-lz4hc9",
+                           sizes) == 4_305
+
+
+@pytest.mark.parametrize("config,size", [("lz4hc9-b64k", 4 << 20),
+                                         ("lz4-l1-b4m", 8 << 20),
+                                         ("lz4hc12-b4m", 8 << 20)])
+def test_bulk_cells_spread_nothing(monkeypatch, recorder, config, size):
+    """The bulk cells' compress: 64 KB blocks never reach the wide
+    finders, and 4 MB blocks launch their 327,680-byte sub-span windows
+    together, at 16 CTAs already (8 MiB here, 48 MiB in the cells)."""
+    assert _spread_windows(monkeypatch, config, [size]) == 0
 
 
 @pytest.fixture
@@ -323,3 +549,55 @@ def test_wide_finders_past_327680_bytes(cuda, hc, deep):
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(),
                        tb.match_candidates_plain(w, n, hc, 1, deep))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hc,deep", [(9, 0), (0, 0), (8, 3)])
+@pytest.mark.parametrize("blk", sorted(SPREAD))
+def test_spread_launch_matches_least_and_plain(cuda, recorder, blk, hc,
+                                               deep):
+    """Windows launched alone, at the spread shape, against the same
+    windows inside a launch of 64, at the least shape, and against the
+    plain version: valid lengths of the full width, 5 short and 48,771."""
+    least = tb.wide_cluster_shape(blk)
+    active = functools.partial(tb._active_clusters,
+                               torch.cuda.current_device(), bool(deep), blk)
+    assert tb.wide_spread_shape(blk, 1, active) == SPREAD[blk]
+    assert active(*SPREAD[blk]) >= 1
+    assert tb.wide_spread_shape(blk, 64, active) == least
+    picks = _kernel_windows(blk)[[0, 4, 7, 8]]
+    windows = np.repeat(picks, 3, axis=0)
+    lens = np.tile(np.array([blk, blk - 5, 48_771], np.int32), len(picks))
+    w, n = torch.from_numpy(windows), torch.from_numpy(lens)
+    wc, nc = w.to(cuda), n.to(cuda)
+    alone = torch.cat([tb.match_candidates(wc[i:i + 1], nc[i:i + 1], hc, 1,
+                                           deep) for i in range(len(w))])
+    assert trace.counters()["enc.spread_windows"] == len(w)
+    rows = np.arange(64) % len(w)
+    batch = tb.match_candidates(wc[rows], nc[rows], hc, 1, deep)
+    torch.cuda.synchronize()
+    assert trace.counters()["enc.spread_windows"] == len(w)
+    assert torch.equal(batch.cpu(), alone.cpu()[rows])
+    assert torch.equal(alone.cpu(),
+                       tb.match_candidates_plain(w, n, hc, 1, deep))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(mtg.NARROW_FRAMES))
+def test_card_spread_frames_equal_the_reference_frames(cuda, recorder, name):
+    """The port's level-9 frames of ``NARROW_FRAMES`` on the card equal
+    the JAX codec's byte for byte; a block of one sub-span launches its
+    window alone, at the spread shape (``enc.spread_windows`` 1), the
+    499,712-byte block its two windows at 307,200 bytes (0)."""
+    data = mtg.narrow_input(make_corpus(mtg.CORPUS_MB), name)
+    codec = sharded.ShardedFrameCodec(
+        device=cuda, compression_level=9,
+        block_size_id=lz4f.BlockSizeID.max1MB)
+    frame = codec.compress_frame(data)
+    with np.load(mtg.NARROW_OUT) as z:
+        assert len(frame) == int(z[f"frame_{name}_len"])
+        assert hashlib.sha256(frame).hexdigest() == \
+            str(z[f"frame_{name}_sha256"])
+    assert lz4f.decompress_frame(frame) == data
+    one = len(data) <= sharded._SUB
+    assert trace.counters().get("enc.spread_windows", 0) == int(one)

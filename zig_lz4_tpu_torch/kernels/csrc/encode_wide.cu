@@ -11,7 +11,9 @@
 // since the position is the sort's last key.
 //
 // enc_match_wide (one thread-block cluster of C CTAs x 1024 threads per
-// window, C = 8 at 131,072 bytes and 16 at 262,144 and 327,680): the same
+// window, C = 8 at 131,072 bytes and 16 at 262,144 and 327,680, or up to
+// 16 at any width where the launch holds few windows,
+// torch_block.wide_spread_shape): the same
 // semantics as enc_match (hc >= 1: the 12-byte grouping order, probes
 // +-1..+-hc, the unsort as a store to the position, the fallback order
 // (s0, i) with probes +1 and +2, taken only when strictly longer) and

@@ -27,9 +27,11 @@ and, for the deep levels, ``kernels/csrc/encode_deep.cu``):
   for the windows over 64 KB that the reference encodes on its device
   (``device_encoder_supports``): ``[dictionary | block]`` windows, 256 KB
   blocks and the 327,680-byte sub-span windows of 1 MB and 4 MB blocks.
-  One thread-block cluster a window (``wide_cluster_shape``) holds its
-  u32 position order in shared memory, sorted by stable byte-digit radix
-  passes across the cluster; the window words live in device scratch.
+  One thread-block cluster a window (``wide_cluster_shape``, or up to 16
+  CTAs where the launch holds few windows: ``wide_spread_shape``) holds
+  its u32 position order in shared memory, sorted by stable byte-digit
+  radix passes across the cluster; the window words live in device
+  scratch.
 * ``enc_parse_emit`` -- same-offset chain extension, the ``n - 5``
   clamp, two-step lazy deferral (HC only), the greedy parse (one thread,
   reading lengths staged in shared memory) and the emission of the LZ4
@@ -75,6 +77,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
 from ..constants import compress_bound
 from ..kernels import launch, library
 
@@ -82,7 +85,8 @@ __all__ = ["level_params", "fast_params", "device_encoder_supports",
            "encode_blocks", "encode_blocks_plain", "match_candidates",
            "match_candidates_plain", "parse_emit", "parse_emit_plain",
            "deep_dp", "deep_dp_plain", "deep_emit", "deep_emit_plain",
-           "tier_lengths", "wide_cluster_shape", "wide_launch_shape",
+           "tier_lengths", "wide_cluster_shape", "wide_spread_shape",
+           "wide_launch_shape",
            "hc_probes", "make_block_encoder", "make_block_decoder",
            "decode_blocks", "parse_sequences", "seqs_to_arrays",
            "MAX_SEQS"]
@@ -755,8 +759,10 @@ def match_candidates(blocks: torch.Tensor, lens: torch.Tensor,
     64 KB the ``enc_deep_match`` kernel (``deep`` 1..3), the ``enc_match``
     kernel (``hc >= 1``) or the ``enc_match_fast`` kernel (``hc == 0``,
     with ``fast_params(accel)``), at wider ones the ``enc_deep_match_wide``
-    kernel (``deep`` 1..3) or the ``enc_match_wide`` kernel; the plain
-    version for CPU tensors."""
+    kernel (``deep`` 1..3) or the ``enc_match_wide`` kernel, at the
+    cluster shape ``wide_spread_shape`` gives the launch's windows
+    (counted in ``enc.spread_windows`` where it is wider than the
+    least); the plain version for CPU tensors."""
     if blocks.device.type == "cpu":
         return match_candidates_plain(blocks, lens, hc, accel, deep)
     W, probes = _finder(hc, deep, accel)
@@ -777,7 +783,10 @@ def match_candidates(blocks: torch.Tensor, lens: torch.Tensor,
         # shared memory of the window's cluster
         nwords = (blk + 64) // 4 + 1
         words = torch.empty((B, nwords), dtype=torch.int32, device=dev)
-        C, J = wide_cluster_shape(blk)
+        C, J = wide_spread_shape(blk, B, functools.partial(
+            _active_clusters, blocks.get_device(), bool(deep), blk))
+        if C > wide_cluster_shape(blk)[0]:
+            trace.count("enc.spread_windows", B)
         if deep:
             launch("enc_deep_match_wide", blocks, lens, words, ranks, pk, B,
                    blk, nwords, C, J, hc, deep)
@@ -828,7 +837,8 @@ def wide_cluster_shape(blk: int) -> tuple[int, int]:
     slices of ``1024 * J`` rows, one a CTA of 1024 threads, J rows a
     thread; C is the least power of two up to 16 that keeps J at 20 or
     under (C = 8 at 131,072 bytes, 16 at 262,144 and 327,680), and J the
-    least that covers ``blk`` rows."""
+    least that covers ``blk`` rows.  A launch of few windows may take a
+    wider C (``wide_spread_shape``)."""
     C = 1
     while C < _WIDE_MAX_CLUSTER and -(-blk // C) > _WIDE_ROWS * _WIDE_THREADS:
         C *= 2
@@ -837,13 +847,33 @@ def wide_cluster_shape(blk: int) -> tuple[int, int]:
     return C, J
 
 
-def wide_launch_shape(blk: int, deep: int = 0) -> dict:
-    """The launch shape of the wide finder (``enc_deep_match_wide`` when
-    ``deep``) for ``blk``-byte windows on the current CUDA device: CTAs a
-    cluster, threads a CTA, rows a thread, shared memory a CTA in bytes,
-    and the clusters the card holds at once
-    (``cudaOccupancyMaxActiveClusters``)."""
-    C, J = wide_cluster_shape(blk)
+def wide_spread_shape(blk: int, windows: int, active) -> tuple[int, int]:
+    """(C, J) of a wide finder's launch of ``windows`` windows of ``blk``
+    bytes: the widest power of two C from 16 down to
+    ``wide_cluster_shape(blk)``'s at which ``active(C, J)``, the clusters
+    of that shape the card holds at once, takes every window of the
+    launch, with J the least that covers ``blk`` rows at that C; the
+    least shape (``wide_cluster_shape``) where no wider C takes them all.
+    A launch of one or two windows so spreads each window's rows, and
+    its probes, over up to 16 SMs (a lone 69,632-byte window: 16 CTAs of
+    5 rows a thread, not 4 of 17); a launch of many windows, which fills
+    the card at the least shape, keeps it.  The bytes do not depend on
+    the shape: every pass is stable and a probe reads across a slice's
+    edge."""
+    least = wide_cluster_shape(blk)
+    C = _WIDE_MAX_CLUSTER
+    while C > least[0]:
+        J = -(-blk // (C * _WIDE_THREADS))
+        if active(C, J) >= windows:
+            return C, J
+        C //= 2
+    return least
+
+
+def _wide_query(blk: int, C: int, J: int, deep: bool) -> tuple[int, int]:
+    """(shared memory a CTA in bytes, clusters the card holds at once) of
+    the wide finder (``enc_deep_match_wide`` when ``deep``) at shape
+    (C, J) for ``blk``-byte windows on the current CUDA device."""
     out = (ctypes.c_int * 2)()
     fn = getattr(library(), "zl4_enc_deep_match_wide_shape" if deep
                  else "zl4_enc_match_wide_shape")
@@ -852,8 +882,30 @@ def wide_launch_shape(blk: int, deep: int = 0) -> dict:
     err = fn(blk, C, J, out)
     if err:
         raise RuntimeError(f"wide launch shape: CUDA error {err}")
+    return out[0], out[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _active_clusters(device: int, deep: bool, blk: int, C: int,
+                     J: int) -> int:
+    """The clusters of C CTAs of J rows a thread that CUDA device
+    ``device`` holds at once for the wide finder at ``blk``-byte windows
+    (``cudaOccupancyMaxActiveClusters``), asked once a (device, kernel,
+    blk, C): J follows from blk and C."""
+    with torch.cuda.device(device):
+        return _wide_query(blk, C, J, deep)[1]
+
+
+def wide_launch_shape(blk: int, deep: int = 0) -> dict:
+    """The least launch shape (``wide_cluster_shape``) of the wide finder
+    (``enc_deep_match_wide`` when ``deep``) for ``blk``-byte windows on
+    the current CUDA device: CTAs a cluster, threads a CTA, rows a
+    thread, shared memory a CTA in bytes, and the clusters the card holds
+    at once (``cudaOccupancyMaxActiveClusters``)."""
+    C, J = wide_cluster_shape(blk)
+    smem, active = _wide_query(blk, C, J, bool(deep))
     return {"ctas": C, "threads": _WIDE_THREADS, "rows_a_thread": J,
-            "smem_bytes": out[0], "active_clusters": out[1]}
+            "smem_bytes": smem, "active_clusters": active}
 
 
 def _check_pk(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
