@@ -158,16 +158,21 @@ def _log(*args):
 
 
 def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
-             device: str = "cuda:0", bench: dict | None = None,
+             device: str = "cuda:0", devices: list | None = None,
+             bench: dict | None = None,
              t_start: float | None = None, mix_overrides=None,
              config_overrides=None, wrap=None, settings=None,
              workers: int | None = None, max_requests: int | None = None) -> dict:
     """Run cell ``workload`` once and return its result object.
 
     ``device`` is where the codec runs (``cpu`` runs the port's plain
-    routes, for tests); ``t_start`` is the host clock at the process's
-    start (set-up is counted from it); ``mix_overrides`` and
-    ``config_overrides`` lay parameters over the mix and the
+    routes, for tests).  A cell of ``chips`` n runs over a
+    ``blocks_mesh`` of n devices: ``device`` where n is 1, else the
+    first n CUDA devices, or n times ``cpu`` on the CPU route;
+    ``devices`` lays the mesh over the devices given instead (tests:
+    ``["cuda:0"] * 4`` on one card).  ``t_start`` is the host clock at
+    the process's start (set-up is counted from it); ``mix_overrides``
+    and ``config_overrides`` lay parameters over the mix and the
     configuration (tests shrink the corpus and the table); ``wrap``
     wraps the codec the window calls, once set-up is over (tests plant
     faults); ``settings`` replace codec arguments (the control);
@@ -181,10 +186,20 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
     import torch
     import zig_lz4_tpu_torch
     from zig_lz4_tpu_torch import kernels, native
+    from zig_lz4_tpu_torch.parallel import blocks_mesh
     marks = [("imports", time.perf_counter())]
-    if device.startswith("cuda"):
-        torch.zeros(1, device=device)
-        torch.cuda.synchronize()
+    n = cell["chips"]
+    if devices is None:
+        devices = ([f"cuda:{k}" for k in range(n)]
+                   if n > 1 and device.startswith("cuda") else [device] * n)
+    mesh = blocks_mesh(n, devices=devices)
+    #: the CUDA cards of the run, each once
+    cards = sorted({d.index or 0 for d in mesh.devices if d.type == "cuda"})
+    if cards:
+        for k in cards:                 # each card's context
+            torch.zeros(1, device=f"cuda:{k}")
+            torch.cuda.reset_peak_memory_stats(k)   # this run's peak alone
+        _synchronize(torch, cards)
         kernels.library()               # built here in a checkout's first run
         marks.append(("CUDA context and kernel library", time.perf_counter()))
     native.is_available()               # the host runtime, likewise
@@ -195,7 +210,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
     view = memoryview(corpus)
     args = codec_settings(config)
     args.update(settings or {})
-    codec = zig_lz4_tpu_torch.ShardedFrameCodec(device=device, **args)
+    codec = zig_lz4_tpu_torch.ShardedFrameCodec(mesh=mesh, **args)
 
     # set-up: a block of each size the requests write, compressed (and
     # read back, where the mix reads)
@@ -207,8 +222,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
         if reads:
             codec.decompress_frame(frame)
         last, last_block = frame, (0, size)
-    if device.startswith("cuda"):
-        torch.cuda.synchronize()
+    _synchronize(torch, cards)
     gc.collect()
     marks.append(("frames and warm-up", time.perf_counter()))
     setup_s = time.perf_counter() - t0
@@ -273,18 +287,17 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
 
     events = None
     if traced:
-        _, events = tracing.profile(window)
+        _, events = tracing.profile(window, cards)
     else:
         window()
-    if device.startswith("cuda"):
-        torch.cuda.synchronize()
-    dev = _device(torch, device)
+    _synchronize(torch, cards)
+    dev = _device(torch, mesh.devices, cards)
     launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
     del codec, timed
     gc.collect()
-    if device.startswith("cuda"):
+    if cards:
         torch.cuda.empty_cache()
-    smi = _nvidia_smi() if device.startswith("cuda") else "cpu"
+    smi = _nvidia_smi() if cards else "cpu"
 
     # the judgement: the distinct frames the window wrote (all, or a
     # sample drawn from the seed), by the reference; each read's output
@@ -313,8 +326,9 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
     if traced:
         run.trace = tracing.Trace(
             events, {i: (c.content, c.frame) for i, c in enumerate(calls)
-                     if c.counted and c.ok})
+                     if c.counted and c.ok}, cards or None)
         dev["busy_s"], dev["window_s"] = run.trace.window_busy()
+        dev["busy_union_s"] = run.trace.window_busy_union()
     metrics = {}
     for m in cell_metrics(bench, workload, traced):
         read, kind = reader(m["name"])
@@ -386,14 +400,30 @@ class _Null:
         return False
 
 
-def _device(torch, device: str) -> dict:
-    if device.startswith("cuda"):
-        idx = torch.device(device).index or 0
-        return {"platform": "gpu", "kind": torch.cuda.get_device_name(idx),
-                "count": 1,
-                "memory_peak_bytes": int(torch.cuda.max_memory_allocated(idx))}
-    return {"platform": "cpu", "kind": "cpu", "count": 1,
-            "memory_peak_bytes": 0}
+def _synchronize(torch, cards: list) -> None:
+    """Wait until every CUDA card of the run has finished its work."""
+    for k in cards:
+        torch.cuda.synchronize(k)
+
+
+def _device(torch, placed, cards: list) -> dict:
+    """The result's ``device`` for a run over the mesh devices ``placed``
+    and the CUDA ``cards`` among them, each once: ``count`` is the
+    number of cards (on the CPU route, of the mesh's virtual devices),
+    ``memory_peak_bytes`` the fullest card's peak and
+    ``memory_peak_bytes_by_card`` each card's, in the order of
+    ``cards``; ``kind`` is the first card's name."""
+    if not cards:
+        return {"platform": "cpu", "kind": "cpu", "count": len(placed),
+                "memory_peak_bytes": 0,
+                "memory_peak_bytes_by_card": [0] * len(placed)}
+    names = {k: torch.cuda.get_device_name(k) for k in cards}
+    if len(set(names.values())) > 1:
+        _log(f"cards differ: {json.dumps(names, sort_keys=True)}")
+    peaks = [int(torch.cuda.max_memory_allocated(k)) for k in cards]
+    return {"platform": "gpu", "kind": names[cards[0]], "count": len(cards),
+            "memory_peak_bytes": max(peaks),
+            "memory_peak_bytes_by_card": peaks}
 
 
 def result_line(result: dict) -> str:

@@ -4,8 +4,10 @@ each payload byte it returned written once at the device's peak memory
 bandwidth (the port's counters ``enc.deep_window_bytes`` and
 ``enc.deep_payload_bytes``, a ``compress_frame`` call's share), over the
 device time of the kernels named ``enc_deep_*`` that started inside a
-compress span, a span's share, in percent.  Bytes only: it holds for any
-formulation of the deep route.  None without a trace or a peak, where
+compress span, a span's share, in percent.  On a mesh that time is
+summed over the cards (card-seconds), so the reading is a share of the
+mesh's bandwidth; on one card nothing differs.  Bytes only: it holds for
+any formulation of the deep route.  None without a trace or a peak, where
 no such kernel ran, or where the recorder counted no deep work (a port
 without the counters)."""
 

@@ -1,8 +1,10 @@
 """``enc_kernel_roofline``: the least time the compress calls' work
 needs, each call's input read once and its frame written once at the
 device's peak memory bandwidth, over the summed device time of every
-kernel that started inside a compress span, in percent.  Bytes only:
-it holds for any formulation of the encoder.  None where the trace
+kernel that started inside a compress span, in percent.  On a mesh the
+kernel time is summed over the cards (card-seconds), so the reading is
+a share of the mesh's bandwidth; on one card nothing differs.  Bytes
+only: it holds for any formulation of the encoder.  None where the trace
 holds no such kernel or the card has no peak in ``peaks.json``."""
 
 

@@ -94,7 +94,7 @@ def test_configs_found_by_name():
 @pytest.mark.parametrize("cell", sorted(CELLS))
 def test_cell_parts_found_by_name(cell):
     w = CELLS[cell]
-    assert w["chips"] == 1
+    assert w["chips"] in (1, 4)
     assert NAME.match(w["config"]) and NAME.match(w["traffic"])
     _cell, cfg, mix = harness.cell_parts(BENCH, cell)
     assert cfg["name"] == w["config"] and mix.name == w["traffic"]
@@ -102,6 +102,13 @@ def test_cell_parts_found_by_name(cell):
                                        f"{w['traffic']}.json"))
     pairs = [(x["config"], x["traffic"]) for x in BENCH["workloads"]]
     assert pairs.count((w["config"], w["traffic"])) == 1
+
+
+def test_few_cells_take_four_chips():
+    """At most a quarter of the cells, rounded down, ask for four chips;
+    one always may."""
+    four = [w["name"] for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(BENCH["workloads"]) // 4), four
 
 
 @pytest.mark.parametrize("cell", sorted(CELLS))
