@@ -347,3 +347,65 @@ def test_cuda_mesh_deep_tier_equals_one_device(engine):
     assert any(DEEP_TIER in k for k in c.routes)
     assert cpu.decompress_frame(frame) == data
     assert cpu.routes == c.routes and cpu.tier_members == c.tier_members
+
+
+#: (input bytes, ``batch_blocks``, shards launched by compress and by
+#: decompress, round trips of more than one shard in each) over the
+#: four-card cell's mesh: 4 blocks, a shard a device; 5 blocks in one
+#: group of 3 shards (2, 2, 1; the fourth device gets none); 7 blocks in
+#: groups of 4 and 3, the last smaller than the mesh, and decoded as 4
+#: shards (2, 2, 2, 1); one block, one shard, nothing to join
+MESH4_CASES = {"four_blocks": (4 * 65536, None, 4, 1, 4, 1),
+               "five_blocks": (5 * 65536 - 3000, None, 3, 1, 3, 1),
+               "last_group_short": (7 * 65536 - 5000, 4, 7, 2, 4, 1),
+               "one_block": (40_000, None, 1, 0, 1, 0)}
+
+
+def _traced_round_trip(codec, data, batch_blocks):
+    """(frame, decoded, span counts, counters) of one compress and one
+    decompress of ``data`` under the recorder."""
+    from zig_lz4_tpu_torch import trace
+    trace.reset()
+    trace.enable()
+    try:
+        frame = codec.compress_frame(data, batch_blocks=batch_blocks)
+        out = codec.decompress_frame(frame)
+        spans = {k: v["count"] for k, v in trace.totals().items()}
+        return frame, out, spans, trace.counters()
+    finally:
+        trace.disable()
+        trace.reset()
+
+
+@pytest.mark.parametrize("case", sorted(MESH4_CASES))
+def test_four_card_cell_on_a_cpu_mesh(case):
+    """``hc9-64k.mesh4``'s configuration (``lz4hc9-b64k-4gpu``) built as
+    the benchmark builds it, over its four chips as ``cpu`` four times:
+    the frame is the one-device frame byte for byte, the benchmark's
+    reference passes it under the configuration, the mesh decodes it
+    back; every round trip of more than one shard joins their rows once
+    under ``.gather``, and ``.shards`` counts the shards launched; one
+    device joins nothing."""
+    from lz4bench import harness, reference
+    size, batch_blocks, enc_n, enc_g, dec_n, dec_g = MESH4_CASES[case]
+    cell, config, _mix = harness.cell_parts(harness.load_benchmark(),
+                                            "hc9-64k.mesh4")
+    assert cell["chips"] == 4
+    args = harness.codec_settings(config)
+    data = _corpus(size)
+    mesh = ShardedFrameCodec(mesh=_mesh(cell["chips"]), **args)
+    one = ShardedFrameCodec(mesh=_mesh(1), **args)
+    frame, out, spans, counts = _traced_round_trip(mesh, data, batch_blocks)
+    one_frame, one_out, one_spans, one_counts = _traced_round_trip(
+        one, data, batch_blocks)
+    assert frame == one_frame
+    assert out == one_out == data
+    assert reference.check_frame(frame, data, config) == ""
+    for kind, shards, gathers in (("enc", enc_n, enc_g),
+                                  ("dec", dec_n, dec_g)):
+        assert counts.get(f"{kind}.shards", 0) == shards
+        assert spans.get(f"{kind}.gather", 0) == gathers
+        assert spans.get(f"{kind}.stage", 0) == shards
+        assert f"{kind}.gather" not in one_spans
+        assert one_counts.get(f"{kind}.shards", 0) == \
+            one_spans.get(f"{kind}.collect", 0)

@@ -286,19 +286,24 @@ class ShardedFrameCodec:
         under ``<prefix>.launch``, every shard before the first is
         gathered; then the output tensors ``launch`` returned, copied
         back in mesh order under ``<prefix>.collect``, as host arrays
-        with the shards' rows joined (one shard's as copied back)."""
+        with the shards' rows joined under ``<prefix>.gather`` (one
+        shard's as copied back, with no join).  ``<prefix>.shards``
+        counts the shards launched."""
+        shards = self.mesh.shards(len(arrays[0]))
+        trace.count(prefix + ".shards", len(shards))
         launched = []
-        for d, lo, hi in self.mesh.shards(len(arrays[0])):
+        for d, lo, hi in shards:
             with trace.span(prefix + ".stage"):
                 args = [torch.from_numpy(np.ascontiguousarray(a[lo:hi]))
                         .to(d) for a in arrays]
             with trace.span(prefix + ".launch"):
                 launched.append(launch(d, *args))
         with trace.span(prefix + ".collect"):
-            if len(launched) == 1:
-                return [t.cpu().numpy() for t in launched[0]]
-            return [np.concatenate([t.cpu().numpy() for t in col])
-                    for col in zip(*launched)]
+            copied = [[t.cpu().numpy() for t in out] for out in launched]
+        if len(copied) == 1:
+            return copied[0]
+        with trace.span(prefix + ".gather"):
+            return [np.concatenate(col) for col in zip(*copied)]
 
     # -- compression ----------------------------------------------------
 
