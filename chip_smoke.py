@@ -146,7 +146,9 @@ them), ``serial_decode`` (the 672 blocks), ``frag_decode_chase`` (the
 of the "win" path) and ``frag_decode`` (the 256 KB "win" path's launch)
 (``time_decode_kernels``).  ``--time-wide-spread`` times
 ``enc_match_wide`` phase by phase on one window launched alone at each
-cluster shape it takes (``time_wide_spread``).
+cluster shape it takes (``time_wide_spread``); ``--time-parse-spread``
+does the same for ``enc_parse_emit``, one CTA and each cluster of its
+spread route (``time_parse_spread``).
 
 Exits non-zero on any failed check.  Imports no JAX.  The last two
 lines of stdout are the card's name and power limit as nvidia-smi
@@ -199,6 +201,9 @@ DECODE_FLAG = "--time-decode-kernels"
 #: (time_wide_spread), and its rounds in turns
 SPREAD_FLAG = "--time-wide-spread"
 SPREAD_ROUNDS = 7
+#: the mode that times enc_parse_emit on one window at one CTA and at each
+#: cluster of its spread route (time_parse_spread)
+PARSE_SPREAD_FLAG = "--time-parse-spread"
 DEEP_KERNELS = ("enc_deep_match", "enc_deep_dp", "enc_deep_emit")
 #: the CLI's compress runs over the corpus with --engine cuda: flag ->
 #: the kernels the run must launch
@@ -287,9 +292,13 @@ WIDE_DEEP_PHASES = ("window words", "32-byte sort", "32-byte rank numbering",
                     "fallback probes")
 #: phases of enc_deep_emit, one a cut (1, 2, 3) and the last the rest
 DEEP_EMIT_PHASES = ("take mask", "walk", "absorb and compaction", "emission")
+#: phases of enc_parse_emit (both routes), one a cut (1, 2, 3) and the last
+#: the rest
+PARSE_PHASES = ("chain", "lazy mask", "walk", "emission")
 #: kernels whose registers and spills the build log gives
 PTXAS_KERNELS = ("enc_match_kernel", "enc_match_fast_kernel",
-                 "enc_parse_emit_kernel", "enc_deep_emit_kernel",
+                 "enc_parse_emit_kernel", "enc_parse_emit_spread_kernel",
+                 "enc_deep_emit_kernel",
                  "enc_match_wide_kernel<20>", "enc_match_wide_kernel<32>",
                  "enc_deep_match_wide_kernel<20>",
                  "enc_deep_match_wide_kernel<32>", "enc_deep_match_kernel",
@@ -417,24 +426,27 @@ def host_us(fn, calls=1000):
     return t
 
 
-def start_phase_builds(kernels, cuts=PHASE_CUTS):
+def start_phase_builds(kernels, cuts=PHASE_CUTS, csrc=None, tag=""):
     """Start one nvcc a phase cut (-DZL4_STOP=k) of each timed source of
     ``cuts`` -- by default ``encode_block.cu`` (k = 1..4),
     ``encode_wide.cu`` (1..4), ``encode_deep_wide.cu`` (1..8),
     ``encode_deep.cu`` (1..8) and the decoders' -- each into a library
     of its own under the kernels' build directory, all at once; returns
-    [(source, k, library path, process)]."""
-    csrc = os.path.join(os.path.dirname(kernels.__file__), "csrc")
+    [(source, k, library path, process)].  ``csrc``: another directory
+    of sources (another checkout's), whose libraries take ``tag`` in
+    their names; there k = 0 builds the source whole."""
+    csrc = csrc or os.path.join(os.path.dirname(kernels.__file__), "csrc")
     out = os.path.join(os.path.dirname(os.path.dirname(kernels.__file__)),
                        "_build")
     os.makedirs(out, exist_ok=True)
     jobs = []
     for src, last in cuts.items():
-        for k in range(1, last + 1):
-            so = os.path.join(out, f"{src[:-3]}_stop{k}.so")
+        for k in range(0 if tag else 1, last + 1):
+            so = os.path.join(out, f"{tag}{src[:-3]}_stop{k}.so")
             cmd = [kernels._nvcc(), "-gencode",
                    "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                   "-Xcompiler", "-fPIC", "-shared", f"-DZL4_STOP={k}",
+                   "-Xcompiler", "-fPIC", "-shared"] + (
+                       [f"-DZL4_STOP={k}"] if k else []) + [
                    "-o", so, os.path.join(csrc, src)]
             jobs.append((src, k, so, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -484,7 +496,7 @@ def phase_split(libs, w, l, s, pk, hc, capped_ml):
         fm, fe = lib.zl4_enc_match, lib.zl4_enc_parse_emit
         ff = lib.zl4_enc_match_fast
         fm.argtypes, fm.restype = [P] * 3 + [I] * 3 + [P], I
-        fe.argtypes, fe.restype = [P] * 8 + [I] * 6 + [P], I
+        fe.argtypes, fe.restype = [P] * 8 + [I] * 7 + [P], I
         ff.argtypes, ff.restype = [P] * 3 + [I] * 4 + [P], I
 
         def match():
@@ -495,7 +507,7 @@ def phase_split(libs, w, l, s, pk, hc, capped_ml):
             check(fe(w.data_ptr(), l.data_ptr(), s.data_ptr(), pk.data_ptr(),
                      mlw.data_ptr(), runs.data_ptr(), out.data_ptr(),
                      olen.data_ptr(), B, blk, cap, runs.shape[1], capped_ml,
-                     1, stream) == 0, f"enc_parse_emit cut {k} did not "
+                     1, 1, stream) == 0, f"enc_parse_emit cut {k} did not "
                   "launch")
         def fast():
             check(ff(w.data_ptr(), l.data_ptr(), cut.data_ptr(), B, blk, W,
@@ -1503,6 +1515,150 @@ def time_wide_spread():
     return 0
 
 
+def parse_phase_split(libs, w, l, s, pk, C):
+    """Milliseconds of ``enc_parse_emit`` (level 9: hc 9's capped_ml, the
+    lazy mask) at ``C`` CTAs a window (1: one CTA of 256 threads) through
+    each library of ``libs`` ({k: library}: the cuts -DZL4_STOP=k of
+    ``encode_block.cu``, and the whole kernel last), called through
+    ctypes (not counted), and what the last one wrote: (out, out_len).
+    A library without the spread route (no ``zl4_enc_parse_emit_shape``)
+    takes no C argument and runs at one CTA."""
+    import ctypes
+
+    import torch
+    from zig_lz4_tpu_torch.constants import compress_bound
+    B, blk = w.shape
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    cap = compress_bound(blk)
+    mlw = torch.empty_like(pk)
+    runs = torch.empty((B, (blk // 4 + 1) + 3 * (blk // 4 + 2)),
+                       dtype=torch.int32, device=w.device)
+    out = torch.zeros((B, cap), dtype=torch.uint8, device=w.device)
+    olen = torch.empty(B, dtype=torch.int32, device=w.device)
+    ms = {}
+    for k, lib in libs.items():
+        fe = lib.zl4_enc_parse_emit
+        spread = hasattr(lib, "zl4_enc_parse_emit_shape")
+        check(spread or C == 1, "a library without the spread route")
+        fe.argtypes = [P] * 8 + [I] * (7 if spread else 6) + [P]
+        fe.restype = I
+        args = (w.data_ptr(), l.data_ptr(), s.data_ptr(), pk.data_ptr(),
+                mlw.data_ptr(), runs.data_ptr(), out.data_ptr(),
+                olen.data_ptr(), B, blk, cap, runs.shape[1], 4 + 4 * 8, 1) \
+            + ((C,) if spread else ()) + (stream,)
+
+        def run():
+            check(fe(*args) == 0, f"enc_parse_emit cut {k} at C={C} did "
+                  "not launch")
+        run()
+        ms[k] = cuda_ms(run, 2)[0]
+    return ms, (out, olen)
+
+
+def time_parse_spread(other=None):
+    """``python3 chip_smoke.py --time-parse-spread [root]``:
+    ``enc_parse_emit`` (level 9, on ``match_candidates``' hc 9
+    candidates) on one window launched alone, as an insert call launches
+    its one sub-span (65,536 corpus bytes in a 69,632-byte window), and on
+    one 98,304-byte block's 102,400-byte window, at one CTA of 256 threads
+    and at every cluster of its spread route whose slices fit
+    (``_spread_fits``: C = 4, 8, 16 and 8, 16), phase by
+    phase from the cuts of ``encode_block.cu`` (-DZL4_STOP=1..3) and
+    whole, the shapes in turns over ``SPREAD_ROUNDS`` rounds (medians);
+    with ``root``, another checkout's ``encode_block.cu`` the same way at
+    one CTA, in the same turns (built beside the library; a source
+    without the spread route takes no C argument).  Each shape's out and
+    out_len must equal ``parse_emit_plain``'s; then the shape the rule
+    gives one window (``parse_spread_shape``) with the clusters the card
+    holds at each C, and ``parse_emit`` on the lone window as the frame
+    codec launches it.  One line a width."""
+    import torch
+    if not torch.cuda.is_available():
+        print("[device] FAIL: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    from zig_lz4_tpu_torch import kernels as kernels_mod
+    from zig_lz4_tpu_torch import trace
+    from zig_lz4_tpu_torch.corpus import make_corpus
+    from zig_lz4_tpu_torch.ops import torch_block as tb
+    smi = nvidia_smi()
+    jobs = start_phase_builds(kernels_mod, {"encode_block.cu": 3})
+    if other:
+        jobs += start_phase_builds(
+            kernels_mod, {"encode_block.cu": 3}, tag="other_",
+            csrc=os.path.join(other, "zig_lz4_tpu_torch", "kernels", "csrc"))
+    kernels_mod.build()
+    built = {}
+    for src, k, so, proc in jobs:
+        log = proc.communicate()[0]
+        check(proc.returncode == 0, f"nvcc -DZL4_STOP={k} {so} failed:\n{log}")
+        built[so] = k
+    import ctypes
+    mine = {k: ctypes.CDLL(so) for so, k in built.items()
+            if "other_" not in os.path.basename(so)}
+    mine[4] = kernels_mod.library()                 # the whole kernel
+    theirs = {k or 4: ctypes.CDLL(so) for so, k in sorted(
+        built.items(), key=lambda x: x[1] or 4)
+        if "other_" in os.path.basename(so)}
+    data = make_corpus(48)
+    dev = torch.cuda.current_device()
+    for blk, n in ((69_632, BLK), (102_400, 98_304)):
+        row = bytearray(blk)
+        row[:n] = data[29 * BLK:29 * BLK + n]
+        w = torch.frombuffer(row, dtype=torch.uint8).view(1, blk).cuda()
+        ln = torch.full((1,), n, dtype=torch.int32, device=w.device)
+        st = torch.zeros_like(ln)
+        pk = tb.match_candidates(w, ln, 9)
+        active_at = functools.partial(tb._parse_active, dev, blk)
+        shapes = [("C=1", mine, 1)] + [(f"C={C}", mine, C)
+                                       for C in (2, 4, 8, 16)
+                                       if tb._spread_fits(blk, C)]
+        if theirs:
+            shapes.insert(0, ("other C=1", theirs, 1))
+        runs = {label: [] for label, _l, _c in shapes}
+        outs = {}
+        for _ in range(SPREAD_ROUNDS):
+            for label, libs, C in shapes:
+                ms, outs[label] = parse_phase_split(libs, w, ln, st, pk, C)
+                runs[label].append(ms)
+        torch.cuda.synchronize()
+        out_p, olen_p = tb.parse_emit_plain(w.cpu(), ln.cpu(), st.cpu(),
+                                            pk.cpu())
+        errs = {label: max(max_abs_err(o.cpu(), out_p),
+                           max_abs_err(ol.cpu(), olen_p))
+                for label, (o, ol) in outs.items()}
+        check(not any(errs.values()), f"enc_parse_emit at {blk} bytes "
+              f"differs from plain at a shape: {errs}")
+        cells = []
+        for label, _libs, C in shapes:
+            cut = {k: statistics.median(r[k] for r in runs[label])
+                   for k in runs[label][0]}
+            phases = [cut[1]] + [cut[k] - cut[k - 1] for k in range(2, 5)]
+            held = f" ({active_at(C)} clusters at once)" if C > 1 else ""
+            cells.append(f"{label}{held}: " + ", ".join(
+                f"{p} {v:.4f}" for p, v in zip(PARSE_PHASES, phases))
+                + f"; whole {cut[4]:.4f} ms")
+        trace.reset()
+        trace.enable()
+        tb.parse_emit(w, ln, st, pk)
+        spread_n = trace.counters().get("enc.spread_parses", 0)
+        trace.disable()
+        trace.reset()
+        e_ms = statistics.median(cuda_ms(lambda: tb.parse_emit(
+            w, ln, st, pk))[0] for _ in range(SPREAD_ROUNDS))
+        print(f"[parse spread] {smi}: one window of {blk} bytes, {n} "
+              f"valid, level 9, {int(olen_p[0])} bytes out, medians of "
+              f"{SPREAD_ROUNDS} rounds in turns (ms; cuts of encode_block.cu, "
+              "-DZL4_STOP=1..3, and whole): " + " | ".join(cells)
+              + f"; out and out_len equal plain's at every shape "
+              f"(max_abs_err {max(errs.values())}); the rule's C for one "
+              f"window {tb.parse_spread_shape(blk, 1, active_at)}; "
+              f"parse_emit {e_ms:.4f} ms, enc.spread_parses {spread_n}",
+              flush=True)
+    return 0
+
+
 def main():
     t_run = time.perf_counter()
     import torch
@@ -2001,7 +2157,9 @@ def main():
     # its one sub-span: the launch rule spreads them over more CTAs than
     # the least shape (enc.spread_windows counts each), and the
     # candidates must not change
-    lone_err = {}
+    # enc_parse_emit on the same windows at its spread route's cluster
+    # (enc.spread_parses counts each)
+    lone_err, parse_err = {}, {}
     trace.reset()
     trace.enable()
     for blk_l in LONE_WIDTHS:
@@ -2009,14 +2167,33 @@ def main():
                                dtype=torch.uint8).view(1, blk_l).to(dev)
         for n_l in (blk_l, blk_l - 5, 48_771):
             l_l = torch.full((1,), n_l, dtype=torch.int32, device=dev)
+            s_l = torch.zeros_like(l_l)
             for hc, deep in ((9, 0), (0, 0), (8, 3)):
+                pk_l = tb.match_candidates(w_l, l_l, hc, 1, deep)
                 lone_err[f"{blk_l} n={n_l} hc={hc} deep={deep}"] = (
-                    max_abs_err(tb.match_candidates(w_l, l_l, hc, 1, deep),
-                                tb.match_candidates_plain(w_l, l_l, hc, 1,
-                                                          deep)))
+                    max_abs_err(pk_l, tb.match_candidates_plain(
+                        w_l, l_l, hc, 1, deep)))
+                if deep:
+                    continue
+                out_l, olen_l = tb.parse_emit(w_l, l_l, s_l, pk_l, hc)
+                out_lp, olen_lp = tb.parse_emit_plain(w_l, l_l, s_l, pk_l,
+                                                      hc)
+                parse_err[f"{blk_l} n={n_l} hc={hc}"] = max(
+                    max_abs_err(out_l, out_lp), max_abs_err(olen_l, olen_lp))
     spread_n = trace.counters().get("enc.spread_windows", 0)
+    spread_p = trace.counters().get("enc.spread_parses", 0)
     trace.disable()
     trace.reset()
+    wide_err["enc_parse_emit"] = max([wide_err["enc_parse_emit"]]
+                                     + list(parse_err.values()))
+    print(f"[wide] the same lone windows' enc_parse_emit at its spread "
+          f"route: vs plain max_abs_err {parse_err}; enc.spread_parses "
+          f"{spread_p} of {len(parse_err)}")
+    check(not any(parse_err.values()),
+          "enc_parse_emit's spread route differs from plain on a lone window")
+    check(spread_p == len(parse_err),
+          f"enc.spread_parses counted {spread_p} of {len(parse_err)} lone "
+          "windows")
     for k_l, err_l in lone_err.items():
         kern = "enc_deep_match_wide" if "deep=3" in k_l else "enc_match_wide"
         if kern == "enc_deep_match_wide":
@@ -3967,7 +4144,9 @@ if __name__ == "__main__":
                  else time_decode_kernels()
                  if sys.argv[1:] == [DECODE_FLAG]
                  else time_wide_spread()
-                 if sys.argv[1:] == [SPREAD_FLAG] else main())
+                 if sys.argv[1:] == [SPREAD_FLAG]
+                 else time_parse_spread(*sys.argv[2:3])
+                 if sys.argv[1:2] == [PARSE_SPREAD_FLAG] else main())
     except Failed as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         sys.exit(1)

@@ -60,7 +60,8 @@ def test_sources_name_no_jax():
         "encode_block.cu", "encode_common.cuh", "encode_deep.cu",
         "encode_deep.cuh", "encode_deep_wide.cu",
         "encode_wide.cu", "frag_common.cuh", "frag_decode.cu",
-        "linked_tmap.cu", "radix_cluster.cuh", "seq_decode.cu",
+        "linked_tmap.cu", "parse_cluster.cuh", "radix_cluster.cuh",
+        "seq_decode.cu",
         "serial_decode.cu", "sort_cluster.cuh", "sort_probe.cu",
         "sort_radix.cuh", "tmap_gather.cu"}
     files += [os.path.join(ROOT, "chip_smoke.py"),

@@ -54,7 +54,7 @@ KERNELS = {
                        "ops/jax_block.py:249"),
     "enc_parse_emit": ("zl4_enc_parse_emit", "encode_block.cu",
                        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _I],
+                        _I, _I, _I],
                        "ops/jax_block.py:522"),
     "enc_deep_match": ("zl4_enc_deep_match", "encode_deep.cu",
                        [_P, _P, _P, _P, _I, _I, _I, _I],

@@ -66,15 +66,21 @@
 //   (16 KB).  Bound: the one parsing thread's chain through shared memory,
 //   a few tens of cycles a chosen match, and the position-parallel phases'
 //   loads; not the bytes it must move.
+//   A launch of few windows (an insert call's one or two sub-span windows)
+//   takes the spread route instead (torch_block.parse_spread_shape):
+//   enc_parse_emit_spread_kernel, one thread-block cluster of C = 2..16
+//   CTAs of 1024 threads a window, the same four phases split by rows
+//   across the cluster (parse_cluster.cuh) and the same bytes.
 //
 // Built with -DZL4_STOP=k, a kernel stops after its k-th phase and stores
 // what that phase left, so that chip_smoke.py can time the phases one by
 // one; the library is built without it.  enc_match: 1 window words, 2 the
 // 12-byte sort, 3 the +-hc probes, 4 the s0 sort; the rest is the fallback
 // probes.  enc_match_fast: 1 window words, 2 the s0 sort; the rest is the
-// probes.  enc_parse_emit: 1 the chain, 2 the lazy mask, 3 the walk; the
-// rest is the emission.
+// probes.  enc_parse_emit (both routes): 1 the chain, 2 the lazy mask, 3 the
+// walk; the rest is the emission.
 
+#include "parse_cluster.cuh"
 #include "sort_radix.cuh"
 
 #ifdef ZL4_STOP
@@ -83,8 +89,15 @@
     keep;                       \
     return;                     \
   }
+#define ZL4_SPREAD_STOP(k, keep) \
+  if (ZL4_STOP == (k)) {          \
+    keep;                         \
+    cg::this_cluster().sync();    \
+    return;                       \
+  }
 #else
 #define ZL4_STOP_AFTER(k, keep)
+#define ZL4_SPREAD_STOP(k, keep)
 #endif
 
 namespace {
@@ -154,33 +167,54 @@ enc_match_fast_kernel(const uint8_t* __restrict__ data,
     out[s[t]] = pack(nearest(W, s, t, probes, nwin));
 }
 
-// Two-step lazy deferral (jax_block.py:684-710; lazy = HC only) into the
-// bit mask of the final match rows.
+// Row p (< blk) stays a match row after the two-step lazy deferral
+// (jax_block.py:684-710; lazy = HC only); ld(q) reads M[q].
+template <class Ld>
+__device__ __forceinline__ bool match_keep(Ld ld, int p, int blk, int lazy) {
+  int m[5];
+  bool im[5];
+  for (int k = 0; k < 5; ++k) {
+    const int v = p + k < blk ? ld(p + k) : 0;
+    m[k] = v & kMlMask;
+    im[k] = (v & kImBit) != 0;
+  }
+  const bool g1 = im[1] && m[1] > m[0] + 1;
+  const bool g2 = im[2] && m[2] > m[0] + 2;
+  const bool d0_1 = (im[2] && m[2] > m[1] + 1) || (im[3] && m[3] > m[1] + 2);
+  const bool d0_2 = (im[3] && m[3] > m[2] + 1) || (im[4] && m[4] > m[2] + 2);
+  const bool defer =
+      lazy && im[0] && ((g1 && !d0_1) || (g2 && !d0_2 && (d0_1 || !im[1])));
+  return im[0] && !defer;
+}
+
+// The lazy deferral into the bit mask of the final match rows.
 __device__ void match_mask(const int32_t* M, int blk, int lazy,
                            uint32_t* imask) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll 4
   for (int base = warp * 32; base < blk; base += kParseThreads) {
     const int p = base + lane;
-    bool keep = false;
-    if (p < blk) {
-      int m[5];
-      bool im[5];
-      for (int k = 0; k < 5; ++k) {
-        const int v = p + k < blk ? M[p + k] : 0;
-        m[k] = v & kMlMask;
-        im[k] = (v & kImBit) != 0;
-      }
-      const bool g1 = im[1] && m[1] > m[0] + 1;
-      const bool g2 = im[2] && m[2] > m[0] + 2;
-      const bool d0_1 = (im[2] && m[2] > m[1] + 1) || (im[3] && m[3] > m[1] + 2);
-      const bool d0_2 = (im[3] && m[3] > m[2] + 1) || (im[4] && m[4] > m[2] + 2);
-      const bool defer =
-          lazy && im[0] && ((g1 && !d0_1) || (g2 && !d0_2 && (d0_1 || !im[1])));
-      keep = im[0] && !defer;
-    }
+    const bool keep =
+        p < blk && match_keep([&](int q) { return M[q]; }, p, blk, lazy);
     const unsigned bits = __ballot_sync(0xFFFFFFFFu, keep);
     if (lane == 0) imask[base >> 5] = bits;
+  }
+  __syncthreads();
+}
+
+// The same over a slice of the spread route; the next slice's first rows
+// were written by another CTA before a cluster barrier (L2 reads).
+__device__ void match_mask_slice(const Slice& s, const int32_t* M, int lazy,
+                                 uint32_t* imask) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll 4
+  for (int w = warp; w < s.nwl; w += kSpreadWarps) {
+    const int p = ((s.wlo + w) << 5) + lane;
+    const bool keep = p < s.blk && match_keep([&](int q) {
+                        return __ldcg(M + q);
+                      }, p, s.blk, lazy);
+    const unsigned bits = __ballot_sync(0xFFFFFFFFu, keep);
+    if (lane == 0) imask[w] = bits;
   }
   __syncthreads();
 }
@@ -194,6 +228,18 @@ struct ParseEntries {
   __device__ __forceinline__ Entry operator()(int i) const {
     const int p = L[i];
     return {p, p + (M[p] & kMlMask), p - F.cand(p), F.pk[p] & 3};
+  }
+};
+
+// The same on the spread route, whose list and lengths other CTAs of the
+// cluster wrote (L2 reads).
+struct SpreadEntries {
+  const int32_t* L;
+  const int32_t* M;
+  Fields F;
+  __device__ __forceinline__ Entry operator()(int i) const {
+    const int p = __ldcg(L + i);
+    return {p, p + (__ldcg(M + p) & kMlMask), p - F.cand(p), F.pk[p] & 3};
   }
 };
 
@@ -235,6 +281,65 @@ enc_parse_emit_kernel(const uint8_t* __restrict__ data,
 
   emit_entries(ParseEntries{L, M, F}, cnt, row, n, start, o, cap, R,
                out_len + b, tmp);
+}
+
+// enc_parse_emit's spread route: one window a cluster of C CTAs of
+// kSpreadThreads threads, its rows in C slices (parse_cluster.cuh).
+__global__ void __launch_bounds__(kSpreadThreads, 1)
+enc_parse_emit_spread_kernel(const uint8_t* __restrict__ data,
+                             const int32_t* __restrict__ lens,
+                             const int32_t* __restrict__ starts,
+                             const int32_t* __restrict__ pk,
+                             int32_t* __restrict__ mlw,
+                             int32_t* __restrict__ runs,
+                             uint8_t* __restrict__ out,
+                             int32_t* __restrict__ out_len, int blk, int cap,
+                             int runcap, int capped_ml, int lazy) {
+  extern __shared__ uint32_t sm[];
+  __shared__ SpreadShared sh;
+  const Slice s = make_slice(blk);
+  // the slice's mask (boundaries, then match rows) and the next set bit
+  // after each of its words; each row's successor; the speculative path
+  // and each row's place on it
+  uint32_t* mask = sm;
+  int* nxt = reinterpret_cast<int*>(sm + s.wpc);
+  int* succ = nxt + s.wpc;
+  int* spec = succ + 32 * s.wpc;
+  uint16_t* on = reinterpret_cast<uint16_t*>(spec + 8 * s.wpc + 1);
+  const int b = blockIdx.x / s.C;
+  const int n = min(max(lens[b], 0), blk);
+  const int start = min(max(starts[b], 0), n);
+  const uint8_t* row = data + (size_t)b * blk;
+  const Fields F{pk + (size_t)b * blk, n, blk, capped_ml, 0};
+  int32_t* M = mlw + (size_t)b * blk;
+  int32_t* L = runs + (size_t)b * runcap;  // chosen rows, blk / 4 + 1
+  int32_t* R = L + blk / 4 + 1;            // literal runs (src, dst, len)
+  uint8_t* o = out + (size_t)b * cap;
+
+  chain_cluster(s, F, start, M, mask, nxt, sh);
+  cg::this_cluster().sync();  // every length, before the next slice's reads
+  ZL4_SPREAD_STOP(1, )
+  match_mask_slice(s, M, lazy, mask);
+  next_after_cluster(s, mask, nxt, sh, &sh.first[1]);
+  cg::this_cluster().sync();  // every slice's mask, before the successors
+  ZL4_SPREAD_STOP(2, for (int w = threadIdx.x; w < s.nwl; w += kSpreadThreads)
+                         L[s.wlo + w] = nxt[w])
+  const int cnt = walk_cluster(s, M, mask, nxt, succ, spec, on, L, sh);
+  ZL4_SPREAD_STOP(3, )
+
+  emit_cluster(s, SpreadEntries{L, M, F}, cnt, row, n, start, o, cap, R,
+               out_len + b, sh);
+}
+
+unsigned raised_spread;  // devices whose spread-route limits are raised
+
+// The spread route's launch of B windows of blk rows in clusters of C CTAs.
+cudaError_t spread_launch(int B, int blk, int C, void* stream,
+                          cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  return cluster_launch(enc_parse_emit_spread_kernel, &raised_spread,
+                        spread_smem(kSpreadMaxRows / 32), B, C,
+                        kSpreadThreads, spread_smem(spread_words(blk, C)),
+                        stream, cfg, attr);
 }
 
 }  // namespace
@@ -282,15 +387,30 @@ extern "C" int zl4_enc_parse_emit(const void* data, const void* lens,
                                   const void* starts, const void* pk, void* mlw,
                                   void* runs, void* out, void* out_len, int B,
                                   int blk, int cap, int runcap, int capped_ml,
-                                  int lazy, void* stream) {
+                                  int lazy, int C, void* stream) {
   // runcap: ints per window of ``runs``: the chosen rows, then the literal
   // runs, 3 ints each.  A window has at most blk / 4 + 1 chosen rows (each
   // match covers >= 4 bytes), so at most blk / 4 + 2 runs.  Windows over
   // 64 KB (enc_match_wide's) are taken up to the candidate pack's 2^19:
-  // the 20-bit length field (kMlMask) holds any ml < blk.
+  // the 20-bit length field (kMlMask) holds any ml < blk.  C: 1, one CTA
+  // of kParseThreads a window, or the spread route's CTAs a window.
   if (B <= 0 || blk <= 0 || blk >= (1 << 19) ||
-      runcap < (blk / 4 + 1) + 3 * (blk / 4 + 2))
+      runcap < (blk / 4 + 1) + 3 * (blk / 4 + 2) ||
+      (C != 1 && !spread_shape_ok(blk, C)))
     return (int)cudaErrorInvalidValue;
+  if (C > 1) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t err = spread_launch(B, blk, C, stream, &cfg, &attr);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaLaunchKernelEx(
+        &cfg, enc_parse_emit_spread_kernel, (const uint8_t*)data,
+        (const int32_t*)lens, (const int32_t*)starts, (const int32_t*)pk,
+        (int32_t*)mlw, (int32_t*)runs, (uint8_t*)out, (int32_t*)out_len, blk,
+        cap, runcap, capped_ml, lazy);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
   // the two masks' words: the mask, the next set bit after each word; the
   // walk's two staged spans
   const int nw = (blk + 31) / 32;
@@ -298,10 +418,27 @@ extern "C" int zl4_enc_parse_emit(const void* data, const void* lens,
   cudaError_t err = cudaFuncSetAttribute(
       enc_parse_emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   enc_parse_emit_kernel<<<B, kParseThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)data, (const int32_t*)lens, (const int32_t*)starts,
       (const int32_t*)pk, (int32_t*)mlw, (int32_t*)runs, (uint8_t*)out,
       (int32_t*)out_len, blk, cap, runcap, capped_ml, lazy);
   return (int)cudaGetLastError();
+}
+
+// The spread route's shape for blk-row windows in clusters of C CTAs on the
+// current device: out[0] bytes of shared memory a CTA, out[1] the clusters
+// the card holds at once (cudaOccupancyMaxActiveClusters; 0 means the
+// shape cannot be scheduled).
+extern "C" int zl4_enc_parse_emit_shape(int blk, int C, int* out) {
+  if (blk <= 0 || blk >= (1 << 19) || !spread_shape_ok(blk, C))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = spread_launch(1, blk, C, nullptr, &cfg, &attr);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = (int)cfg.dynamicSmemBytes;
+  return (int)cudaOccupancyMaxActiveClusters(&out[1],
+                                             enc_parse_emit_spread_kernel,
+                                             &cfg);
 }

@@ -7,7 +7,8 @@
 // of enc_parse_emit and enc_deep_dp, and what enc_parse_emit and
 // enc_deep_emit share: the block scans, the greedy walk through successors
 // staged in shared memory, and the emission placed by block scans over a
-// list of entries (emit_entries).
+// list of entries (emit_entries), whose sequences enc_parse_emit's spread
+// route (parse_cluster.cuh) writes too.
 
 #pragma once
 
@@ -285,6 +286,42 @@ __device__ void copy_runs(const uint8_t* row, const int32_t* R, int nr,
 // bytes past them, as LE u32.
 inline int window_words(int blk) { return (blk + kPad) / 4 + 1; }
 
+// The launch of B windows in clusters of C CTAs of nt threads, smem bytes
+// of dynamic shared memory a CTA, with the kernel's shared-memory limit
+// (max_smem) and non-portable cluster size (16 is past the portable 8)
+// allowed once per device: bit d of *raised.
+template <class... Args>
+cudaError_t cluster_launch(void (*kernel)(Args...), unsigned* raised,
+                           size_t max_smem, int B, int C, int nt, size_t smem,
+                           void* stream, cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 32 && !(*raised >> dev & 1u)) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)max_smem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    *raised |= 1u << dev;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)B * (unsigned)C);
+  cfg->blockDim = dim3(nt);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
 constexpr int kStage = 2048;   // rows of successors the walk stages at a time
 constexpr int kShortRun = 32;  // literal runs shorter go byte by byte
 
@@ -301,15 +338,15 @@ struct SumOp {
   }
 };
 
-// Inclusive scan of v over the block's kParseThreads threads under op, with
-// the block's total, and where ``excl`` is given the exclusive scan (the
-// identity Op::kId before the first thread); tmp: kParseThreads / 32
-// elements of shared memory.
-template <class Op>
+// Inclusive scan of v over the block's NT threads under op, with the
+// block's total, and where ``excl`` is given the exclusive scan (the
+// identity Op::kId before the first thread); tmp: NT / 32 elements of
+// shared memory.
+template <class Op, int NT = kParseThreads>
 __device__ __forceinline__ int block_scan(int v, int* tmp, Op op, int& total,
                                           int* excl = nullptr) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int nw = kParseThreads / 32;
+  constexpr int nw = NT / 32;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     const int x = __shfl_up_sync(0xFFFFFFFFu, v, o);
@@ -417,85 +454,123 @@ struct Entry {
   int p, e, off, back;
 };
 
+// Entry y runs on into x: x starts at y's end at the same offset.
+__device__ __forceinline__ bool continues(const Entry& y, const Entry& x) {
+  return y.e == x.p && y.off == x.off;
+}
+
+// One sequence: its literal run of lit bytes from row[ls], its match
+// length mml, and its bytes.
+struct Seq {
+  int ls, lit, mml, size;
+};
+
+// The sequence of the merged group of entries h..i, x = E(i): the literal
+// run from the previous entry's end (or start), extended back over <= back
+// literals, and the match to x's end.
+template <class Entries>
+__device__ __forceinline__ Seq group_seq(const Entries& E, int h,
+                                         const Entry& x, int start) {
+  const Entry g = E(h);
+  const int prev_end = h > 0 ? max(E(h - 1).e, start) : start;
+  const int bq = max(min(min(g.back, g.p - prev_end), g.p - x.off), 0);
+  Seq s;
+  s.ls = prev_end;
+  s.lit = g.p - bq - prev_end;
+  s.mml = x.e - (g.p - bq);
+  s.size = 1 + len_bytes(s.lit - 15) + s.lit + 2 + len_bytes(s.mml - 19);
+  return s;
+}
+
+// Sequence s at offset off written at o[q]: token, 255-escapes, the
+// literal run (literal_run), LE offset, 255-escapes.
+__device__ __forceinline__ void write_seq(const Seq& s, int off,
+                                          const uint8_t* row, uint8_t* o,
+                                          int q, int32_t* R, int* nlong) {
+  o[q++] = (uint8_t)((min(s.lit, 15) << 4) | min(s.mml - 4, 15));
+  if (s.lit >= 15) put_len(o, q, s.lit - 15);
+  literal_run(row, s.ls, o, q, s.lit, R, nlong);
+  q += s.lit;
+  o[q++] = (uint8_t)(off & 0xFF);
+  o[q++] = (uint8_t)(off >> 8);
+  if (s.mml - 4 >= 15) put_len(o, q, s.mml - 19);
+}
+
+// The tail literal run, from the last entry's end (or start) to n, written
+// at o[q] when n > start; returns out_len.
+template <class Entries>
+__device__ __forceinline__ int write_tail(const Entries& E, int cnt,
+                                          const uint8_t* row, int n,
+                                          int start, uint8_t* o, int q,
+                                          int32_t* R, int* nlong) {
+  if (n > start) {
+    const int tail = cnt > 0 ? max(E(cnt - 1).e, start) : start;
+    const int lit = n - tail;
+    o[q++] = (uint8_t)(min(lit, 15) << 4);
+    if (lit >= 15) put_len(o, q, lit - 15);
+    literal_run(row, tail, o, q, lit, R, nlong);
+    q += lit;
+  }
+  return q;
+}
+
+// The tiles of NT entries, one a thread, of entries [a, b) of a list of
+// cnt, after the entries before a, whose last head is carry_head (-1 or
+// less: none) and whose groups fill q0 bytes: an entry merges into the one
+// before it when it starts at that one's end at the same offset; the last
+// entry of each merged group finds its head by a block max-scan, computes
+// the group's sequence (group_seq), and a block sum-scan of the groups'
+// sizes places it.  Writes the groups that end in [a, b) when kWrite.
+// Returns their bytes.  tmp: NT / 32 ints of shared memory.
+template <bool kWrite, int NT, class Entries>
+__device__ int emit_tiles(const Entries& E, int a, int b, int cnt, int start,
+                          int carry_head, int q0, const uint8_t* row,
+                          uint8_t* o, int32_t* R, int* nlong, int* tmp) {
+  int q_run = q0;
+  for (int t0 = a; t0 < b; t0 += NT) {
+    const int i = t0 + threadIdx.x;
+    Entry x{0, 0, 0, 0};
+    bool head = false, last = false;
+    if (i < b) {
+      x = E(i);
+      head = i == 0 || !continues(E(i - 1), x);
+      last = i + 1 >= cnt || !continues(x, E(i + 1));
+    }
+    int tot_h, tot_o;
+    const int h = max(carry_head, block_scan<MaxOp, NT>(head ? i : -1, tmp,
+                                                        MaxOp{}, tot_h));
+    Seq g{0, 0, 0, 0};
+    if (last) g = group_seq(E, h, x, start);  // the group h..i
+    const int q = q_run + block_scan<SumOp, NT>(g.size, tmp, SumOp{}, tot_o) -
+                  g.size;
+    if (kWrite && last) write_seq(g, x.off, row, o, q, R, nlong);
+    carry_head = max(carry_head, tot_h);
+    q_run += tot_o;
+  }
+  return q_run - q0;
+}
+
 // Sequence emission (jax_block.py:871-1103) of one window from its cnt
-// entries E(0), ..., E(cnt - 1), in tiles of kParseThreads entries, one a
-// thread: an entry merges into the one before it when it starts at that
-// one's end at the same offset; the last entry of each merged group finds
-// its head by a block max-scan, computes the group's literal run (from the
-// previous entry's end, or start, extended back over <= back literals) and
-// its header bytes (255-escapes, LE offset), and a block sum-scan of the
-// groups' sizes places it.  A literal run shorter than kShortRun is copied
-// by the thread that writes its header; longer ones (the tail's too) are
-// listed in R (src, dst, len; blk / 4 + 2 runs at most) and copied by all
-// warps, with the zeros past out_len up to cap.  Writes *olen.  E is an
-// accessor: E(i) returns entry i; tmp: kParseThreads / 32 ints of shared
-// memory.
+// entries E(0), ..., E(cnt - 1) (emit_tiles over all of them, kParseThreads
+// a tile).  A literal run shorter than kShortRun is copied by the thread
+// that writes its header; longer ones (the tail's too) are listed in R
+// (src, dst, len; blk / 4 + 2 runs at most) and copied by all warps, with
+// the zeros past out_len up to cap.  Writes *olen.  E is an accessor: E(i)
+// returns entry i; tmp: kParseThreads / 32 ints of shared memory.
 template <class Entries>
 __device__ void emit_entries(const Entries& E, int cnt, const uint8_t* row,
                              int n, int start, uint8_t* o, int cap,
                              int32_t* R, int32_t* olen, int* tmp) {
   __shared__ int s_nlong, s_olen;
-  const int tid = threadIdx.x;
-  if (tid == 0) s_nlong = 0;  // read after the next barrier
-  int carry_head = -1, carry_out = 0;  // before this tile
-  for (int t0 = 0; t0 < cnt; t0 += kParseThreads) {
-    const int i = t0 + tid;
-    Entry x{0, 0, 0, 0};
-    bool head = false, last = false;
-    if (i < cnt) {
-      x = E(i);
-      head = true;
-      if (i > 0) {  // continues the previous entry at the same offset
-        const Entry y = E(i - 1);
-        head = !(y.e == x.p && y.off == x.off);
-      }
-      last = true;
-      if (i + 1 < cnt) {
-        const Entry z = E(i + 1);
-        last = !(z.p == x.e && z.off == x.off);
-      }
-    }
-    int tot_h, tot_o;
-    const int h = max(carry_head,
-                      block_scan(head ? i : -1, tmp, MaxOp{}, tot_h));
-    int lit = 0, mml = 0, ls = 0, size = 0;
-    if (last) {  // the group h..i: one sequence
-      const Entry g = E(h);
-      const int prev_end = h > 0 ? max(E(h - 1).e, start) : start;
-      const int bq = max(min(min(g.back, g.p - prev_end), g.p - x.off), 0);
-      ls = prev_end;
-      lit = g.p - bq - prev_end;
-      mml = x.e - (g.p - bq);
-      size = 1 + len_bytes(lit - 15) + lit + 2 + len_bytes(mml - 19);
-    }
-    int q = carry_out + block_scan(size, tmp, SumOp{}, tot_o) - size;
-    if (last) {
-      o[q++] = (uint8_t)((min(lit, 15) << 4) | min(mml - 4, 15));
-      if (lit >= 15) put_len(o, q, lit - 15);
-      literal_run(row, ls, o, q, lit, R, &s_nlong);
-      q += lit;
-      o[q++] = (uint8_t)(x.off & 0xFF);
-      o[q++] = (uint8_t)(x.off >> 8);
-      if (mml - 4 >= 15) put_len(o, q, mml - 19);
-    }
-    carry_head = max(carry_head, tot_h);
-    carry_out += tot_o;
-  }
+  if (threadIdx.x == 0) s_nlong = 0;  // read after the next barrier
+  const int size = emit_tiles<true, kParseThreads>(
+      E, 0, cnt, cnt, start, -1, 0, row, o, R, &s_nlong, tmp);
 
   // the tail literal run (one thread), then the long literal runs by all
   // warps and zeros past out_len
-  if (tid == 0) {
-    int q = carry_out;
-    if (n > start) {
-      const int tail = cnt > 0 ? max(E(cnt - 1).e, start) : start;
-      const int lit = n - tail;
-      o[q++] = (uint8_t)(min(lit, 15) << 4);
-      if (lit >= 15) put_len(o, q, lit - 15);
-      literal_run(row, tail, o, q, lit, R, &s_nlong);
-      q += lit;
-    }
-    s_olen = q;
-    *olen = q;
+  if (threadIdx.x == 0) {
+    s_olen = write_tail(E, cnt, row, n, start, o, size, R, &s_nlong);
+    *olen = s_olen;
   }
   __syncthreads();
   copy_runs(row, R, s_nlong, o, s_olen, cap);

@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "encode_common.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -305,38 +307,14 @@ __device__ void wide_sort_ranks(const WideOrder& o, const int32_t* x,
     wide_pass<J>(o, RankByte{x, step * (nk - 1 - i / 3), o.rows, i % 3});
 }
 
-// The launch of B windows in clusters of C CTAs holding 1024 Jr rows each,
-// with the kernel's shared-memory limit and non-portable cluster size (16
-// is past the portable 8) allowed once per device.
+// The launch of B windows in clusters of C CTAs holding 1024 Jr rows each
+// (cluster_launch), the kernel's shared-memory limit raised for J.
 template <class... Args>
 cudaError_t wide_launch(void (*kernel)(Args...), unsigned* raised, int J,
                         int B, int C, int Jr, void* stream,
                         cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 32 && !(*raised >> dev & 1u)) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)wide_smem(J));
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-    *raised |= 1u << dev;
-  }
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3((unsigned)B * (unsigned)C);
-  cfg->blockDim = dim3(kWideThreads);
-  cfg->dynamicSmemBytes = wide_smem(Jr);
-  cfg->stream = (cudaStream_t)stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = (unsigned)C;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return cudaSuccess;
+  return cluster_launch(kernel, raised, wide_smem(J), B, C, kWideThreads,
+                        wide_smem(Jr), stream, cfg, attr);
 }
 
 }  // namespace

@@ -35,7 +35,11 @@ and, for the deep levels, ``kernels/csrc/encode_deep.cu``):
 * ``enc_parse_emit`` -- same-offset chain extension, the ``n - 5``
   clamp, two-step lazy deferral (HC only), the greedy parse (one thread,
   reading lengths staged in shared memory) and the emission of the LZ4
-  sequences, placed by block scans over the chosen rows.
+  sequences, placed by block scans over the chosen rows.  A launch of
+  few windows spreads each window over a thread-block cluster of up to
+  16 CTAs (``parse_spread_shape``; ``kernels/csrc/parse_cluster.cuh``):
+  the same phases split by rows, the walk as one speculative path a
+  slice joined by a fix-up.
 * ``enc_deep_match`` (``deep`` 1..3) -- the finder of the deep levels:
   exact 32-byte ranks (and 256-byte ranks at ``deep=3``), the grand
   grouping sort by the deepest tier operands, +-1..+-hc probes with
@@ -86,7 +90,7 @@ __all__ = ["level_params", "fast_params", "device_encoder_supports",
            "match_candidates_plain", "parse_emit", "parse_emit_plain",
            "deep_dp", "deep_dp_plain", "deep_emit", "deep_emit_plain",
            "tier_lengths", "wide_cluster_shape", "wide_spread_shape",
-           "wide_launch_shape",
+           "wide_launch_shape", "parse_spread_shape",
            "hc_probes", "make_block_encoder", "make_block_decoder",
            "decode_blocks", "parse_sequences", "seqs_to_arrays",
            "MAX_SEQS"]
@@ -908,6 +912,55 @@ def wide_launch_shape(blk: int, deep: int = 0) -> dict:
             "smem_bytes": smem, "active_clusters": active}
 
 
+#: rows a slice of ``enc_parse_emit``'s spread route holds at most: its
+#: staged successors, speculative path and the places on it fill 174 KB
+#: of a CTA's shared memory there
+_SPREAD_MAX_ROWS = 24_576
+
+
+def parse_spread_shape(blk: int, windows: int, active) -> int:
+    """CTAs a window of ``enc_parse_emit``'s launch of ``windows``
+    windows of ``blk`` bytes: the widest power of two C from 16 down to
+    2 at which a slice of the window's rows (``32 * ceil(ceil(blk / 32)
+    / C)``) holds at most ``_SPREAD_MAX_ROWS`` rows and ``active(C)``,
+    the clusters of C CTAs of 1024 threads the card holds at once, takes
+    every window of the launch; else 1, one CTA of 256 threads a window.
+    A launch of one or two windows so spreads each window's parse over up
+    to 16 SMs (an insert call's lone 69,632-byte window: 16 slices of
+    4,352 rows); a launch of many windows, which fills the card with one
+    CTA a window, keeps that launch.  The bytes do not depend on C."""
+    C = _WIDE_MAX_CLUSTER
+    while C > 1:
+        if _spread_fits(blk, C) and active(C) >= windows:
+            return C
+        C //= 2
+    return 1
+
+
+def _spread_fits(blk: int, C: int) -> bool:
+    """A slice of a ``blk``-row window over C CTAs holds at most
+    ``_SPREAD_MAX_ROWS`` rows (whole 32-row words)."""
+    words = -(-blk // 32)
+    return 32 * -(-words // C) <= _SPREAD_MAX_ROWS
+
+
+@functools.lru_cache(maxsize=None)
+def _parse_active(device: int, blk: int, C: int) -> int:
+    """The clusters of C CTAs of ``enc_parse_emit``'s spread route that
+    CUDA device ``device`` holds at once at ``blk``-byte windows
+    (``cudaOccupancyMaxActiveClusters``), asked once a (device, blk,
+    C)."""
+    out = (ctypes.c_int * 2)()   # shared memory a CTA, clusters at once
+    fn = library().zl4_enc_parse_emit_shape
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(blk, C, out)
+    if err:
+        raise RuntimeError(f"parse launch shape: CUDA error {err}")
+    return out[1]
+
+
 def _check_pk(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
     if t.shape != like.shape or t.dtype != torch.int32:
         raise TypeError(f"{name} must be int32[B, blk]")
@@ -970,7 +1023,9 @@ def parse_emit(blocks: torch.Tensor, lens: torch.Tensor,
                starts: torch.Tensor, pk: torch.Tensor,
                hc: int = 9, accel: int = 1):
     """Parse and emission; the ``enc_parse_emit`` kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, one CTA a window or, for a launch of few windows, the
+    cluster ``parse_spread_shape`` gives (counted in
+    ``enc.spread_parses``); the plain version for CPU tensors."""
     if blocks.device.type == "cpu":
         return parse_emit_plain(blocks, lens, starts, pk, hc, accel)
     W, _probes = _finder(hc, 0, accel)
@@ -990,9 +1045,13 @@ def parse_emit(blocks: torch.Tensor, lens: torch.Tensor,
     runs = torch.empty((B, (blk // 4 + 1) + 3 * (blk // 4 + 2)),
                        dtype=torch.int32, device=dev)
     if B:
+        C = parse_spread_shape(blk, B, functools.partial(
+            _parse_active, blocks.get_device(), blk))
+        if C > 1:
+            trace.count("enc.spread_parses", B)
         launch("enc_parse_emit", blocks, lens, starts, pk, mlw, runs,
                out, out_len, B, blk, cap, runs.shape[1], 4 + 4 * W,
-               int(hc > 0))
+               int(hc > 0), C)
     return out, out_len
 
 
