@@ -37,8 +37,14 @@ ROOT = os.path.dirname(HERE)
 #: JAX package (compared whole: the port's name only begins with it)
 FORBIDDEN = ("jax", "jaxlib", "flax", "zig_lz4_tpu")
 #: the numbers compared that decide ``correct``, each with its limit:
-#: exact comparisons of bytes, so every limit is 0
-LIMITS = {"requests_failed": 0, "frames_bad": 0, "outputs_bad": 0}
+#: exact counts, so every limit is 0.  ``host_route_blocks`` counts the
+#: blocks the window's reads handed to the host frame layer instead of
+#: the device (``codec.routes["host"]``: the native runtime did not
+#: load); ``corrupt_reads_returned``, where the configuration states
+#: that a read verifies the content checksum, the reads of a frame
+#: whose stored checksum was altered that returned instead of raising
+LIMITS = {"requests_failed": 0, "frames_bad": 0, "outputs_bad": 0,
+          "host_route_blocks": 0, "corrupt_reads_returned": 0}
 #: source bytes of the distinct frames the reference judges after a run:
 #: all of them up to this, else a sample drawn from the seed (the
 #: largest frame always in it), so that judging stays shorter than the
@@ -128,9 +134,14 @@ def forbidden_modules() -> list[str]:
                   & set(FORBIDDEN))
 
 
-def codec_settings(config: dict) -> dict:
-    """``ShardedFrameCodec`` arguments for a configuration."""
-    if not config["independent_blocks"] or config.get("dictionary"):
+def codec_settings(config: dict, mix=None) -> dict:
+    """``ShardedFrameCodec`` arguments for a configuration.  One of
+    linked blocks is taken only for a ``mix`` that reads only: its
+    frames are written on the host (``host_frame``), and the codec only
+    decodes them.  Without a mix (the port's own tests call it so) the
+    codec has to write the frames."""
+    if not (config["independent_blocks"] or (mix and mix.reads_only)) \
+            or config.get("dictionary"):
         raise ValueError("the port's frame codec writes independent "
                          "blocks without a dictionary only")
     bsid = {v: k for k, v in reference.BLOCK_SIZES.items()}[
@@ -139,6 +150,58 @@ def codec_settings(config: dict) -> dict:
                 block_size_id=bsid,
                 content_checksum=config["content_checksum"],
                 block_checksum=config["block_checksum"])
+
+
+def host_frame(data: bytes, config: dict, args: dict) -> bytes:
+    """A frame of ``data`` as ``config`` states it, written by the
+    port's host frame layer (``zig_lz4_tpu_torch.frame``) with the codec
+    arguments ``args`` (level, block size, checksums): linked blocks
+    through its stream compressors, which keep the last 64 KB as
+    history, as ``lz4 -BD`` does.  The frame layer runs its fast codec
+    at levels up to 0 (acceleration 1 - level) and HC from 1; liblz4's
+    frame API runs levels below 3 on its fast path at acceleration 1,
+    so those are written at 0."""
+    from zig_lz4_tpu_torch import frame as lz4f
+    level = args["compression_level"]
+    info = lz4f.FrameInfo(
+        block_size_id=lz4f.BlockSizeID(args["block_size_id"]),
+        block_mode=(lz4f.BlockMode.independent if config["independent_blocks"]
+                    else lz4f.BlockMode.linked),
+        content_checksum=args["content_checksum"],
+        block_checksum=args["block_checksum"],
+        content_size=len(data) if config["content_size"] else 0)
+    return lz4f.compress_frame(data, lz4f.Preferences(
+        frame_info=info, compression_level=level if level >= 3
+        else min(level, 0)))
+
+
+def checksum_altered(frame: bytes) -> bytes | None:
+    """``frame`` with one bit of its stored content checksum flipped, or
+    None where its header declares no content checksum."""
+    try:
+        hdr, _p = reference.parse_header(frame)
+    except reference.FrameError:
+        return None
+    if not hdr.content_checksum:
+        return None
+    return frame[:-1] + bytes([frame[-1] ^ 0x01])
+
+
+def corrupt_reads_returned(codec, frames) -> int:
+    """How many of ``frames``, each with its stored content checksum
+    altered (``checksum_altered``), ``codec.decompress_frame`` returned
+    instead of rejecting."""
+    returned = 0
+    for frame in frames:
+        bad = checksum_altered(frame)
+        if bad is None:
+            continue
+        try:
+            codec.decompress_frame(bad)
+        except Exception:               # noqa: BLE001  rejected
+            continue
+        returned += 1
+    return returned
 
 
 def _nvidia_smi() -> str:
@@ -208,20 +271,29 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
     corpus = mix.corpus(seed)
     marks.append(("corpus", time.perf_counter()))
     view = memoryview(corpus)
-    args = codec_settings(config)
+    args = codec_settings(config, mix)
     args.update(settings or {})
     codec = zig_lz4_tpu_torch.ShardedFrameCodec(mesh=mesh, **args)
 
-    # set-up: a block of each size the requests write, compressed (and
-    # read back, where the mix reads)
     requests = mix.requests(seed, len(corpus))
     reads = mix.mix.get("decompress", 0) > 0
     last = last_block = None
-    for size in sorted({min(s, len(corpus)) for s in mix.size_cycle()}):
-        frame = codec.compress_frame(corpus[:size])
-        if reads:
+    frames: dict = {}          # block -> [[frame, calls that wrote it]]
+    if mix.reads_only:
+        # set-up: the frames the requests read, each written once on
+        # the host and read back once
+        for o, s in mix.setup_blocks(seed, len(corpus)):
+            frame = host_frame(corpus[o:o + s], config, args)
             codec.decompress_frame(frame)
-        last, last_block = frame, (0, size)
+            frames[(o, s)] = [[frame, 1]]
+    else:
+        # set-up: a block of each size the requests write, compressed
+        # (and read back, where the mix reads)
+        for size in sorted({min(s, len(corpus)) for s in mix.size_cycle()}):
+            frame = codec.compress_frame(corpus[:size])
+            if reads:
+                codec.decompress_frame(frame)
+            last, last_block = frame, (0, size)
     _synchronize(torch, cards)
     gc.collect()
     marks.append(("frames and warm-up", time.perf_counter()))
@@ -230,7 +302,6 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
     timed = wrap(codec) if wrap is not None else codec
 
     calls: list[Call] = []
-    frames: dict = {}          # block -> [[frame, calls that wrote it]]
     bad_outputs = 0
     routes: dict = {}
 
@@ -266,7 +337,11 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
                         held.append([frame, 1])
                     last, last_block = frame, block
             else:
-                frame, block = last, last_block
+                if mix.reads_only:
+                    block = (req.offset, req.size)
+                    frame = frames[block][0][0]
+                else:
+                    frame, block = last, last_block
                 ctx = tracing.record(f"dec#{n}") if traced else _Null()
                 a = time.perf_counter()
                 try:
@@ -293,18 +368,26 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
     _synchronize(torch, cards)
     dev = _device(torch, mesh.devices, cards)
     launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    # the judgement: the distinct frames the window wrote (all, or a
+    # sample drawn from the seed), by the reference; each read's output
+    # was compared with its source.  Where reads verify the content
+    # checksum, the timed codec reads each with that checksum altered
+    every = [((o, s), frame, n) for (o, s), held in frames.items()
+             for frame, n in held]
+    chosen = judged_sample([s for (_o, s), _f, _n in every], seed)
+    checks = {"host_route_blocks": routes.get("host", 0)}
+    if config.get("reads_verify_checksum"):
+        checks["corrupt_reads_returned"] = corrupt_reads_returned(
+            timed, [every[i][1] for i in chosen])
+        _log(f"corrupt reads: {checks['corrupt_reads_returned']} of "
+             f"{len(chosen)} frames with an altered content checksum "
+             f"returned")
     del codec, timed
     gc.collect()
     if cards:
         torch.cuda.empty_cache()
     smi = _nvidia_smi() if cards else "cpu"
 
-    # the judgement: the distinct frames the window wrote (all, or a
-    # sample drawn from the seed), by the reference; each read's output
-    # was compared with its source
-    every = [((o, s), frame, n) for (o, s), held in frames.items()
-             for frame, n in held]
-    chosen = judged_sample([s for (_o, s), _f, _n in every], seed)
     items = [(every[i][1], view[every[i][0][0]:sum(every[i][0])])
              for i in chosen]
     weights = [every[i][2] for i in chosen]
@@ -316,8 +399,9 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
     bad_frames = sum(w for w, r in zip(weights, reasons) if r)
     for r in sorted({r for r in reasons if r}):
         _log(f"frame rejected: {r}")
-    checks = {"requests_failed": sum(not c.ok for c in calls),
-              "frames_bad": bad_frames, "outputs_bad": int(bad_outputs)}
+    checks.update({"requests_failed": sum(not c.ok for c in calls),
+                   "frames_bad": bad_frames, "outputs_bad": int(bad_outputs)})
+    checks = {k: checks[k] for k in LIMITS if k in checks}
 
     peaks = _json("peaks.json")
     run = Run(calls, setup_s,
@@ -361,14 +445,14 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
     _log(f"set-up by part (s): {'; '.join(parts)}")
     _log(f"launches: {json.dumps(launches, sort_keys=True)}")
     _log(f"blocks by route: {json.dumps(routes, sort_keys=True)}")
-    result = {"correct": all(checks[k] <= LIMITS[k] for k in LIMITS),
+    result = {"correct": all(checks[k] <= LIMITS[k] for k in checks),
               "attempted": len(calls),
               "failed": checks["requests_failed"],
               "metrics": metrics, "device": dev}
     if traced:
         result["breakdown"] = run.trace.breakdown()
     result["checks"] = {k: {"value": checks[k], "limit": LIMITS[k]}
-                        for k in LIMITS}
+                        for k in checks}
     found = forbidden_modules()         # the readers have loaded too
     if found:
         raise SystemExit(f"forbidden modules loaded: {', '.join(found)}")

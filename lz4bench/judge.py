@@ -1,8 +1,14 @@
 """Runs the reference over the frames a run wrote, once the window has
 closed.  Large frames are judged in parts, in worker processes: the
-blocks of an independent frame in groups, and xxh32's four lanes apart;
-small frames each whole, in one task.  The parts are the reference's
-own functions; only the spreading over processes is here."""
+blocks of a frame in groups, and xxh32's four lanes apart; small frames
+each whole, in one task.  The parts are the reference's own functions;
+only the spreading over processes is here.
+
+A group of a linked frame decodes behind the source's 64 KB before its
+first block, in place of the groups before it.  The content equals the
+source exactly when every group's does: each group's own history is
+then the source's.  The judgement holds every block but the last at the
+block size, so a group starts where its source slice does."""
 
 from __future__ import annotations
 
@@ -15,10 +21,12 @@ __all__ = ["check_frames"]
 
 #: sources at least this long are judged in parts
 SPLIT_BYTES = 1 << 20
+#: the farthest back a match reaches: a linked group's history
+HISTORY = 1 << 16
 
 
-def _decode_group(records, independent, cap):
-    content, sizes = R.decode_records(records, independent, cap)
+def _decode_group(records, independent, cap, history):
+    content, sizes = R.decode_records(records, independent, cap, history)
     return bytes(content), sizes
 
 
@@ -86,9 +94,14 @@ def _submit(pool, frame, source, config, n):
         checksum, end = R.read_checksum(frame, p, hdr)
     except R.FrameError as exc:
         return ("error", str(exc))
-    groups = _groups(records, n) if hdr.independent else [records]
-    parts = [pool.submit(_decode_group, g, hdr.independent, hdr.block_max)
-             for g in groups]
+    parts, first = [], 0
+    for g in _groups(records, n):
+        start = first * hdr.block_max
+        history = b"" if hdr.independent else \
+            bytes(source[max(0, start - HISTORY):start])
+        parts.append(pool.submit(_decode_group, g, hdr.independent,
+                                 hdr.block_max, history))
+        first += len(g)
     lanes = [pool.submit(_lane, R.lane_words(source, k), k)
              for k in range(4)]
     return ("parts", (hdr, checksum, end, len(frame), parts, lanes, source))

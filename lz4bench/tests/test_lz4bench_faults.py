@@ -17,9 +17,11 @@ true for the sound run and false for each fault:
 ``MESH`` is such a cell, built here and not held in ``BENCHMARK.json``:
 ``hc9-64k.bulk``'s configuration and mix over a mesh of four devices,
 ``cpu`` four times on the CPU route.  Its frames have to equal the
-one-chip cell's byte for byte.  The same runs go on the card with the
-``cuda`` marker; a cell that needs more cards than are present skips
-there, by name."""
+one-chip cell's byte for byte.  ``READ`` decodes only: its faults are
+the decoder's, planted in what ``decompress_frame`` returns, and on the
+CPU its blocks are 64 KB, so that its small frame holds linked blocks.
+The same runs go on the card with the ``cuda`` marker; a cell that
+needs more cards than are present skips there, by name."""
 
 import pytest
 
@@ -27,11 +29,13 @@ from lz4bench import control, harness
 
 #: a cell of four chips over hc9-64k.bulk's configuration and mix
 MESH = "hc9-64k.mesh4"
-CELLS = ("hc9-64k.bulk", "l1-4m.bulk", "hits-hc9.insert", MESH)
+READ = "l1-4m-linked.read"
+CELLS = ("hc9-64k.bulk", "l1-4m.bulk", "hits-hc9.insert", MESH, READ)
 SMALL = {"hc9-64k.bulk": {"corpus_bytes": 96 << 10},
          "l1-4m.bulk": {"corpus_bytes": 96 << 10},
          "hits-hc9.insert": {"corpus_bytes": 256 << 10},
-         MESH: {"corpus_bytes": 256 << 10}}     # 4 blocks: a shard a device
+         MESH: {"corpus_bytes": 256 << 10},     # 4 blocks: a shard a device
+         READ: {"corpus_bytes": 256 << 10}}     # 4 linked blocks of 64 KB
 #: the bulk mix four times over (4 x 48 MiB), as a mesh of four cards
 #: would take it
 MESH_CORPUS = {"corpus_bytes": 4 * 48 << 20}
@@ -113,6 +117,8 @@ def _bench():
 
 
 def _small_config(cell):
+    if cell == READ:
+        return {"block_size": 64 << 10}
     if cell not in SMALL_TABLE:
         return None
     cfg = harness.cell_parts(_bench(), cell)[1]
@@ -206,9 +212,15 @@ def test_mesh_frames_equal_one_chips():
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_is_not_correct(cell):
     cfg = harness.cell_parts(_bench(), cell)[1]
-    r = _run(cell, settings=control.control_settings(cfg))
+    how = control.control_run(cfg)
+    r = _run(cell, **how)
     assert not r["correct"]
-    assert r["checks"]["frames_bad"]["value"] > 0
+    if "wrap" in how:           # the read verifies nothing; frames sound
+        assert r["checks"]["corrupt_reads_returned"]["value"] > 0
+        assert r["checks"]["frames_bad"]["value"] == 0
+        assert r["checks"]["outputs_bad"]["value"] == 0
+    else:
+        assert r["checks"]["frames_bad"]["value"] > 0
 
 
 def _cards(cell):

@@ -39,6 +39,16 @@ def test_failed_requests_take_time_and_give_no_bytes():
     assert _read("compress_gbps", Run(dec, 0)) is None
 
 
+def test_decompress_rate_over_the_reads():
+    calls = [Call("dec", 0.25, 500_000_000, 100_000_000, True, True),
+             Call("dec", 0.75, 0, 100_000_000, False, True),   # failed
+             Call("enc", 1.0, 1_000_000_000, 1, True, True),
+             Call("dec", 9.0, 500_000_000, 1, True, False)]    # after close
+    assert _read("decompress_gbps", Run(calls, 0)) == pytest.approx(0.5)
+    enc = [Call("enc", 1.0, 1_000_000_000, 1, True, True)]
+    assert _read("decompress_gbps", Run(enc, 0)) is None
+
+
 def test_stored_block_pct_from_the_ports_routes():
     run = Run([], 0, routes={"stored": 96, "tmap": 672})
     assert _read("stored_block_pct", run) == pytest.approx(12.5)
@@ -55,7 +65,11 @@ def _trace():
     """Two calls: a compress over [100, 200) us with kernels [110, 130)
     and [120, 140) (union 30 us) and an H2D copy [150, 160) of 4000
     bytes; a decompress over [300, 400) with a kernel [350, 390)."""
-    ev = [
+    return tracing.Trace(_trace_events(), {0: (1000, 300), 1: (2000, 400)})
+
+
+def _trace_events():
+    return [
         _ev("user_annotation", "lz4bench.window", 50, 400),
         _ev("user_annotation", "lz4bench.enc#0", 100, 100),
         _ev("user_annotation", "lz4bench.dec#1", 300, 100),
@@ -73,8 +87,6 @@ def _trace():
             tid=7, bytes=800),
         _ev("cuda_runtime", "cudaLaunchKernel", 110, 2),
     ]
-    calls = {0: (1000, 300), 1: (2000, 400)}
-    return tracing.Trace(ev, calls)
 
 
 def test_trace_spans_and_window():
@@ -102,6 +114,20 @@ def test_roofline_counts_bytes_over_summed_kernel_time():
     assert _read("enc_kernel_roofline", run) == pytest.approx(100 * 1.3 / 40)
     # no peak for the device: no reading, never 0
     assert _read("enc_kernel_roofline", Run([], 0, trace=_trace())) is None
+
+
+def test_decode_roofline_counts_the_decompress_kernels_alone():
+    run = Run([], 0, trace=_trace(), peak_bytes_per_s=1e9)
+    # dec: 2400 bytes at 1e9 B/s = 2.4 us, over its 40 us kernel; the
+    # compress span's kernels and the copy are not counted
+    assert _read("dec_kernel_roofline", run) == pytest.approx(100 * 2.4 / 40)
+    assert _read("dec_kernel_roofline", Run([], 0, trace=_trace())) is None
+    assert _read("dec_kernel_roofline", Run([], 0)) is None
+    no_dec = tracing.Trace([e for e in _trace_events()
+                            if e["name"] != "lz4bench.dec#1"],
+                           {0: (1000, 300), 1: (2000, 400)})
+    assert _read("dec_kernel_roofline",
+                 Run([], 0, trace=no_dec, peak_bytes_per_s=1e9)) is None
 
 
 def test_judged_sample():

@@ -1,9 +1,11 @@
 """The readers of the port's own spans and counters
 (``zig_lz4_tpu_torch.trace``): each against the value computed by hand
 from the recorder's raw spans and the staged shapes, after a small CPU
-run of the frame codec under ``trace.enable()``; None without a trace,
-with no ``compress_frame`` recorded, and with a port that has no
-recorder (the parent commit's)."""
+run of the frame codec under ``trace.enable()`` (compress and decompress
+for the ``enc_*`` readers, decodes of a linked frame for the ``dec_*``
+ones); None without a trace, with no ``compress_frame`` or
+``decompress_frame`` recorded, and with a port that has no recorder
+(the parent commit's)."""
 
 import sys
 
@@ -98,6 +100,70 @@ def test_none_without_trace_or_compress(name, recorded):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_none_from_a_port_without_the_recorder(name, monkeypatch):
+    import zig_lz4_tpu_torch
+    monkeypatch.delattr(zig_lz4_tpu_torch, "trace")
+    monkeypatch.setitem(sys.modules, "zig_lz4_tpu_torch.trace", None)
+    assert _read(name, Run([], 0.0, trace=object())) is None
+
+
+DEC_NAMES = {"dec_resolve_us": "dec.resolve", "dec_stage_us": "dec.stage"}
+
+
+@pytest.fixture
+def linked_reads():
+    """Two decodes of a linked frame of four 64 KB blocks (the host frame
+    layer's), recorded under ``enable()``; yields the spans."""
+    from zig_lz4_tpu_torch import frame as lz4f
+    text = (b"the quick brown fox jumps over the lazy dog " * 6000
+            )[:4 << 16]
+    frame = lz4f.compress_frame(text, lz4f.Preferences(
+        frame_info=lz4f.FrameInfo(block_size_id=lz4f.BlockSizeID.max64KB,
+                                  block_mode=lz4f.BlockMode.linked,
+                                  content_checksum=True)))
+    codec = sharded.ShardedFrameCodec(device="cpu")
+    trace.reset()
+    trace.enable()
+    try:
+        for _ in range(2):
+            assert codec.decompress_frame(frame) == text
+            assert codec.routes == {"linked": 4}
+        yield trace.spans()
+    finally:
+        trace.disable()
+        trace.reset()
+
+
+@pytest.mark.parametrize("name", sorted(DEC_NAMES))
+def test_decode_readers_against_the_recorder(name, linked_reads):
+    spans = linked_reads
+    calls = sum(s.name == "decompress_frame" for s in spans)
+    assert calls == 2
+    want = 1e-3 * sum(s.end_ns - s.start_ns for s in spans
+                      if s.name == DEC_NAMES[name]) / calls
+    got = _read(name, Run([], 0.0, trace=object()))
+    assert got == pytest.approx(want, rel=1e-9) and got > 0
+    assert _read(name, Run([], 0.0)) is None            # untraced run
+    trace.reset()
+    assert _read(name, Run([], 0.0, trace=object())) is None
+
+
+@pytest.mark.parametrize("name", sorted(DEC_NAMES))
+def test_decode_reader_none_without_decompress(name):
+    trace.reset()
+    trace.enable()
+    with trace.span("compress_frame"):
+        with trace.span("dec.resolve"):
+            pass
+    trace.disable()
+    try:
+        assert _read(name, Run([], 0.0, trace=object())) is None
+    finally:
+        trace.reset()
+
+
+@pytest.mark.parametrize("name", sorted(DEC_NAMES))
+def test_decode_reader_none_from_a_port_without_the_recorder(name,
+                                                             monkeypatch):
     import zig_lz4_tpu_torch
     monkeypatch.delattr(zig_lz4_tpu_torch, "trace")
     monkeypatch.setitem(sys.modules, "zig_lz4_tpu_torch.trace", None)

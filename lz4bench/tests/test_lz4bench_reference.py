@@ -137,6 +137,45 @@ def test_judge_in_parts_equals_whole(port_frame, monkeypatch):
     assert got[0] == "" and got[1] != "" and got[2] != ""
 
 
+def test_linked_frame_judged_in_parts_as_whole(monkeypatch):
+    """A linked frame's groups, each behind the source's 64 KB before
+    it, give the verdict the whole frame decoded in order gives."""
+    from lz4bench.corpus import make_corpus
+    from zig_lz4_tpu_torch import frame as lz4f
+    src = make_corpus(1 << 19, 17)[:400_000]
+    frame = lz4f.compress_frame(src, lz4f.Preferences(frame_info=lz4f.FrameInfo(
+        block_size_id=lz4f.BlockSizeID.max64KB,
+        block_mode=lz4f.BlockMode.linked, content_checksum=True,
+        content_size=len(src))))
+    cfg = dict(CFG64, independent_blocks=False)
+    hdr, p = R.parse_header(frame)
+    records, _end = R.read_blocks(frame, p, False)
+    assert len(records) == 7
+    with pytest.raises(R.FrameError):       # its blocks reach back
+        R.decode_records(records, True, hdr.block_max)
+    monkeypatch.setattr(judge, "SPLIT_BYTES", 1)
+    # a payload byte in the fifth block, another source, the other mode
+    at = p + sum(4 + len(pl) for pl, _st in records[:4]) + 4 + 200
+    items = [(frame, src), (_flip(frame, at), src),
+             (frame, src[:100_000] + bytes(300_000)),
+             (frame, src)]
+    configs = [cfg, cfg, cfg, CFG64]
+    for workers in (1, 3, 8):
+        got = [judge.check_frames([it], c, workers=0) if workers == 1 else
+               _in_groups(it, c, workers)
+               for it, c in zip(items, configs)]
+        want = [R.check_frame(f, s_, c) for (f, s_), c in zip(items, configs)]
+        assert [g[0] == "" for g in got] == [w == "" for w in want] == \
+            [True, False, False, False], workers
+
+
+def _in_groups(item, config, n):
+    """``check_frames`` of ``item`` cut into ``n`` groups, in this
+    process."""
+    job = judge._submit(judge._Inline(), item[0], item[1], config, n)
+    return [judge._collect(job, config)]
+
+
 def test_judge_worker_processes(port_frame, tmp_path):
     """The judge's worker processes start, judge and end."""
     frame, src = port_frame

@@ -87,8 +87,11 @@ def test_configs_found_by_name():
         assert cfg["reduced"] == c["reduced"] == []
         assert len(c["reduced"]) <= 16
         assert "assumed" in cfg
-        harness.codec_settings(cfg)             # the port takes it
-        assert any(w["config"] == c["name"] for w in BENCH["workloads"])
+        cells = [w["name"] for w in BENCH["workloads"]
+                 if w["config"] == c["name"]]
+        assert cells
+        for cell in cells:                      # the port takes it
+            harness.codec_settings(cfg, harness.cell_parts(BENCH, cell)[2])
 
 
 @pytest.mark.parametrize("cell", sorted(CELLS))

@@ -8,9 +8,9 @@ import pytest
 
 from lz4bench import harness
 from lz4bench.corpus import make_corpus
-from lz4bench.traffic import Mix, load_mix, part_block_sizes
+from lz4bench.traffic import Mix, Request, load_mix, part_block_sizes
 
-MIXES = ("bulk", "insert")
+MIXES = ("bulk", "insert", "read")
 HITS = json.load(open(os.path.join(harness.HERE, "configs",
                                    "clickhouse-hits-lz4hc9.json")))["table"]
 
@@ -75,6 +75,30 @@ def test_bulk_is_whole_round_trips():
     assert [r.kind for r in reqs] == ["compress", "decompress"] * 3
     assert all((r.offset, r.size) == (0, 1000) for r in reqs
                if r.kind == "compress")
+
+
+def test_read_decodes_the_frame_setup_writes():
+    mix = _mix("read")
+    assert mix.reads_only and not _mix("bulk").reads_only
+    assert mix.setup_blocks(5, 1000) == [(0, 1000)]
+    reqs = _head(mix, 5, 6, corpus_len=1000)
+    assert reqs == [Request("decompress", 0, 1000)] * 6
+
+
+def test_reads_only_mix_reads_each_setup_frame_in_a_seeded_order():
+    # the insert mix's blocks, read back instead of written
+    mix = Mix(dict(_mix("insert").params, corpus_bytes=6 << 18,
+                   mix={"compress": 0, "decompress": 2}), "t", HITS)
+    frames = mix.setup_blocks(11, 6 << 18)
+    assert frames == mix.setup_blocks(12, 6 << 18)      # a fixed layout
+    assert len(frames) == len(set(frames)) > 100
+    n = 2 * len(frames)
+    a, b = _head(mix, 11, 2 * n, 6 << 18), _head(mix, 12, 2 * n, 6 << 18)
+    assert {r.kind for r in a} == {"decompress"}
+    for cycle in (a[:n], a[n:], b[:n]):   # each frame twice a cycle
+        assert sorted((r.offset, r.size) for r in cycle) == sorted(frames * 2)
+    assert a[:n] != a[n:] and a != b
+    assert a == _head(mix, 11, 2 * n, 6 << 18)
 
 
 def _table(columns, **kw):

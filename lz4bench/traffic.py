@@ -22,7 +22,11 @@ A mix is ``traffic/<mix>.json``:
                   c + d requests holds c that compress a new block and d
                   that decompress the frame the last compress wrote,
                   in a seeded order, or compresses first where
-                  ``"ordered"`` is true.
+                  ``"ordered"`` is true.  A mix with c 0 reads only:
+                  set-up writes a frame of each block of one cycle of
+                  the size law (``setup_blocks``), and every cycle of
+                  requests decodes each of those frames d times, in an
+                  order drawn from the seed.
 
 The loop is closed: one caller sends a request when the last returned.
 """
@@ -30,6 +34,7 @@ The loop is closed: one caller sends a request when the last returned.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 
@@ -48,7 +53,9 @@ FIXED_ORDER = 0xC0FFEE
 @dataclasses.dataclass(frozen=True)
 class Request:
     """One request: ``compress`` of corpus bytes [offset, offset +
-    size), or ``decompress`` of the frame the last compress returned."""
+    size), or ``decompress`` of the frame the last compress returned --
+    in a mix that reads only, of the frame set-up wrote of corpus bytes
+    [offset, offset + size)."""
     kind: str
     offset: int = 0
     size: int = 0
@@ -94,6 +101,20 @@ class Mix:
             return [self.corpus_bytes]
         return part_block_sizes(self.table)
 
+    @property
+    def reads_only(self) -> bool:
+        """Whether no request compresses: the frames read are written
+        in set-up."""
+        return not self.mix.get("compress", 0)
+
+    def setup_blocks(self, seed: int, corpus_len: int) -> list:
+        """The (offset, size) of the blocks of one cycle of the size
+        law, each once: those whose frames a mix that reads only
+        writes in set-up."""
+        cycle = itertools.islice(self.blocks(seed, corpus_len),
+                                 len(self.size_cycle()))
+        return list(dict.fromkeys(cycle))
+
     def blocks(self, seed: int, corpus_len: int):
         """The (offset, size) of every block the compress requests
         write, endlessly."""
@@ -113,6 +134,21 @@ class Mix:
 
     def requests(self, seed: int, corpus_len: int):
         """The request sequence at ``seed``, endlessly."""
+        if self.reads_only:
+            return self._reads(seed, corpus_len)
+        return self._round_trips(seed, corpus_len)
+
+    def _reads(self, seed: int, corpus_len: int):
+        frames = self.setup_blocks(seed, corpus_len)
+        reads = frames * int(self.mix.get("decompress", 0))
+        if not reads:
+            raise ValueError(f"traffic {self.name}: empty mix")
+        rng = _rng(seed, 3)
+        while True:
+            for i in rng.permutation(len(reads)):
+                yield Request("decompress", *reads[i])
+
+    def _round_trips(self, seed: int, corpus_len: int):
         blocks = self.blocks(seed, corpus_len)
         rng = _rng(seed, 2)
         kinds = (["compress"] * int(self.mix.get("compress", 0))
